@@ -1,0 +1,44 @@
+"""Carry state from the JAX package into the port.
+
+The JAX tables' fields, given as numpy arrays (for example
+``{k: np.asarray(v) for k, v in jax_dt._asdict().items()}``), become the
+port's tables, so both engines can run on the very same tables. Fields the
+port does not use are ignored."""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .transport.dtable import DustTables
+from .transport.gtable import CartesianGeometry
+from .transport.stable import SourceTables
+
+
+def _build(cls, fields, device, dtype):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = fields[f.name]
+        if isinstance(v, np.ndarray) and v.ndim:
+            v = torch.tensor(v, device=device,
+                             dtype=dtype if v.dtype.kind == 'f' else None)
+        elif isinstance(v, np.ndarray):
+            v = v.item()
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def tables_from_numpy(dust, sources, geometry, device, dtype):
+    """(DustTables, SourceTables, CartesianGeometry) from dicts of numpy
+    fields of the JAX DustTables, SourceTables and CartesianGeometry."""
+    sources = dict(sources, energy_total=float(sources['energy_total']))
+    return (_build(DustTables, dust, device, dtype),
+            _build(SourceTables, sources, device, dtype),
+            _build(CartesianGeometry, geometry, device, dtype))
+
+
+def visit_state_from_numpy(last_uid_padded, n_cells):
+    """The JAX engine's padded last-uid table (the Pallas layout, rounded up
+    to 128 lanes) trimmed to the port's (n_cells + 1,) int32 table."""
+    return torch.as_tensor(
+        np.asarray(last_uid_padded)[:n_cells + 1].astype(np.int32))

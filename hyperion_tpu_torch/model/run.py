@@ -1,0 +1,230 @@
+"""Run a Model through the port and write its .rtout (counterpart of
+``hyperion_tpu/model/run.py``).
+
+The slice: a cartesian grid, point sources and point-source collections,
+any number of dust types, Lucy iterations with or without convergence
+checking, the minimum-specific-energy floor, ``enforce_energy_range``,
+sublimation and the probabilistic geometry self-check. Anything else
+raises ``NotImplementedError`` naming its ROADMAP.md item. The output
+layout is the JAX package's, read by the shared ``ModelOutput``;
+:func:`run_lucy_model` is the same run without the file, for machines
+without HDF5."""
+
+import datetime
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from hyperion_tpu.grid import CartesianGrid
+from hyperion_tpu.model.run import (_flatten_quantity, _write_grid_dataset,
+                                    bool2bytes)
+from hyperion_tpu.util.perf import PerfTable
+
+from ..device import engine_dtype, resolve_device
+from ..transport.dtable import build_dust_tables
+from ..transport.gtable import ESCAPED, build_cartesian_geometry
+from ..transport.lucy import run_lucy
+from ..transport.stable import build_source_tables
+
+
+def _check_slice(model):
+    """Refuse what the port does not run yet, naming its ROADMAP item."""
+    def refuse(what, item):
+        raise NotImplementedError("%s is not in the port yet: ROADMAP.md "
+                                  "queue 1 item %s" % (what, item))
+
+    if not isinstance(model.grid, CartesianGrid):
+        refuse("%s" % type(model.grid).__name__, "8 (spherical-polar) or 11")
+    if model.mrw:
+        refuse("the modified random walk", 8)
+    if model.pda:
+        refuse("the partial diffusion approximation", 8)
+    if model.specific_energy_spectrum_bins is not None:
+        refuse("specific_energy_spectrum binning", 8)
+    if 'specific_energy' in model.grid:
+        refuse("an initial specific energy in the grid", 7)
+    if model.peeled_output:
+        refuse("peeled images and SEDs", 9)
+    if model.binned_output is not None:
+        refuse("binned images", 10)
+
+
+def _density_array(model, length_scale, device, dtype):
+    """Per-dust densities as (n_dust, n_cells) in ENGINE units (times the
+    length scale, so chi*rho*ds is scale-free). Non-zero densities are
+    floored at 1e-30 engine units, which keeps float32 cells that the
+    reference (f64) sees as dusty from underflowing to dust-free."""
+    arr = _flatten_quantity(model.grid, 'density') * length_scale
+    arr = np.where(arr > 0.0, np.maximum(arr, 1e-30), 0.0)
+    return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def _validate_model(geometry, st, dt):
+    """Fail fast where the reference aborts at run time: a source outside
+    the grid, or a source spectrum beyond the dust frequency tables."""
+    pos = st.position
+    zero = torch.zeros_like(pos[:, 0])
+    cell = geometry.find_cell(pos[:, 0], pos[:, 1], pos[:, 2], zero, zero,
+                              zero + 1.0)
+    bad = (cell == ESCAPED).nonzero()
+    if len(bad):
+        i = int(bad[0, 0])
+        raise ValueError(
+            "photon was not emitted inside a cell: source %d at position %s "
+            "lies outside the grid"
+            % (i, pos[i].cpu().numpy() * geometry.length_scale))
+    nu_lo = float(dt.nu.min())
+    nu_hi = float(dt.nu.max())
+    spec = st.spec_nu.cpu().numpy().astype(float)
+    for i in range(spec.shape[0]):
+        if spec[i].min() < nu_lo * (1 - 1e-10) or \
+                spec[i].max() > nu_hi * (1 + 1e-10):
+            raise ValueError(
+                "photon frequency for source %d (range %.3e-%.3e Hz) is "
+                "outside the range defined (%.3e-%.3e Hz) for the dust "
+                "optical properties" % (i, spec[i].min(), spec[i].max(),
+                                        nu_lo, nu_hi))
+
+
+class ModelRun(NamedTuple):
+    """What :func:`run_lucy_model` computed, in memory."""
+    result: object        # transport.lucy.LucyResult, None without iterations
+    iterations: list      # per iteration: specific_energy, density, n_photons
+    density0: np.ndarray  # (n_dust, n_cells) physical density before the run
+    # one row per iteration: wall seconds, photons, steps, transport events,
+    # lanes, energy_current, killed_int, killed_geo
+    perf: PerfTable
+
+
+def run_lucy_model(model, device=None, batch_size=None, dtype=None):
+    """Run the model's Lucy iterations on ``device`` ('cuda', 'cpu', or None
+    for the card when there is one) and return a :class:`ModelRun`. This is
+    :func:`run_model` without the file: it needs no HDF5."""
+    device = resolve_device(device)
+    dtype = engine_dtype(device, dtype)
+    _check_slice(model)
+
+    dusts = model._dust_objects()
+    if not dusts:
+        raise Exception("Cannot run a model with no dust or density "
+                        "(pure-source models are not yet supported)")
+
+    geometry = build_cartesian_geometry(model.grid, device, dtype)
+    dt = build_dust_tables(dusts, device, dtype)
+    st = build_source_tables(model.sources, device, dtype,
+                             length_scale=geometry.length_scale,
+                             sample_evenly=model.sample_sources_evenly)
+    density = _density_array(model, geometry.length_scale, device, dtype)
+    _validate_model(geometry, st, dt)
+
+    n_initial = model.n_photons.get('initial', 0)
+    if batch_size is None:
+        batch_size = int(min(2 ** 17, max(4096, n_initial // 4)))
+    min_se = model._resolved_minimum_specific_energy(dusts)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(abs(model._seed) % (2 ** 31))
+
+    perf = PerfTable()
+    iterations = []
+    iter_t = [time.time()]
+
+    def callback(it, se, rho, n_photons_cell, stats):
+        now = time.time()
+        perf.add('lucy iteration %d' % it, now - iter_t[-1],
+                 photons=n_initial, events=stats['n_events'],
+                 steps=stats['n_steps'], lanes=stats['batch_size'],
+                 energy_current=stats['energy_current'],
+                 killed_int=stats['killed_int'],
+                 killed_geo=stats['killed_geo'])
+        iter_t.append(now)
+        # the engine density carries the length scale: store the physical one
+        iterations.append(dict(specific_energy=se,
+                               density=rho / geometry.length_scale,
+                               n_photons=n_photons_cell))
+
+    density0 = density.cpu().numpy().astype(float) / geometry.length_scale
+    result = None
+    if model.n_iterations > 0 and n_initial > 0:
+        result = run_lucy(
+            geometry, dt, st, density, generator,
+            n_photons=n_initial, n_iterations=model.n_iterations,
+            batch_size=batch_size,
+            n_inter_max=model.n_inter_max,
+            kill_on_scatter=model.kill_on_scatter,
+            kill_on_absorb=model.kill_on_absorb,
+            minimum_specific_energy=min_se,
+            enforce_energy_range=model.enforce_energy_range,
+            check_convergence=model.check_convergence,
+            convergence_absolute=getattr(model, 'convergence_absolute', 0.0),
+            convergence_relative=getattr(model, 'convergence_relative', 1.02),
+            convergence_percentile=getattr(model, 'convergence_percentile',
+                                           100.0),
+            check_frequency=getattr(model, '_frequency', 0.0),
+            verbose=True, iteration_callback=callback)
+    perf.report()
+    return ModelRun(result, iterations, density0, perf)
+
+
+def run_model(model, filename, device=None, batch_size=None, dtype=None):
+    """Run the model's Lucy iterations (:func:`run_lucy_model`) and write
+    the .rtout file. Returns the :class:`ModelRun`."""
+    t_start = time.time()
+    run = run_lucy_model(model, device=device, batch_size=batch_size,
+                         dtype=dtype)
+    _write_rtout(model, filename, run, t_start)
+    return run
+
+
+def _write_rtout(model, filename, run, t_start):
+    """The .rtout layout of hyperion_tpu/model/run.py:297-382."""
+    import h5py
+    result = run.result
+    with h5py.File(filename, 'w') as out:
+        out.attrs['python_version'] = np.bytes_("hyperion_tpu_torch")
+        out.attrs['date_started'] = np.bytes_(
+            datetime.datetime.now().isoformat())
+        oc = model.conf.output
+        io_dtype = np.float32 if getattr(model, 'physics_io_bytes', 8) == 4 \
+            else np.float64
+        for i, itdata in enumerate(run.iterations):
+            g = out.create_group('iteration_%05i' % (i + 1))
+            last = i == len(run.iterations) - 1
+
+            def want(setting):
+                return setting == 'all' or (setting == 'last' and last)
+
+            if want(oc.output_specific_energy):
+                _write_grid_dataset(g, 'specific_energy',
+                                    itdata['specific_energy'], model.grid,
+                                    io_dtype=io_dtype)
+            if want(oc.output_density):
+                _write_grid_dataset(g, 'density', itdata['density'],
+                                    model.grid, io_dtype=io_dtype)
+            if want(oc.output_density_diff):
+                _write_grid_dataset(g, 'density_diff',
+                                    itdata['density'] - run.density0,
+                                    model.grid, io_dtype=io_dtype)
+            if want(oc.output_n_photons):
+                _write_grid_dataset(g, 'n_photons', itdata['n_photons'],
+                                    model.grid)
+            g.attrs['killed_photons_geo'] = result.killed_geo
+            g.attrs['killed_photons_int'] = result.killed_int
+
+        if result is not None:
+            out.attrs['converged'] = bool2bytes(result.converged)
+            out.attrs['iterations'] = result.iterations
+            out.attrs['killed_photons_geo_initial'] = result.killed_geo
+            out.attrs['killed_photons_int_initial'] = result.killed_int
+        else:
+            out.attrs['converged'] = bool2bytes(False)
+            out.attrs['iterations'] = 0
+
+        out.attrs['cpu_time'] = time.time() - t_start
+        out.attrs['date_ended'] = np.bytes_(
+            datetime.datetime.now().isoformat())
+        # embed the input for a self-contained output (ref main.f90:135-151)
+        if model.copy_input and model.filename is not None:
+            with h5py.File(model.filename, 'r') as fin:
+                fin.copy('/', out, name='Input')

@@ -1,0 +1,171 @@
+"""Dust tables of the port (counterpart of
+``hyperion_tpu/transport/dtable.py``).
+
+The host code is the JAX package's numpy, copied because importing any
+``hyperion_tpu.transport`` module imports JAX; only the tables the Lucy
+path reads are built. All CDFs are made on the host in float64 and the
+tensors are cast to the engine dtype."""
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .sampling import quantile_table
+
+
+@dataclass
+class DustTables:
+    # opacities: (n_dust, n_nu) log-log tables, padded by edge replication;
+    # kappa is derived as chi * (1 - albedo) where it is needed
+    nu: torch.Tensor
+    chi: torch.Tensor
+    albedo: torch.Tensor
+    # emissivity specific-energy grid (n_dust, n_var) and its log10
+    emiss_var: torch.Tensor
+    log_emiss_var: torch.Tensor
+    # log2(nu) quantile tables of j_nu, (n_dust * n_var, n_q)
+    jnu_q: torch.Tensor
+    # mu quantile tables of the P1 phase function, (n_dust * n_nu, n_q_mu)
+    mu_q: torch.Tensor
+    # mean opacities vs specific energy: (n_dust, n_e)
+    me_specific_energy: torch.Tensor
+    me_temperature: torch.Tensor
+    me_chi_rosseland: torch.Tensor
+    # sublimation: (n_dust,) mode codes 0=no 1=fast 2=slow 3=cap + threshold
+    sublimation_mode: torch.Tensor
+    sublimation_energy: torch.Tensor
+
+    @property
+    def n_dust(self):
+        return self.nu.shape[0]
+
+    @property
+    def n_var(self):
+        return self.emiss_var.shape[1]
+
+
+def _pad_to(arr, n):
+    """Pad a 1-D array to length n by replicating its final value."""
+    pad = n - arr.shape[0]
+    if pad <= 0:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[-1:], pad)])
+
+
+def _cdf_loglog(x, y_rows):
+    """Cumulative integral along x of piecewise power-law rows, normalized.
+
+    y_rows is (n_rows, n_x). Returns (n_rows, n_x) with [:, 0] == 0 and
+    [:, -1] == 1 (rows with zero integral become a uniform ramp).
+    """
+    x = np.asarray(x, dtype=float)
+    y = np.asarray(y_rows, dtype=float)
+    x1, x2 = x[:-1], x[1:]
+    y1, y2 = y[:, :-1], y[:, 1:]
+    with np.errstate(divide='ignore', invalid='ignore'):
+        b = np.log10(y2 / y1) / np.log10(x2 / x1)
+        powlaw = y1 * x1 / (b + 1.0) * ((x2 / x1) ** (b + 1.0) - 1.0)
+        logcase = x1 * y1 * np.log(x2 / x1)
+    seg = np.where(np.abs(b + 1.0) < 1e-10, logcase, powlaw)
+    seg = np.where((y1 == 0.0) | (y2 == 0.0), 0.0, seg)
+    cdf = np.concatenate([np.zeros((y.shape[0], 1)), np.cumsum(seg, axis=1)],
+                         axis=1)
+    total = cdf[:, -1:]
+    uniform = (x - x[0]) / (x[-1] - x[0])
+    cdf = np.where(total > 0.0, cdf / np.where(total > 0.0, total, 1.0),
+                   uniform[None, :])
+    # a final value of exactly 1 keeps the inversion in range
+    cdf[:, -1] = 1.0
+    return cdf
+
+
+def _cdf_linear(x, y_rows):
+    """Trapezoidal cumulative integral along x, normalized per row."""
+    x = np.asarray(x, dtype=float)
+    y = np.asarray(y_rows, dtype=float)
+    seg = 0.5 * (y[:, :-1] + y[:, 1:]) * np.diff(x)[None, :]
+    cdf = np.concatenate([np.zeros((y.shape[0], 1)), np.cumsum(seg, axis=1)],
+                         axis=1)
+    total = cdf[:, -1:]
+    uniform = (x - x[0]) / (x[-1] - x[0])
+    cdf = np.where(total > 0.0, cdf / np.where(total > 0.0, total, 1.0),
+                   uniform[None, :])
+    cdf[:, -1] = 1.0
+    return cdf
+
+
+_SUBLIMATION_CODES = {'no': 0, 'fast': 1, 'slow': 2, 'cap': 3}
+
+
+def build_dust_tables(dusts, device, dtype, n_quantiles=257,
+                      n_quantiles_mu=129):
+    """Build DustTables from a list of SphericalDust objects (completes each
+    dust's mean opacities and LTE emissivities in place, as the JAX builder
+    does)."""
+    n_dust = len(dusts)
+    for d in dusts:
+        d.optical_properties.ensure_all_set()
+        d._compute_mean_opacities()
+        if not d.emissivities.all_set():
+            d.emissivities.set_lte(d.optical_properties, d.mean_opacities)
+
+    n_nu = max(len(d.optical_properties.nu) for d in dusts)
+    n_var = max(len(d.emissivities.var) for d in dusts)
+    n_e = max(len(d.mean_opacities.temperature) for d in dusts)
+
+    nu = np.zeros((n_dust, n_nu))
+    chi = np.zeros((n_dust, n_nu))
+    albedo = np.zeros((n_dust, n_nu))
+    emiss_var = np.zeros((n_dust, n_var))
+    jnu_q = np.zeros((n_dust, n_var, n_quantiles))
+    mu_q = np.zeros((n_dust, n_nu, n_quantiles_mu))
+    me = {k: np.zeros((n_dust, n_e))
+          for k in ('specific_energy', 'temperature', 'chi_rosseland')}
+    subl_mode = np.zeros(n_dust, dtype=np.int32)
+    subl_energy = np.zeros(n_dust)
+
+    for i, d in enumerate(dusts):
+        op = d.optical_properties
+        op._sort()
+        nu[i] = _pad_to(np.asarray(op.nu, float), n_nu)
+        chi[i] = _pad_to(np.asarray(op.chi, float), n_nu)
+        albedo[i] = _pad_to(np.asarray(op.albedo, float), n_nu)
+
+        em = d.emissivities
+        enu = np.asarray(em.nu, float)
+        emiss_var[i] = _pad_to(np.asarray(em.var, float), n_var)
+        # CDF of j_nu over nu per var bin; missing var rows repeat the last
+        cj = _cdf_loglog(enu, np.asarray(em.jnu, float).T)
+        if cj.shape[0] < n_var:
+            cj = np.concatenate([cj, np.repeat(cj[-1:], n_var - cj.shape[0],
+                                               axis=0)])
+        jnu_q[i] = quantile_table(enu, cj, n_quantiles, log2=True)
+
+        mu_d = np.asarray(op.mu, float)
+        mq = quantile_table(mu_d, _cdf_linear(mu_d, np.asarray(op.P1, float)),
+                            n_quantiles_mu, log2=False)
+        mu_q[i] = np.pad(mq, ((0, n_nu - mq.shape[0]), (0, 0)), mode='edge')
+
+        mo = d.mean_opacities
+        for k in me:
+            me[k][i] = _pad_to(np.asarray(getattr(mo, k), float), n_e)
+
+        subl_mode[i] = _SUBLIMATION_CODES[d.sublimation_mode]
+        subl_energy[i] = d.sublimation_energy
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, float), dtype=dtype,
+                               device=device)
+
+    return DustTables(
+        nu=f(nu), chi=f(chi), albedo=f(albedo),
+        emiss_var=f(emiss_var), log_emiss_var=f(np.log10(emiss_var)),
+        jnu_q=f(jnu_q.reshape(n_dust * n_var, n_quantiles)),
+        mu_q=f(mu_q.reshape(n_dust * n_nu, n_quantiles_mu)),
+        me_specific_energy=f(me['specific_energy']),
+        me_temperature=f(me['temperature']),
+        me_chi_rosseland=f(me['chi_rosseland']),
+        sublimation_mode=torch.as_tensor(subl_mode, device=device),
+        sublimation_energy=f(subl_energy),
+    )

@@ -1,0 +1,188 @@
+"""The whole slice: a scaled-down tutorial model (examples/quickstart.py at
+9^3 cells, 2 iterations of 20k photons) through the JAX package's run_model
+and the port's, both read back with the shared ModelOutput. The files must
+have the same layout; temperatures agree statistically (see
+tests/test_torch_lucy.py)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import h5py
+import numpy as np
+import pytest
+import torch
+
+from hyperion_tpu.dust import IsotropicDust
+from hyperion_tpu.model import Model, ModelOutput
+from hyperion_tpu.model.run import run_model as j_run_model
+from hyperion_tpu.util.constants import au, lsun
+from hyperion_tpu_torch.model.run import run_model
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def tutorial_model(n=9, n_photons=20000, iterations=2, seed=-1234):
+    """examples/quickstart.py without its peeled image, scaled down."""
+    nu = np.logspace(8, 17, 32)
+    dust = IsotropicDust(nu, np.repeat(0.4, 32), np.repeat(100.0, 32))
+    m = Model()
+    lim = 50 * au
+    w = np.linspace(-lim, lim, n + 1)
+    m.set_cartesian_grid(w, w, w)
+    # denser than the tutorial, so that 20k photons interact
+    m.add_density_grid(np.full(m.grid.shape, 3e-17), dust)
+    src = m.add_point_source()
+    src.luminosity = lsun
+    src.temperature = 6000.0
+    m.set_n_initial_iterations(iterations)
+    m.set_n_photons(initial=n_photons, imaging=0)
+    m.set_seed(seed)
+    m.conf.output.output_n_photons = 'last'
+    return m
+
+
+def _layout(path):
+    """{hdf5 path: (kind, shape, dtype, attribute names)} of a file."""
+    out = {}
+    with h5py.File(path, 'r') as f:
+        out['/'] = ('group', None, None, sorted(f.attrs))
+
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                out[name] = ('dataset', obj.shape, obj.dtype,
+                             sorted(obj.attrs))
+            else:
+                out[name] = ('group', None, None, sorted(obj.attrs))
+        f.visititems(visit)
+    return out
+
+
+@pytest.fixture(scope='module')
+def outputs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp('slice')
+    m = tutorial_model()
+    m.write(str(tmp / 'm.rtin'), overwrite=True)
+    j_run_model(m, str(tmp / 'jax.rtout'), batch_size=2048)
+    run_model(m, str(tmp / 'port.rtout'), device='cpu', batch_size=2048)
+    m2 = tutorial_model(seed=-999)
+    m2.write(str(tmp / 'm2.rtin'), overwrite=True)
+    run_model(m2, str(tmp / 'port2.rtout'), device='cpu', batch_size=2048)
+    return tmp
+
+
+def test_rtout_layout_matches_jax(outputs):
+    jax_layout = _layout(outputs / 'jax.rtout')
+    port_layout = _layout(outputs / 'port.rtout')
+    assert sorted(port_layout) == sorted(jax_layout)
+    for name, entry in jax_layout.items():
+        assert port_layout[name] == entry, name
+    with h5py.File(outputs / 'jax.rtout', 'r') as fj, \
+            h5py.File(outputs / 'port.rtout', 'r') as fp:
+        assert fp.attrs['iterations'] == fj.attrs['iterations'] == 2
+        for g in ('iteration_00001', 'iteration_00002'):
+            assert fp[g].attrs['killed_photons_geo'] == 0
+            assert fp[g].attrs['killed_photons_int'] == 0
+
+
+def test_temperatures_agree_with_jax(outputs):
+    def temperature(name):
+        grid = ModelOutput(str(outputs / name)).get_quantities()
+        return np.asarray(grid['temperature'][0].array)
+
+    t_jax = temperature('jax.rtout')
+    t_port = temperature('port.rtout')
+    t_port2 = temperature('port2.rtout')
+    assert np.isfinite(t_port).all() and (t_port > 0).all()
+
+    def rms_rel(a, b):
+        return np.sqrt(np.mean((a / b - 1.0) ** 2))
+
+    noise = rms_rel(t_port, t_port2)
+    assert noise > 0
+    assert rms_rel(t_port, t_jax) <= 1.5 * noise
+    n_photons = ModelOutput(str(outputs / 'port.rtout')).get_quantities()
+    assert np.asarray(n_photons['n_photons'].array).sum() > 0
+
+
+def test_port_never_imports_jax(tmp_path):
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from hyperion_tpu.dust import IsotropicDust
+        from hyperion_tpu.model import Model, ModelOutput
+        from hyperion_tpu_torch.model.run import run_model
+        m = Model()
+        w = np.linspace(-1e14, 1e14, 4)
+        m.set_cartesian_grid(w, w, w)
+        nu = np.logspace(8, 17, 8)
+        m.add_density_grid(np.full(m.grid.shape, 1e-18),
+                           IsotropicDust(nu, np.repeat(0.4, 8),
+                                         np.repeat(100.0, 8)))
+        s = m.add_point_source()
+        s.luminosity = 3.8e33
+        s.temperature = 6000.0
+        m.set_n_initial_iterations(1)
+        m.set_n_photons(initial=500, imaging=0)
+        m.write(sys.argv[1] + '.rtin')
+        run_model(m, sys.argv[1], device='cpu', batch_size=256)
+        ModelOutput(sys.argv[1]).get_quantities()
+        assert 'jax' not in sys.modules, 'jax was imported'
+    """)
+    proc = subprocess.run([sys.executable, '-c', code,
+                           str(tmp_path / 'x.rtout')], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='cuda'):
+        run_model(tutorial_model(), 'unused.rtout', device='cuda')
+
+
+def _peeled(m):
+    m.add_peeled_images(sed=True, image=False)
+
+
+def _mrw(m):
+    m.set_mrw(True)
+
+
+def _pda(m):
+    m.set_pda(True)
+
+
+def _spherical_source(m):
+    s = m.add_spherical_source()
+    s.luminosity = lsun
+    s.temperature = 5000.0
+    s.radius = 1e11
+
+
+@pytest.mark.parametrize('change', [_peeled, _mrw, _pda, _spherical_source])
+def test_outside_the_slice_raises(change, tmp_path):
+    m = tutorial_model()
+    change(m)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        run_model(m, str(tmp_path / 'x.rtout'), device='cpu')
+
+
+@pytest.mark.parametrize('where', ['checkout', 'alone'])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a
+    card, from the checkout and as a lone file."""
+    script = REPO / 'chip_smoke.py'
+    if where == 'alone':
+        script = tmp_path / 'chip_smoke.py'
+        script.write_text((REPO / 'chip_smoke.py').read_text())
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=''),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
