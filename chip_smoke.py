@@ -7,12 +7,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 1. the card and the software: name and power limit, torch, CUDA, nvcc;
 2. build the deposit_visit kernel from hyperion_tpu_torch/transport/csrc;
-3. the kernel against its plain PyTorch version at the main path's shapes,
-   over 8 steps of carried state: counts and uids equal, float32 energies
-   within rtol 1e-4 of a float64 plain run (float32 atomics add in a
-   run-dependent order); median time per call of both, interleaved;
+3. the kernel against its plain PyTorch version, counts and uids equal and
+   float32 energies within rtol 1e-4 of a float64 plain run (the kernel's
+   float atomics and in-warp sums add in another, run-dependent order):
+   the main path's four shapes over 8 carried calls; a hot cell that every
+   lane deposits into and enters; warps whose lanes form groups of 1, 2, 31
+   and 32 equal cells with repeated and tied uids; the 5, 3, 5 overwrite
+   case over three carried calls; and 100 calls captured in a CUDA graph
+   and replayed. Then, at the four shapes and the hot cell: device time per
+   call (the graph's replay, CUDA events), host time per call (host clock
+   around 1,000 eager calls, before the synchronise), the plain version's
+   time, the deposits-only index_add_ yardstick and the bound;
 4. the slice: examples/quickstart.py without its peeled image (32^3 cells,
-   4 Lucy iterations of 500,000 photons) built through the public Model API
+   4 Lucy iterations of 500,000 photons) built with the port's own Model
    and run on the card by run_lucy_model, the port's run_model without the
    .rtout file (the card's machine has no h5py; the tests check the file on
    the CPU); the kernel's launch count is reset just before and read just
@@ -23,15 +30,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
-It needs no network and imports nothing of JAX.
+It needs no network and imports nothing of JAX or of hyperion_tpu.
 """
 
-import importlib.util
 import json
 import subprocess
 import sys
 import time
-import types
 import warnings
 from pathlib import Path
 
@@ -44,7 +49,9 @@ REPLACES = 'hyperion_tpu/transport/pallas_ops.py:116'
 # (B, n_cells): bench.py's quickstart (15^3 cells, 131,072 lanes) and the
 # tutorial (32^3 cells, run.py's batch for 500,000 photons)
 SHAPES = [(131072, 3375), (125000, 32768)]
-TIMED_SHAPE = (125000, 32768, 1)
+TUTORIAL = (125000, 32768, 1)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
+RTOL = 1e-4
 
 
 def phase(msg):
@@ -58,93 +65,317 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def step_inputs(rng, B, n_cells, n_dust, device):
+# ---------------------------------------------------------------- inputs --
+
+def _tensors(device, cell_dep, dep, enter, uid):
+    """Lane tensors in the step's own layout: int64 cells, int32 uids,
+    float32 deposits (B, n_dust)."""
+    import torch
+    return [torch.as_tensor(a, device=device) for a in (
+        cell_dep.astype(np.int64), dep.astype(np.float32),
+        enter.astype(np.int64), uid.astype(np.int32))]
+
+
+def mixed_lanes(rng, B, n_cells, n_dust, device):
     """One step's lanes: ~30% deposit into and enter one busy cell (a
     refill), ~40% sit in the drop slot, a fifth of the deposits are masked,
     and uids come from a pool smaller than B, so they repeat across steps."""
-    import torch
     busy = int(rng.integers(0, n_cells))
     cell_dep = rng.integers(0, n_cells, B)
     cell_dep[rng.random(B) < 0.3] = busy
-    dep = rng.exponential(1.0, (n_dust, B)).astype(np.float32)
-    dep[:, rng.random(B) < 0.2] = 0.0
+    dep = rng.exponential(1.0, (B, n_dust))
+    dep[rng.random(B) < 0.2] = 0.0
     enter = rng.integers(0, n_cells, B)
     r = rng.random(B)
     enter[r < 0.3] = busy
     enter[(r >= 0.3) & (r < 0.7)] = n_cells
     uid = rng.integers(0, B // 2, B)
-    return [torch.as_tensor(a, device=device) for a in (
-        cell_dep.astype(np.int32), dep, enter.astype(np.int32),
-        uid.astype(np.int32))]
+    return _tensors(device, cell_dep, dep, enter, uid)
 
 
-def check_kernel(dv, B, n_cells, n_dust, device, seed):
-    """8 carried steps through the kernel and through the plain version in
-    float64; then the median time per call of each, interleaved plain,
-    kernel, kernel, plain. Returns a dict of the results."""
+def hot_lanes(rng, B, n_cells, n_dust, device):
+    """Every lane deposits into and enters one cell; uids from a pool of
+    40, so they tie within a call and repeat the cell's last uid."""
+    hot = n_cells // 3
+    return _tensors(device, np.full(B, hot), rng.exponential(1.0, (B, n_dust)),
+                    np.full(B, hot), rng.integers(0, 40, B))
+
+
+def warp_group_lanes(rng, B, n_cells, n_dust, device):
+    """Warps of 32 lanes whose cells form groups of 1, 2, 31 and 32 equal
+    lanes, contiguous and interleaved (the last warp may be partial), with
+    drop-slot lanes among them; uids from a pool of 6 (repeated and tied)."""
+    lane = np.arange(32)
+    patterns = [np.zeros(32, int), np.where(lane == 13, 1, 0), lane // 2,
+                lane, lane % 2, np.where(lane % 3 == 0, 0, 1 + lane)]
+    n_warps = -(-B // 32)
+    pick = rng.integers(0, len(patterns), n_warps)
+    base = rng.integers(0, n_cells - 40, n_warps)
+    enter = np.concatenate([base[w] + patterns[pick[w]]
+                            for w in range(n_warps)])[:B]
+    cell_dep = np.roll(enter, 32 * int(rng.integers(1, 9)))
+    enter[rng.random(B) < 0.1] = n_cells
+    dep = rng.exponential(1.0, (B, n_dust))
+    dep[rng.random(B) < 0.2] = 0.0
+    return _tensors(device, cell_dep, dep, enter, rng.integers(0, 6, B))
+
+
+# ---------------------------------------------------------------- checks --
+
+def _compare(dv, stats, plain, what):
+    """Counts and uids equal, energies within RTOL of the float64 plain
+    run; returns the max abs energy error."""
+    import torch
+    stats.flush()
+    torch.cuda.synchronize()
+    es64, npc, luid = plain
+    if not torch.equal(stats.n_photons_cell, npc):
+        raise AssertionError('%s: visit counts differ from the plain version'
+                             % what)
+    if not torch.equal(stats.last_uid, luid):
+        raise AssertionError('%s: last uids differ from the plain version'
+                             % what)
+    err = (stats.energy_sum.double() - es64).abs()
+    if not bool((err <= RTOL * es64.abs()).all()):
+        raise AssertionError('%s: energies beyond rtol %g: worst rel %g'
+                             % (what, RTOL, float((err / es64.abs().clamp_min(
+                                 1e-30)).max())))
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _plain_tables(dv, n_dust, n_cells, device):
+    import torch
+    return (torch.zeros((n_dust, n_cells), dtype=torch.float64,
+                        device=device),
+            torch.zeros(n_cells, dtype=torch.int64, device=device),
+            torch.full((n_cells + 1,), -2, dtype=torch.int32, device=device))
+
+
+def check_sequence(dv, make, B, n_cells, n_dust, n_calls, device, seed,
+                   what):
+    """n_calls carried calls of make(...) lanes through the kernel (no
+    flush between them: the scratch rotation carries the uids) and through
+    the plain version in float64."""
     import torch
     rng = np.random.default_rng(seed)
-    es = torch.zeros((n_dust, n_cells), device=device)
-    npc = torch.zeros(n_cells, dtype=torch.int64, device=device)
-    luid = torch.full((n_cells + 1,), -2, dtype=torch.int32, device=device)
-    win = dv.new_visit_scratch(n_cells, device)
-    es64, npc_p, luid_p = es.double(), npc.clone(), luid.clone()
-    for _ in range(8):
-        cd, dep, enter, uid = step_inputs(rng, B, n_cells, n_dust, device)
-        dv.deposit_visit(es, npc, luid, win, cd, dep, enter, uid)
-        dv.deposit_visit_reference(es64, npc_p, luid_p, cd, dep.double(),
-                                   enter, uid)
+    stats = dv.DepositVisit(n_dust, n_cells, device, torch.float32)
+    plain = _plain_tables(dv, n_dust, n_cells, device)
+    for _ in range(n_calls):
+        cd, dep, enter, uid = make(rng, B, n_cells, n_dust, device)
+        stats(cd, dep, enter, uid)
+        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
+                                   dep.double(), enter, uid)
+    return _compare(dv, stats, plain, what)
+
+
+def check_overwrite(dv, device):
+    """Uids 5, 3, 5 enter one cell in three carried calls at the tutorial's
+    shape, no other lane entering it: count 3 and last uid 5."""
+    import torch
+    B, n_cells, _ = TUTORIAL
+    hot = 7
+    rng = np.random.default_rng(535)
+    stats = dv.DepositVisit(1, n_cells, device, torch.float32)
+    plain = _plain_tables(dv, 1, n_cells, device)
+    for u in (5, 3, 5):
+        cd, dep, enter, uid = mixed_lanes(rng, B, n_cells, 1, device)
+        enter[enter == hot] = hot + 1
+        enter[0], uid[0] = hot, u
+        stats(cd, dep, enter, uid)
+        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
+                                   dep.double(), enter, uid)
+    err = _compare(dv, stats, plain, '5, 3, 5')
+    got = (int(stats.n_photons_cell[hot]), int(stats.last_uid[hot]))
+    if got != (3, 5):
+        raise AssertionError('5, 3, 5: count and last uid %s, not (3, 5)'
+                             % (got,))
+    return err
+
+
+def check_graph(dv, device, n_calls=100):
+    """n_calls calls at the tutorial's shape captured in one CUDA graph and
+    replayed once: the same tables as the plain version."""
+    import torch
+    B, n_cells, n_dust = TUTORIAL
+    rng = np.random.default_rng(100)
+    inputs = [mixed_lanes(rng, B, n_cells, n_dust, device) for _ in range(4)]
+    stats = dv.DepositVisit(n_dust, n_cells, device, torch.float32)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(n_calls):
+            stats(*inputs[k % len(inputs)])
+    plain = _plain_tables(dv, n_dust, n_cells, device)
+    for k in range(n_calls):
+        cd, dep, enter, uid = inputs[k % len(inputs)]
+        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
+                                   dep.double(), enter, uid)
+    graph.replay()
+    return _compare(dv, stats, plain, 'CUDA graph of %d calls' % n_calls)
+
+
+# ---------------------------------------------------------------- timing --
+
+def graph_us(call, n_calls=100, replays=20):
+    """Device microseconds per call: n_calls calls captured in a CUDA
+    graph, the replay timed with CUDA events; the median over replays."""
+    import torch
+    call()
     torch.cuda.synchronize()
-    if not torch.equal(npc, npc_p):
-        raise AssertionError('visit counts differ from the plain version')
-    if not torch.equal(luid, luid_p):
-        raise AssertionError('last uids differ from the plain version')
-    if not torch.equal(win, dv.new_visit_scratch(n_cells, device)):
-        raise AssertionError('the scratch table was not reset')
-    err = (es.double() - es64).abs()
-    if not bool((err <= 1e-4 * es64.abs()).all()):
-        raise AssertionError('energies beyond rtol 1e-4: worst rel %g'
-                             % float((err / es64.abs().clamp_min(1e-30))
-                                     .max()))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n_calls):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) * 1e3 / n_calls)
+    return float(np.median(times))
 
-    # timing on fresh float32 state, the same step inputs for both
-    cd, dep, enter, uid = step_inputs(rng, B, n_cells, n_dust, device)
-    tables = {name: (torch.zeros((n_dust, n_cells), device=device),
-                     torch.zeros(n_cells, dtype=torch.int64, device=device),
-                     torch.full((n_cells + 1,), -2, dtype=torch.int32,
-                                device=device))
-              for name in ('kernel', 'plain')}
 
-    def call(name):
-        e, n, lu = tables[name]
-        if name == 'kernel':
-            dv.deposit_visit(e, n, lu, win, cd, dep, enter, uid)
-        else:
-            dv.deposit_visit_reference(e, n, lu, cd, dep, enter, uid)
+def host_us(call, n_calls=1000):
+    """Host microseconds per call: the host clock around n_calls eager
+    calls, read before the synchronise."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / n_calls
 
-    for name in ('plain', 'kernel', 'kernel', 'plain'):
-        call(name)
-    times = {'kernel': [], 'plain': []}
-    for _ in range(10):
-        for name in ('plain', 'kernel', 'kernel', 'plain'):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            call(name)
-            t1.record()
-            t1.synchronize()
-            times[name].append(t0.elapsed_time(t1))
-    return dict(B=B, n_cells=n_cells, n_dust=n_dust,
-                max_abs_err=float(err.max()),
-                ms=float(np.median(times['kernel'])),
-                plain_ms=float(np.median(times['plain'])))
 
+def event_ms(call, n=20):
+    """Milliseconds per call: CUDA events around single eager calls (host
+    cost included where the device waits for it); the median."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        call()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(np.median(times))
+
+
+def bound_bytes(cell_dep, dep, enter, n_cells):
+    """The bytes the function must move for these inputs: every lane input
+    read once (int64 cells, int32 uids, float32 deposits); per (dust,
+    cell) with a non-zero deposit its energy read and written (8 bytes);
+    per entered cell its last uid and its int64 count read and written
+    (24 bytes). The arithmetic (a few operations per lane) is far below
+    the card's rates, so bytes bound it."""
+    import torch
+    B, n_dust = dep.shape
+    lane = B * (8 + 8 + 4 + 4 * n_dust)
+    energy = sum(int(torch.unique(cell_dep[dep[:, d] != 0]).numel())
+                 for d in range(n_dust)) * 8
+    entered = int(torch.unique(enter[enter < n_cells]).numel()) * 24
+    return lane + energy + entered
+
+
+def time_shape(dv, make, B, n_cells, n_dust, device, seed):
+    """Device and host time per call of the kernel, the plain version's
+    time, the deposits-only index_add_ yardstick and the bound, at one
+    shape, on one call's lanes. Returns a dict."""
+    import torch
+    rng = np.random.default_rng(seed)
+    cd, dep, enter, uid = make(rng, B, n_cells, n_dust, device)
+    stats = dv.DepositVisit(n_dust, n_cells, device, torch.float32)
+    plain = _plain_tables(dv, n_dust, n_cells, device)
+    plain = (plain[0].float(),) + plain[1:]
+    lib = torch.zeros((n_dust, n_cells), device=device)
+    dep_t = dep.T
+
+    def kernel():
+        stats(cd, dep, enter, uid)
+
+    def plain_call():
+        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd, dep,
+                                   enter, uid)
+
+    def library():
+        lib.index_add_(1, cd, dep_t)
+
+    # in turns: plain, kernel, kernel, plain
+    out = dict(plain_ms=[event_ms(plain_call)], call_ms=[], device_us=[],
+               host_us=[])
+    for _ in range(2):
+        out['call_ms'].append(event_ms(kernel))
+        out['device_us'].append(graph_us(kernel))
+        out['host_us'].append(host_us(kernel))
+    out['plain_ms'].append(event_ms(plain_call))
+    res = {k: float(np.median(v)) for k, v in out.items()}
+    res['library_ms'] = graph_us(library) / 1e3
+    nbytes = bound_bytes(cd, dep, enter, n_cells)
+    res.update(B=B, n_cells=n_cells, n_dust=n_dust, bound_bytes=nbytes,
+               bound_us=nbytes / HBM_BYTES_PER_S * 1e6)
+    return res
+
+
+def kernel_phase(dv, device, card):
+    """Phase 3. Returns (max abs energy error, check rows, timing rows)."""
+    errs, rows = [], []
+
+    def record(what, err):
+        errs.append(err)
+        rows.append(dict(check=what, max_abs_err=err))
+        phase('deposit_visit %s: counts and uids equal, max abs energy err '
+              '%.3g' % (what, err))
+
+    seed = 0
+    for B, n_cells in SHAPES:
+        for n_dust in (1, 2):
+            seed += 1
+            record('B=%d n_cells=%d n_dust=%d, 8 calls' % (B, n_cells, n_dust),
+                   check_sequence(dv, mixed_lanes, B, n_cells, n_dust, 8,
+                                  device, seed, 'mixed'))
+    B, n_cells, _ = TUTORIAL
+    record('hot cell B=%d n_cells=%d, 4 calls' % (B, n_cells),
+           check_sequence(dv, hot_lanes, B, n_cells, 1, 4, device, 11, 'hot'))
+    record('warp groups B=131072 n_cells=%d n_dust=2, 4 calls' % n_cells,
+           check_sequence(dv, warp_group_lanes, 131072, n_cells, 2, 4,
+                          device, 12, 'warp groups'))
+    record('5, 3, 5 over three calls', check_overwrite(dv, device))
+    record('CUDA graph of 100 calls', check_graph(dv, device))
+
+    timings = []
+    cases = [('mixed', mixed_lanes, B, c, d) for B, c in SHAPES
+             for d in (1, 2)] + [('hot cell', hot_lanes) + TUTORIAL]
+    for k, (name, make, B, n_cells, n_dust) in enumerate(cases):
+        t = time_shape(dv, make, B, n_cells, n_dust, device, 20 + k)
+        t['lanes'] = name
+        timings.append(t)
+        phase('deposit_visit %s B=%d n_cells=%d n_dust=%d: device %.2f us, '
+              'host %.2f us per call (one eager call %.4f ms), plain %.4f '
+              'ms, index_add_ %.4f ms, bound %.3f us (%d bytes) [%s]'
+              % (name, B, n_cells, n_dust, t['device_us'], t['host_us'],
+                 t['call_ms'], t['plain_ms'], t['library_ms'], t['bound_us'],
+                 t['bound_bytes'], card))
+    return max(errs), rows, timings
+
+
+# ----------------------------------------------------------------- slice --
 
 def tutorial_model():
-    """examples/quickstart.py without its peeled image, with a fixed seed."""
-    from hyperion_tpu.dust import IsotropicDust
-    from hyperion_tpu.model import Model
-    from hyperion_tpu.util.constants import au, lsun
+    """examples/quickstart.py without its peeled image, with a fixed seed,
+    built with the port's own front end."""
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.model import Model
+    from hyperion_tpu_torch.util.constants import au, lsun
     nu = np.logspace(8, 17, 32)
     dust = IsotropicDust(nu, np.repeat(0.4, 32), np.repeat(100.0, 32))
     m = Model()
@@ -166,7 +397,7 @@ def run_slice(dv, card):
     """Phase 4: the tutorial through run_lucy_model, the port's run_model
     without its .rtout file. Returns (launches, per-iteration rows, wall)."""
     import torch
-    from hyperion_tpu_torch.model.run import run_lucy_model
+    from hyperion_tpu_torch.model import run_lucy_model
 
     m = tutorial_model()
     dv.launches = 0
@@ -203,13 +434,15 @@ def run_slice(dv, card):
     return launches, [dict(row) for row in run.perf.rows], wall
 
 
+# --------------------------------------------------------------- physics --
+
 def physics_on_card(card):
     """Phase 5: the thin inverse-square check, bench.py's quickstart
     configuration, and the host synchronisations per step."""
     import torch
-    from hyperion_tpu.dust import IsotropicDust
-    from hyperion_tpu.grid import CartesianGrid
-    from hyperion_tpu.sources import PointSource
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.grid import CartesianGrid
+    from hyperion_tpu_torch.sources import PointSource
     from hyperion_tpu_torch.transport import engine
     from hyperion_tpu_torch.transport.dtable import build_dust_tables
     from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
@@ -295,26 +528,6 @@ def physics_on_card(card):
     return med, bench
 
 
-class _NoHDF5(types.ModuleType):
-    """Stands in for h5py where it is not installed. The card's machine has
-    neither h5py nor libhdf5. The shared front end imports h5py at module
-    level in hyperion_tpu/grid/grid_on_disk.py, and the grid classes test
-    quantities with isinstance(..., h5py.ExternalLink); otherwise it uses
-    h5py only to read and write files, which this script never does. No
-    HDF5 link can exist here, so ExternalLink cannot be made and every
-    isinstance test is False; any other use raises."""
-
-    class ExternalLink:
-        def __init__(self, *args, **kwargs):
-            raise ImportError('h5py is not installed')
-
-    def __getattr__(self, name):
-        if name.startswith('__'):
-            raise AttributeError(name)
-        raise ImportError('h5py is not installed: HDF5 files cannot be read '
-                          'or written here (h5py.%s)' % name)
-
-
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -322,8 +535,6 @@ def main():
               'an NVIDIA card', file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    if importlib.util.find_spec('h5py') is None:
-        sys.modules['h5py'] = _NoHDF5('h5py')
     from hyperion_tpu_torch.transport import _build
     from hyperion_tpu_torch.transport import deposit_visit as dv
 
@@ -343,17 +554,8 @@ def main():
     lib = _build.build('deposit_visit')
     phase('built %s in %.2f s' % (lib.name, time.time() - t0))
 
-    # 3. kernel against the plain version
-    checks = []
-    for seed, (B, n_cells) in enumerate(SHAPES):
-        for n_dust in (1, 2):
-            res = check_kernel(dv, B, n_cells, n_dust, device, seed)
-            checks.append(res)
-            phase('deposit_visit B=%d n_cells=%d n_dust=%d: equal counts and '
-                  'uids, max abs energy err %.3g; kernel %.4f ms, plain %.4f '
-                  'ms per call [%s]' % (B, n_cells, n_dust,
-                                        res['max_abs_err'], res['ms'],
-                                        res['plain_ms'], card))
+    # 3. kernel against the plain version, and its times
+    max_err, checks, timings = kernel_phase(dv, device, card)
 
     # 4. the slice, through the kernel
     launches, iterations, wall = run_slice(dv, card)
@@ -361,14 +563,18 @@ def main():
     # 5. physics on the card
     median_ratio, bench = physics_on_card(card)
 
-    timed = next(c for c in checks
-                 if (c['B'], c['n_cells'], c['n_dust']) == TIMED_SHAPE)
+    t = next(r for r in timings if r['lanes'] == 'mixed' and
+             (r['B'], r['n_cells'], r['n_dust']) == TUTORIAL)
     kernels = [dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
                     replaces=REPLACES, launches=launches,
-                    max_abs_err=max(c['max_abs_err'] for c in checks),
-                    ms=timed['ms'], plain_ms=timed['plain_ms'])]
+                    max_abs_err=max_err, ms=t['device_us'] / 1e3,
+                    plain_ms=t['plain_ms'], bound_ms=t['bound_us'] / 1e3,
+                    bound_by='bytes', library_ms=t['library_ms'],
+                    device_us=t['device_us'], host_us=t['host_us'],
+                    bound_us=t['bound_us'])]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, kernel_checks=checks,
+                  kernel_timings=timings,
                   slice=dict(wall_s=wall, iterations=iterations),
                   inverse_square_median_ratio=median_ratio,
                   bench_quickstart=bench, kernels=kernels)

@@ -8,14 +8,14 @@ import torch
 
 
 def resolve_device(device=None):
-    """The torch device to run on: ``None`` picks the card when there is one,
-    else the CPU. Asking for ``'cuda'`` without a card raises."""
-    if device is None:
-        device = 'cuda' if torch.cuda.is_available() else 'cpu'
-    device = torch.device(device)
+    """The torch device to run on: ``None`` means the card. The CPU runs
+    only when the caller asks for it with ``'cpu'``; asking for the card
+    where there is none raises."""
+    device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was requested but "
-                           "torch.cuda.is_available() is False")
+        raise RuntimeError("device='cuda' (the default) needs a CUDA card, "
+                           "and torch.cuda.is_available() is False: pass "
+                           "device='cpu' to run on the CPU")
     if device.type not in ('cuda', 'cpu'):
         raise ValueError("unsupported device %s (use 'cuda' or 'cpu')"
                          % device)

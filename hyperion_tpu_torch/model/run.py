@@ -6,9 +6,10 @@ any number of dust types, Lucy iterations with or without convergence
 checking, the minimum-specific-energy floor, ``enforce_energy_range``,
 sublimation and the probabilistic geometry self-check. Anything else
 raises ``NotImplementedError`` naming its ROADMAP.md item. The output
-layout is the JAX package's, read by the shared ``ModelOutput``;
+layout is the JAX package's, read by either package's ``ModelOutput``;
 :func:`run_lucy_model` is the same run without the file, for machines
-without HDF5."""
+without HDF5. Both run on the card unless the caller passes
+``device='cpu'``."""
 
 import datetime
 import time
@@ -17,16 +18,75 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hyperion_tpu.grid import CartesianGrid
-from hyperion_tpu.model.run import (_flatten_quantity, _write_grid_dataset,
-                                    bool2bytes)
-from hyperion_tpu.util.perf import PerfTable
-
 from ..device import engine_dtype, resolve_device
+from ..grid import AMRGrid, CartesianGrid
 from ..transport.dtable import build_dust_tables
 from ..transport.gtable import ESCAPED, build_cartesian_geometry
 from ..transport.lucy import run_lucy
 from ..transport.stable import build_source_tables
+from ..util.perf import PerfTable
+
+
+def _flatten_quantity(grid, quantity):
+    """Per-dust quantity arrays -> (n_dust, n_cells) float64, handling the
+    AMR per-fab layout (fabs flattened level-major); a copy of
+    ``hyperion_tpu/model/run.py:_flatten_quantity``."""
+    if isinstance(grid, AMRGrid):
+        n_pop = None
+        for level in grid.levels:
+            for g in level.grids:
+                q = g.quantities[quantity]
+                n_pop = len(q) if isinstance(q, list) else 1
+                break
+            break
+        rows = []
+        for i in range(n_pop):
+            parts = []
+            for level in grid.levels:
+                for g in level.grids:
+                    q = g.quantities[quantity]
+                    arr = q[i] if isinstance(q, list) else q
+                    parts.append(np.asarray(arr, float).reshape(-1))
+            rows.append(np.concatenate(parts))
+        return np.array(rows)
+    q = grid.quantities[quantity]
+    return np.array([np.asarray(d, float).reshape(-1) for d in q])
+
+
+def _write_grid_dataset(group, name, flat, model_grid, compression='gzip',
+                        io_dtype=None):
+    """Write a flat (n_cells,) or (n_dust, n_cells) array back in the
+    grid's on-disk layout (structured: (ndust, n3, n2, n1); AMR: per
+    level_*/grid_* datasets; voronoi/octree: flat); a copy of
+    ``hyperion_tpu/model/run.py:_write_grid_dataset``.
+
+    ``io_dtype``: on-disk float width for physical arrays, from
+    ``set_output_bytes`` (ref grid_io.f90 writes f4 when io_bytes=4,
+    conf_files.py:700)."""
+    flat = np.asarray(flat)
+    if io_dtype is not None and flat.dtype.kind == 'f':
+        flat = flat.astype(io_dtype)
+    if isinstance(model_grid, AMRGrid):
+        pos = 0
+        for ilevel, level in enumerate(model_grid.levels):
+            g_level = group.require_group('level_%05i' % (ilevel + 1))
+            for igrid, g in enumerate(level.grids):
+                g_grid = g_level.require_group('grid_%05i' % (igrid + 1))
+                n = g.nx * g.ny * g.nz
+                block = flat[..., pos:pos + n]
+                shape = flat.shape[:-1] + (g.nz, g.ny, g.nx)
+                g_grid.create_dataset(name, data=block.reshape(shape),
+                                      compression=compression)
+                pos += n
+        return
+    shape = model_grid.shape
+    if shape is not None and len(shape) > 1:
+        flat = flat.reshape(flat.shape[:-1] + shape)
+    group.create_dataset(name, data=flat, compression=compression)
+
+
+def bool2bytes(value):
+    return np.bytes_(b'yes') if value else np.bytes_(b'no')
 
 
 def _check_slice(model):
@@ -99,9 +159,9 @@ class ModelRun(NamedTuple):
 
 
 def run_lucy_model(model, device=None, batch_size=None, dtype=None):
-    """Run the model's Lucy iterations on ``device`` ('cuda', 'cpu', or None
-    for the card when there is one) and return a :class:`ModelRun`. This is
-    :func:`run_model` without the file: it needs no HDF5."""
+    """Run the model's Lucy iterations on ``device`` ('cuda', the default,
+    or 'cpu') and return a :class:`ModelRun`. This is :func:`run_model`
+    without the file: it needs no HDF5."""
     device = resolve_device(device)
     dtype = engine_dtype(device, dtype)
     _check_slice(model)

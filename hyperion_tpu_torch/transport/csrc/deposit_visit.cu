@@ -3,29 +3,53 @@
 // Replaces the Pallas TPU kernel hyperion_tpu/transport/pallas_ops.py::deposit_visit
 // (body _deposit_visit_kernel). For every lane i of a batch of B lanes:
 //
-//   energy_sum[d, cell_dep[i]] += dep[d, i]                  for every dust d
-//   fresh[i] = last_uid[enter[i]] != uid[i]                  table read BEFORE this step
+//   energy_sum[d, cell_dep[i]] += dep[i, d]                  for every dust d
+//   fresh[i] = last_uid[enter[i]] != uid[i]                  table read BEFORE this call
 //   n_photons[enter[i]] += fresh[i]                          where enter[i] < n_cells
 //   last_uid[c] = max{uid[i] : enter[i] == c}                where some lane entered c
 //
 // enter[i] == n_cells is the drop slot: the lane entered no cell. The last-uid
 // update OVERWRITES an entered cell's uid with the largest uid that entered it
-// in this step; it does not keep a running maximum over time (uids 5, 3, 5 in
-// three steps leave 5 and count 3). So the step's maximum goes into the scratch
-// table `win` (launch 1) and is committed to last_uid afterwards (launch 2);
-// never atomicMax into last_uid itself.
+// in this call; it does not keep a running maximum over time (uids 5, 3, 5 in
+// three calls leave 5 and count 3), so it cannot be an atomicMax into last_uid.
 //
-// What bounds it on this card: scattered 4-byte atomics, and about
-// 4 * (n_dust + 3) * B bytes of lane reads. The atomics contend on the source's
-// cell right after each refill, where many fresh packets deposit into one cell.
-// Masked lanes carry dep == 0 and skip their atomic, which is numerically
-// identical and spares that cell. Lanes in the drop slot touch no table.
-// Making it fast is later work: warp-aggregated atomics for lanes of equal
-// cell, and fusing it into a persistent step kernel.
+// What bounds it on this card: bytes. The lanes bring (20 + 4 n_dust) B bytes
+// (int64 cells, int32 uids, float32 deposits); the tables are read and written
+// only where a lane touches them. At B = 125,000 that is ~3 MB, about 1 us at
+// 3.35 TB/s: far below one launch's fixed cost. The PR 1 design paid four
+// other costs; what this design does about each:
+//
+// 1. Same-address atomics. After a refill ~30% of the lanes deposit into and
+//    enter the source's cell, and each lane issued its own atomics there. Here
+//    the lanes of a warp are grouped by cell with __match_any_sync, once on
+//    cell_dep and once on enter, and only the group's lowest lane touches L2:
+//    one float atomicAdd per dust of the group's sum (a shuffle tree over the
+//    group, group_sum below), one int64 atomicAdd of the group's fresh count
+//    (__popc of a ballot) and one atomicMax of the group's largest uid
+//    (__reduce_max_sync). At most 1/32 of the old atomics reach a hot cell.
+//    The float sums run in another order than the plain version's.
+// 2. Two launches per call. The step's maxima go into a scratch table that is
+//    committed into last_uid by the NEXT call's launch, so one launch does
+//    both: the wrapper rotates two scratch tables, win_cur (this call's
+//    maxima, INT_MIN where untouched) and win_prev (the previous call's).
+//    Threads c < n_cells commit: where win_prev[c] is set, they write
+//    last_uid[c], fence, then reset win_prev[c] to INT_MIN. A lane reads the
+//    table before this call as win_prev[c] when set, else last_uid[c], with a
+//    fence between the two loads. If it finds win_prev[c] reset, the fences
+//    order the commit's store before the reset, so its load of last_uid[c]
+//    sees the committed value; if it finds it set, that is the value. Either
+//    way it reads the previous call's maximum. The grid is max(B, n_cells)
+//    threads. last_uid lags one call behind until the wrapper's flush(),
+//    which is this kernel with B = 0 (commit only).
+// 3. Host cost per call (the wrapper): argtypes set once, table pointers
+//    checked and cached once per iteration, the raw stream handle as an int,
+//    no allocation and no synchronisation: the call captures in a CUDA graph.
+// 4. Conversion launches at the call sites: the kernel takes the step's own
+//    tensors, int64 cell indices and deposit rows in (B, n_dust) layout.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (hyperion_tpu_torch/transport/_build.py).
-// Both launches run on the caller's stream; nothing here allocates or syncs.
+// One launch on the caller's stream; nothing here allocates or syncs.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -33,67 +57,109 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void deposit_visit_lanes(float* __restrict__ energy_sum,
-                                    unsigned long long* __restrict__ n_photons,
-                                    const int* __restrict__ last_uid,
-                                    int* __restrict__ win,
-                                    const int* __restrict__ cell_dep,
-                                    const float* __restrict__ dep,
-                                    const int* __restrict__ enter,
-                                    const int* __restrict__ uid,
-                                    int n_dust, int n_cells, int B) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const int cd = cell_dep[i];
-  if (cd >= 0 && cd < n_cells) {
-    for (int d = 0; d < n_dust; ++d) {
-      const float v = dep[(size_t)d * B + i];
-      if (v != 0.0f) atomicAdd(&energy_sum[(size_t)d * n_cells + cd], v);
-    }
+// The sum of x over the lanes of `peers` (this lane's __match_any_sync group),
+// in the group's lowest lane; other lanes get partial sums. A tree over the
+// group in at most 5 rounds: in round r each lane adds the value of its next
+// remaining peer, and the peers whose relative position has bit r set drop
+// out. Every lane of the warp must call it (full-warp shuffles).
+__device__ __forceinline__ float group_sum(unsigned peers, float x, int lane) {
+  unsigned rel = __popc(peers & ((1u << lane) - 1u));
+  unsigned rest = peers & (0xfffffffeu << lane);
+  while (__any_sync(kFull, rest != 0u)) {
+    const int next = __ffs(rest);  // 1-based, 0 when none is left
+    const float t = __shfl_sync(kFull, x, (next - 1) & 31);
+    if (next) x += t;
+    rest &= ~__ballot_sync(kFull, rel & 1u);
+    rel >>= 1;
   }
-  const int c = enter[i];
-  if (c >= 0 && c < n_cells) {
-    const int u = uid[i];
-    // counts are non-negative, so the unsigned add is the int64 add
-    if (last_uid[c] != u) atomicAdd(&n_photons[c], 1ULL);
-    atomicMax(&win[c], u);
-  }
+  return x;
 }
 
-__global__ void deposit_visit_commit(int* __restrict__ last_uid,
-                                     int* __restrict__ win, int n_cells) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_cells) return;
-  const int w = win[c];
-  if (w != INT_MIN) {
-    last_uid[c] = w;
-    win[c] = INT_MIN;
+__global__ void __launch_bounds__(kThreads)
+deposit_visit_kernel(float* __restrict__ energy_sum,
+                     unsigned long long* __restrict__ n_photons,
+                     int* last_uid, int* __restrict__ win_cur, int* win_prev,
+                     const long long* __restrict__ cell_dep,
+                     const float* __restrict__ dep,
+                     const long long* __restrict__ enter,
+                     const int* __restrict__ uid,
+                     int n_dust, int n_cells, int B) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  volatile int* const committed = last_uid;
+  volatile int* const pending = win_prev;
+
+  // commit the previous call's maxima (see 2. above)
+  if (t < n_cells) {
+    const int w = pending[t];
+    if (w != INT_MIN) {
+      committed[t] = w;
+      __threadfence();
+      pending[t] = INT_MIN;
+    }
+  }
+
+  // No lane returns early: the warp votes and shuffles below take all 32.
+  const bool lane_ok = t < B;
+
+  // deposits, summed per cell within the warp
+  if (n_dust > 0) {
+    long long cd = lane_ok ? cell_dep[t] : -1;
+    const int dkey = (cd >= 0 && cd < n_cells) ? static_cast<int>(cd) : -1;
+    const unsigned dpeers = __match_any_sync(kFull, dkey);
+    const bool dlead = dkey >= 0 && lane == __ffs(dpeers) - 1;
+    for (int d = 0; d < n_dust; ++d) {
+      const float v = dkey >= 0 ? dep[static_cast<size_t>(t) * n_dust + d] : 0.0f;
+      const float s = group_sum(dpeers, v, lane);
+      // a zero sum (masked lanes carry 0) adds nothing: skip its atomic
+      if (dlead && s != 0.0f)
+        atomicAdd(&energy_sum[static_cast<size_t>(d) * n_cells + dkey], s);
+    }
+  }
+
+  // unique visits, counted and maximised per cell within the warp
+  const long long c = lane_ok ? enter[t] : -1;
+  const int ekey = (c >= 0 && c < n_cells) ? static_cast<int>(c) : -1;
+  const int u = lane_ok ? uid[t] : INT_MIN;
+  bool fresh = false;
+  if (ekey >= 0) {
+    int before = pending[ekey];
+    if (before == INT_MIN) {
+      __threadfence();
+      before = committed[ekey];
+    }
+    fresh = before != u;
+  }
+  const unsigned epeers = __match_any_sync(kFull, ekey);
+  const unsigned fresh_lanes = __ballot_sync(kFull, fresh);
+  const int umax = __reduce_max_sync(epeers, u);
+  if (ekey >= 0 && lane == __ffs(epeers) - 1) {
+    const unsigned n_fresh = __popc(fresh_lanes & epeers);
+    // counts are non-negative, so the unsigned add is the int64 add
+    if (n_fresh) atomicAdd(&n_photons[ekey], static_cast<unsigned long long>(n_fresh));
+    atomicMax(&win_cur[ekey], umax);
   }
 }
 
 }  // namespace
 
 // energy_sum (n_dust, n_cells) f32; n_photons (n_cells,) int64;
-// last_uid and win (n_cells + 1,) int32, win held at INT_MIN between calls;
-// cell_dep, enter, uid (B,) int32; dep (n_dust, B) f32.
-// Returns the cudaError_t of the launches (0 on success).
+// last_uid, win_cur and win_prev (n_cells + 1,) int32, the scratch tables at
+// INT_MIN where untouched; cell_dep, enter (B,) int64; uid (B,) int32;
+// dep (B, n_dust) f32. n_dust may be 0 (visits only) and B may be 0 (commit
+// only). Returns the cudaError_t of the launch (0 on success).
 extern "C" int deposit_visit(float* energy_sum, long long* n_photons,
-                             int* last_uid, int* win, const int* cell_dep,
-                             const float* dep, const int* enter,
-                             const int* uid, int n_dust, int n_cells, int B,
+                             int* last_uid, int* win_cur, int* win_prev,
+                             const long long* cell_dep, const float* dep,
+                             const long long* enter, const int* uid,
+                             int n_dust, int n_cells, int B,
                              cudaStream_t stream) {
-  if (B > 0) {
-    deposit_visit_lanes<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                          stream>>>(
-        energy_sum, reinterpret_cast<unsigned long long*>(n_photons),
-        last_uid, win, cell_dep, dep, enter, uid, n_dust, n_cells, B);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (n_cells > 0) {
-    deposit_visit_commit<<<(n_cells + kThreads - 1) / kThreads, kThreads, 0,
-                           stream>>>(last_uid, win, n_cells);
-  }
+  const int n = B > n_cells ? B : n_cells;
+  if (n <= 0) return 0;
+  deposit_visit_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      energy_sum, reinterpret_cast<unsigned long long*>(n_photons), last_uid,
+      win_cur, win_prev, cell_dep, dep, enter, uid, n_dust, n_cells, B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,20 +2,20 @@
 unique-photon visit counts (counterpart of the Pallas kernel
 ``hyperion_tpu/transport/pallas_ops.py::deposit_visit``).
 
-On a CUDA tensor :func:`deposit_visit` launches the hand-written kernel in
-``csrc/deposit_visit.cu``; on a CPU tensor it runs the plain PyTorch
-version :func:`deposit_visit_reference`. Nothing falls back from one to the
-other. Both update their tables IN PLACE.
+:class:`DepositVisit` holds an iteration's tables. On CUDA tables a call
+launches the hand-written kernel in ``csrc/deposit_visit.cu``; on CPU tables
+it runs the plain PyTorch version :func:`deposit_visit_reference`. Nothing
+falls back from one to the other. Both update the tables IN PLACE.
 
-Semantics, for a step of B lanes (``enter == n_cells`` is the drop slot):
+Semantics, for a call of B lanes (``enter == n_cells`` is the drop slot):
 
-    energy_sum[d, cell_dep[i]] += dep_rows[d, i]
-    fresh[i] = last_uid[enter[i]] != uid[i]           (table before the step)
+    energy_sum[d, cell_dep[i]] += dep[i, d]
+    fresh[i] = last_uid[enter[i]] != uid[i]           (table before the call)
     n_photons_cell[enter[i]] += fresh[i]              (enter[i] < n_cells)
-    last_uid[c] = max{uid[i] : enter[i] == c}         (cells entered this step)
+    last_uid[c] = max{uid[i] : enter[i] == c}         (cells entered this call)
 
 The last-uid update overwrites: a cell entered by uids 5, 3, 5 in three
-steps ends at 5 with a count of 3 (the JAX kernel and
+calls ends at 5 with a count of 3 (the JAX kernel and
 ``engine.visit_update`` agree). The drop slot ``last_uid[n_cells]`` is
 never read for counting, and neither version writes it."""
 
@@ -27,25 +27,18 @@ from . import _build
 
 INT_MIN = -2 ** 31
 
-# kernel calls since the last reset; chip_smoke.py reads it to show that the
-# main path ran the kernel
+# kernel launches since the last reset; chip_smoke.py reads it to show that
+# the main path ran the kernel
 launches = 0
 
 
-def new_visit_scratch(n_cells, device):
-    """The kernel's scratch table of per-cell step maxima, held at INT_MIN
-    between calls; allocate one per iteration."""
-    return torch.full((n_cells + 1,), INT_MIN, dtype=torch.int32,
-                      device=device)
-
-
 def deposit_visit_reference(energy_sum, n_photons_cell, last_uid, cell_dep,
-                            dep_rows, enter, uid):
-    """The plain PyTorch version of the kernel, on any device."""
+                            dep, enter, uid):
+    """The plain PyTorch version of the kernel, on any device. ``dep`` is
+    (B, n_dust), or None for visits only (``cell_dep`` is then unused)."""
     n_cells = n_photons_cell.shape[0]
-    if dep_rows.shape[0]:
-        energy_sum.index_add_(1, cell_dep.long(), dep_rows)
-    enter = enter.long()
+    if dep is not None and dep.shape[1]:
+        energy_sum.index_add_(1, cell_dep, dep.T)
     uid = uid.to(last_uid.dtype)
     fresh = (last_uid[enter] != uid) & (enter < n_cells)
     n_photons_cell.index_add_(0, enter[fresh], torch.ones_like(
@@ -57,60 +50,110 @@ def deposit_visit_reference(energy_sum, n_photons_cell, last_uid, cell_dep,
                                      last_uid[:n_cells])
 
 
-def _check(t, name, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(
-            "deposit_visit: %s must be a contiguous %s tensor of shape %s on "
-            "%s; got %s %s on %s (contiguous=%s)"
-            % (name, dtype, shape, device, t.dtype, tuple(t.shape), t.device,
-               t.is_contiguous()))
+def _lane_error(name, t, dtype, shape, device):
+    return ValueError(
+        "deposit_visit: %s must be a contiguous %s tensor of shape %s on %s; "
+        "got %s %s on %s (contiguous=%s)"
+        % (name, dtype, shape, device, t.dtype, tuple(t.shape), t.device,
+           t.is_contiguous()))
 
 
-def deposit_visit(energy_sum, n_photons_cell, last_uid, win, cell_dep,
-                  dep_rows, enter, uid):
-    """Apply one step's deposits and visit counts in place.
+class DepositVisit:
+    """One iteration's deposit and visit tables, and the call that updates
+    them: ``stats(cell_dep, dep, enter, uid)``.
 
-    ``energy_sum`` (n_dust, n_cells); ``n_photons_cell`` (n_cells,);
-    ``last_uid`` and ``win`` (n_cells + 1,) int32, ``win`` from
-    :func:`new_visit_scratch`; ``cell_dep``, ``enter``, ``uid`` (B,);
-    ``dep_rows`` (n_dust, B), where n_dust may be 0 (visits only).
-    On CUDA: float32 energies, int64 counts, int32 indices and uids."""
-    global launches
-    device = energy_sum.device
-    if device.type == 'cpu':
-        deposit_visit_reference(energy_sum, n_photons_cell, last_uid,
-                                cell_dep, dep_rows, enter, uid)
-        return
-    if device.type != 'cuda':
-        raise ValueError("deposit_visit runs on CPU or CUDA tensors, not %s"
-                         % device)
-    n_dust, n_cells = energy_sum.shape
-    B = cell_dep.shape[0]
-    _check(energy_sum, 'energy_sum', torch.float32, (n_dust, n_cells), device)
-    _check(n_photons_cell, 'n_photons_cell', torch.int64, (n_cells,), device)
-    _check(last_uid, 'last_uid', torch.int32, (n_cells + 1,), device)
-    _check(win, 'win', torch.int32, (n_cells + 1,), device)
-    _check(cell_dep, 'cell_dep', torch.int32, (B,), device)
-    _check(dep_rows, 'dep_rows', torch.float32, (n_dust, B), device)
-    _check(enter, 'enter', torch.int32, (B,), device)
-    _check(uid, 'uid', torch.int32, (B,), device)
-    fn = _kernel()
-    err = fn(energy_sum.data_ptr(), n_photons_cell.data_ptr(),
-             last_uid.data_ptr(), win.data_ptr(), cell_dep.data_ptr(),
-             dep_rows.data_ptr(), enter.data_ptr(), uid.data_ptr(),
-             n_dust, n_cells, B,
-             torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("deposit_visit kernel launch failed: cudaError %d"
-                           % err)
-    launches += 1
+    ``energy_sum`` (n_dust, n_cells) and ``n_photons_cell`` (n_cells,) int64
+    start at 0, ``last_uid`` (n_cells + 1,) int32 at -2. On CUDA the tables
+    are float32 energies, the kernel's two rotating scratch tables are
+    allocated here, and the tables' pointers are checked and cached once:
+    a call checks only its lane tensors, launches once, allocates nothing
+    and does not synchronise, so it can be captured in a CUDA graph. There
+    ``last_uid`` lags one call behind until :meth:`flush`; the counts and
+    energies are exact after every call. A graph replays the scratch
+    rotation it captured, so it should hold an even number of calls."""
+
+    def __init__(self, n_dust, n_cells, device, dtype):
+        device = torch.device(device)
+        if device.type == 'cuda' and device.index is None:
+            device = torch.device('cuda', torch.cuda.current_device())
+        self.n_dust, self.n_cells, self.device = n_dust, n_cells, device
+        self.energy_sum = torch.zeros((n_dust, n_cells), dtype=dtype,
+                                      device=device)
+        self.n_photons_cell = torch.zeros(n_cells, dtype=torch.int64,
+                                          device=device)
+        self.last_uid = torch.full((n_cells + 1,), -2, dtype=torch.int32,
+                                   device=device)
+        self._cuda = device.type == 'cuda'
+        if not self._cuda:
+            if device.type != 'cpu':
+                raise ValueError("deposit_visit runs on CPU or CUDA tensors, "
+                                 "not %s" % device)
+            return
+        if dtype != torch.float32:
+            raise ValueError("deposit_visit on CUDA takes float32 energies, "
+                             "not %s" % dtype)
+        self._win = [torch.full((n_cells + 1,), INT_MIN, dtype=torch.int32,
+                                device=device) for _ in range(2)]
+        self._ptrs = (self.energy_sum.data_ptr(),
+                      self.n_photons_cell.data_ptr(), self.last_uid.data_ptr())
+        self._win_ptrs = (self._win[0].data_ptr(), self._win[1].data_ptr())
+        self._turn = 0
+        self._fn = _kernel()
+        # the current stream's raw handle as an int, without building a
+        # torch.cuda.Stream object (a captured graph runs on a side stream)
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, cell_dep, dep, enter, uid):
+        """Apply one call's deposits and visits. ``cell_dep``, ``enter``
+        (B,) int64; ``dep`` (B, n_dust) or None for visits only (then
+        ``cell_dep`` is unused); ``uid`` (B,) int32."""
+        if not self._cuda:
+            deposit_visit_reference(self.energy_sum, self.n_photons_cell,
+                                    self.last_uid, cell_dep, dep, enter, uid)
+            return
+        B = enter.shape[0]
+        self._check_lane('enter', enter, torch.int64, (B,))
+        self._check_lane('uid', uid, torch.int32, (B,))
+        if dep is None:
+            n_dust, cell_dep = 0, enter
+        else:
+            n_dust = self.n_dust
+            self._check_lane('cell_dep', cell_dep, torch.int64, (B,))
+            self._check_lane('dep', dep, torch.float32, (B, n_dust))
+        self._launch(cell_dep.data_ptr(), 0 if dep is None else
+                     dep.data_ptr(), enter.data_ptr(), uid.data_ptr(),
+                     n_dust, B)
+
+    def flush(self):
+        """Bring ``last_uid`` up to date (on CUDA, the kernel with no lanes
+        commits the pending maxima); a no-op on the CPU."""
+        if self._cuda:
+            self._launch(0, 0, 0, 0, 0, 0)
+
+    def _check_lane(self, name, t, dtype, shape):
+        if t.dtype != dtype or t.device != self.device or \
+                t.shape != shape or not t.is_contiguous():
+            raise _lane_error(name, t, dtype, shape, self.device)
+
+    def _launch(self, cell_dep, dep, enter, uid, n_dust, B):
+        global launches
+        es, npc, luid = self._ptrs
+        cur = self._win_ptrs[self._turn]
+        prev = self._win_ptrs[1 - self._turn]
+        err = self._fn(es, npc, luid, cur, prev, cell_dep, dep, enter, uid,
+                       n_dust, self.n_cells, B,
+                       self._stream(self.device.index))
+        if err != 0:
+            raise RuntimeError("deposit_visit kernel launch failed: "
+                               "cudaError %d" % err)
+        self._turn = 1 - self._turn
+        launches += 1
 
 
 def _kernel():
     fn = _build.load('deposit_visit').deposit_visit
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .deposit_visit import deposit_visit, new_visit_scratch
+from .deposit_visit import DepositVisit
 from .gtable import ESCAPED
 from .sampling import (interp_loglog, isotropic_direction, random_exp,
                        rotate_direction, sample_quantile_rows)
@@ -62,12 +62,9 @@ class LucyCarry:
     n_alive: int
     n_steps: int
     energy_current: torch.Tensor   # () float64
-    energy_sum: torch.Tensor       # (n_dust, n_cells)
-    # (n_cells,) int64 unique-photon visit counts (ref last_photon_id
-    # dedup, grid_propagate_3d.f90:91-97)
-    n_photons_cell: torch.Tensor
-    last_uid_cell: torch.Tensor    # (n_cells + 1,) int32
-    win: torch.Tensor              # (n_cells + 1,) int32 kernel scratch
+    # energy_sum (n_dust, n_cells) and the (n_cells,) int64 unique-photon
+    # visit counts (ref last_photon_id dedup, grid_propagate_3d.f90:91-97)
+    stats: DepositVisit
     killed_int: torch.Tensor       # () int64
     killed_geo: torch.Tensor       # () int64
     # lanes that moved (crossing or interaction): n_events/(n_steps*B) is
@@ -216,13 +213,10 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
             alive=p.alive | (can & (cell_new != ESCAPED)),
             chi=m(p.chi, chi_n), kappa=m(p.kappa, kappa_n),
             albedo=m(p.albedo, alb_n))
-        # the emission cell counts as visited; no deposits (n_dust = 0)
+        # the emission cell counts as visited; no deposits
         emit_idx = torch.where(can & (cell_new != ESCAPED), cell_new,
-                               n_cells).to(torch.int32)
-        deposit_visit(carry.energy_sum[:0], carry.n_photons_cell,
-                      carry.last_uid_cell, carry.win, emit_idx,
-                      carry.energy_sum.new_empty((0, B)), emit_idx,
-                      packets.uid)
+                               n_cells)
+        carry.stats(None, None, emit_idx, packets.uid)
         carry.packets = packets
         carry.energy_current += torch.where(can, new['energy'], 0.0).sum(
             dtype=torch.float64)
@@ -261,7 +255,7 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
         # (ref grid_propagate_3d.f90:153-154, 205-206) ---
         dep_rows = torch.where(moving[:, None] & (rho_rows > 0.0),
                                d_move[:, None] * p.kappa * p.energy[:, None],
-                               0.0).T.contiguous()
+                               0.0)
 
         # --- move, snapping wall crossers onto the wall ---
         x = torch.where(moving, p.x + d_move * p.kx, p.x)
@@ -275,11 +269,8 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
         escaped = crossed & (cell == ESCAPED)
 
         # --- deposits and unique-visit counts of the entered cells ---
-        enter_idx = torch.where(crossed & (cell != ESCAPED), cell,
-                                n_cells).to(torch.int32)
-        deposit_visit(carry.energy_sum, carry.n_photons_cell,
-                      carry.last_uid_cell, carry.win,
-                      cell_safe.to(torch.int32), dep_rows, enter_idx, p.uid)
+        enter_idx = torch.where(crossed & (cell != ESCAPED), cell, n_cells)
+        carry.stats(cell_safe, dep_rows, enter_idx, p.uid)
 
         # --- interaction (absorb and re-emit, or scatter) ---
         interacting = moving & ~hits_wall
@@ -355,11 +346,7 @@ def _init_lucy_carry(dt, density, n_photons, batch_size):
     return LucyCarry(
         packets=packets, budget=int(n_photons), uid_counter=0, n_alive=0,
         n_steps=0, energy_current=zeros(dtype=torch.float64),
-        energy_sum=zeros(n_dust, n_cells),
-        n_photons_cell=zeros(n_cells, dtype=torch.int64),
-        last_uid_cell=torch.full((n_cells + 1,), -2, dtype=torch.int32,
-                                 device=device),
-        win=new_visit_scratch(n_cells, device),
+        stats=DepositVisit(n_dust, n_cells, device, dtype),
         killed_int=zeros(dtype=torch.int64),
         killed_geo=zeros(dtype=torch.int64),
         n_events=zeros(dtype=torch.int64))
@@ -382,6 +369,7 @@ def run_lucy_iteration(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
     # lanes still alive at max_steps are killed (bounded-step safety net)
     killed_int = carry.killed_int + carry.packets.alive.sum()
     n_dust, n_cells = density.shape
-    return (carry.energy_sum, carry.energy_current, carry.n_photons_cell,
+    return (carry.stats.energy_sum, carry.energy_current,
+            carry.stats.n_photons_cell,
             killed_int, carry.killed_geo, carry.n_steps,
             density.new_zeros((n_dust, 0, n_cells)), carry.n_events)

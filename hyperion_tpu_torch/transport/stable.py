@@ -12,8 +12,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hyperion_tpu.util.functions import B_nu, planck_nu_range
-
+from ..sources import PointSource, PointSourceCollection
+from ..util.functions import B_nu, planck_nu_range
 from .dtable import _cdf_loglog
 from .sampling import (isotropic_direction, quantile_grid, quantile_table,
                        sample_quantile_rows)
@@ -58,8 +58,6 @@ def build_source_tables(sources, device, dtype, n_spec=1024,
                         length_scale=1.0, sample_evenly=False):
     """Build SourceTables from a list of PointSource and
     PointSourceCollection objects; other source types raise."""
-    from hyperion_tpu.sources import PointSource, PointSourceCollection
-
     if not sources:
         raise NotImplementedError(
             "source-less models (monochromatic dust emission) are not in "

@@ -10,8 +10,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from hyperion_tpu.dust import IsotropicDust
-from hyperion_tpu.sources import PointSource, PointSourceCollection
 from hyperion_tpu.transport import build_dust_tables as j_dust
 from hyperion_tpu.transport import build_source_tables as j_sources
 from hyperion_tpu.transport import engine as je
@@ -20,6 +18,7 @@ from hyperion_tpu_torch.transport import engine as te
 from hyperion_tpu_torch.transport.dtable import build_dust_tables
 from hyperion_tpu_torch.transport.stable import (build_source_tables,
                                                  emit_packets)
+from test_torch_frontend import frontend, point_sources
 
 torch.set_num_threads(1)
 RTOL = 1e-12
@@ -40,12 +39,13 @@ def _uniform(key, n=B):
     return jax.random.uniform(key, (n,), dtype=F64)
 
 
-def _dusts():
+def _dusts(package):
     out = []
     for alb, chi in [(0.4, 60.0), (0.7, 20.0)]:
         nu = np.logspace(np.log10(3e10), np.log10(5e16), 24)
-        d = IsotropicDust(nu, np.linspace(alb - 0.3, alb + 0.2, 24),
-                          np.geomspace(chi, chi * 30, 24))
+        d = frontend(package).IsotropicDust(
+            nu, np.linspace(alb - 0.3, alb + 0.2, 24),
+            np.geomspace(chi, chi * 30, 24))
         d.set_lte_emissivities(n_temp=40, temp_min=0.1, temp_max=1600.)
         out.append(d)
     return out
@@ -54,9 +54,9 @@ def _dusts():
 @pytest.fixture(scope='module')
 def setup():
     """JAX and port tables of two dusts, and one batch of lane state."""
-    dusts = _dusts()
-    jt = j_dust(dusts, dtype=F64)
-    pt = build_dust_tables(dusts, torch.device('cpu'), torch.float64)
+    jt = j_dust(_dusts('jax'), dtype=F64)
+    pt = build_dust_tables(_dusts('port'), torch.device('cpu'),
+                           torch.float64)
     rng = np.random.default_rng(11)
     nu_tab = np.asarray(jt.nu)
     nu = 10 ** rng.uniform(np.log10(nu_tab.min()), np.log10(nu_tab.max()), B)
@@ -146,18 +146,9 @@ def test_interaction_update(setup):
 
 
 def test_emit_packets_point_sources():
-    def sources():
-        c = PointSourceCollection()
-        c.luminosity = np.array([1.0, 2.0, 0.5])
-        c.position = np.array([[0.0, 0.0, 0.0], [0.3, 0.0, -0.2],
-                               [-0.1, 0.4, 0.1]])
-        c.temperature = 4000.0
-        return [c, PointSource(luminosity=3.0, temperature=9000.0,
-                               position=(0.1, 0.2, 0.3))]
-
-    jst = j_sources(sources(), dtype=F64, sample_evenly=True)
-    pst = build_source_tables(sources(), torch.device('cpu'), torch.float64,
-                              sample_evenly=True)
+    jst = j_sources(point_sources('jax'), dtype=F64, sample_evenly=True)
+    pst = build_source_tables(point_sources('port'), torch.device('cpu'),
+                              torch.float64, sample_evenly=True)
     key = jax.random.PRNGKey(5)
     ref = j_emit(jst, key, B, F64)
     k_src, k_nu, k_dir, _, _ = jax.random.split(key, 5)

@@ -1,0 +1,258 @@
+"""The port's own front end held to the JAX package's, and the builders that
+every tests/test_torch_*.py file uses to make the same model or objects
+from either package.
+
+hyperion_tpu_torch carries a copy of hyperion_tpu's JAX-free front end
+(model, dust, grid, sources, conf, filter, util). Built from either package
+with the same arguments, a model must write the same .rtin (every dataset
+and attribute, apart from version strings); the port's Model.run writes an
+.rtout that both packages' ModelOutput read back alike; and no module of
+the port, nor chip_smoke.py, imports JAX or anything of hyperion_tpu."""
+
+import ast
+import importlib
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+from types import SimpleNamespace
+
+import h5py
+import numpy as np
+import pytest
+import torch
+
+import hyperion_tpu_torch
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+PACKAGES = {'jax': 'hyperion_tpu', 'port': 'hyperion_tpu_torch'}
+
+
+def frontend(package):
+    """The front-end classes and constants of 'jax' (hyperion_tpu) or
+    'port' (hyperion_tpu_torch)."""
+    name = PACKAGES[package]
+
+    def mod(sub):
+        return importlib.import_module('%s.%s' % (name, sub))
+
+    dust, grid, sources = mod('dust'), mod('grid'), mod('sources')
+    model, const = mod('model'), mod('util.constants')
+    return SimpleNamespace(
+        IsotropicDust=dust.IsotropicDust, CartesianGrid=grid.CartesianGrid,
+        PointSource=sources.PointSource,
+        PointSourceCollection=sources.PointSourceCollection,
+        SphericalSource=sources.SphericalSource, Model=model.Model,
+        ModelOutput=model.ModelOutput, au=const.au, lsun=const.lsun)
+
+
+def tutorial_model(package, n=32, n_photons=500_000, iterations=4,
+                   seed=20261016, density=1e-19):
+    """examples/quickstart.py without its peeled image: n^3 cells of +-50
+    au, one isotropic dust, a 1 Lsun 6000 K point source."""
+    F = frontend(package)
+    nu = np.logspace(8, 17, 32)
+    dust = F.IsotropicDust(nu, np.repeat(0.4, 32), np.repeat(100.0, 32))
+    m = F.Model()
+    lim = 50 * F.au
+    w = np.linspace(-lim, lim, n + 1)
+    m.set_cartesian_grid(w, w, w)
+    m.add_density_grid(np.full(m.grid.shape, density), dust)
+    src = m.add_point_source(name='star')
+    src.luminosity = F.lsun
+    src.temperature = 6000.0
+    m.set_n_initial_iterations(iterations)
+    m.set_n_photons(initial=n_photons, imaging=0)
+    m.set_seed(seed)
+    return m
+
+
+def lte_dust(package, albedo=0.4, chi=60.0, n_nu=24, nu_lo=3e10):
+    """A gray-ish isotropic dust with LTE emissivities on a 40-temperature
+    grid (tests/test_self_regression.py:_dust_iso when the defaults are
+    kept)."""
+    nu = np.logspace(np.log10(nu_lo), np.log10(5e16), n_nu)
+    alb = albedo if np.ndim(albedo) else np.full(n_nu, albedo)
+    ch = chi if np.ndim(chi) else np.full(n_nu, chi)
+    d = frontend(package).IsotropicDust(nu, alb, ch)
+    d.set_lte_emissivities(n_temp=40, temp_min=0.1, temp_max=1600.)
+    return d
+
+
+def point_sources(package, scale=1.0):
+    """A three-point collection of 4000 K and a 9000 K point source, at
+    positions in units of ``scale``."""
+    F = frontend(package)
+    c = F.PointSourceCollection(name='cluster')
+    c.luminosity = np.array([1.0, 2.0, 0.5]) * F.lsun
+    c.position = np.array([[0.0, 0.0, 0.0], [0.3, 0.0, -0.2],
+                           [-0.1, 0.4, 0.1]]) * scale
+    c.temperature = 4000.0
+    s = F.PointSource(name='star', luminosity=3 * F.lsun,
+                      temperature=9000.0,
+                      position=(0.1 * scale, 0.2 * scale, 0.3 * scale))
+    return [c, s]
+
+
+def two_dust_model(package, n=6, n_photons=4000):
+    """Two dusts (the second sublimates) on a non-uniform cartesian grid,
+    lit by a point-source collection and a point source."""
+    F = frontend(package)
+    m = F.Model()
+    L = 20 * F.au
+    m.set_cartesian_grid(np.linspace(-L, L, n + 1),
+                         np.linspace(-L, L, n + 2),
+                         np.concatenate([[-L], np.geomspace(0.1, 1, n) * L]))
+    rng = np.random.default_rng(3)
+    dust_b = lte_dust(package, albedo=0.6, chi=20.0)
+    dust_b.set_sublimation_specific_energy('fast', 5.0)
+    for d, rho in ((lte_dust(package), 1e-18), (dust_b, 3e-18)):
+        m.add_density_grid(rho * rng.uniform(0.5, 1.5, m.grid.shape), d)
+    for s in point_sources(package, scale=0.5 * L):
+        m.add_source(s)
+    m.set_n_initial_iterations(2)
+    m.set_n_photons(initial=n_photons, imaging=0)
+    m.set_minimum_temperature(5.0)
+    m.set_seed(-77)
+    m.conf.output.output_density = 'last'
+    m.conf.output.output_n_photons = 'last'
+    return m
+
+
+MODELS = {'tutorial': lambda pkg: tutorial_model(pkg, n=8, n_photons=3000,
+                                                 iterations=1),
+          'two_dusts_collection': two_dust_model}
+
+# attributes that name the writing package or the time of writing
+_UNCOMPARED = ('python_version', 'date_started', 'date_ended')
+
+
+def _contents(path):
+    """{hdf5 path: (kind, data, {attribute: value})} of a whole file."""
+    def attrs(obj):
+        return {k: v for k, v in obj.attrs.items() if k not in _UNCOMPARED}
+
+    with h5py.File(path, 'r') as f:
+        out = {'/': ('group', None, attrs(f))}
+
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                out[name] = ('dataset', obj[()], attrs(obj))
+            else:
+                out[name] = ('group', None, attrs(obj))
+        f.visititems(visit)
+    return out
+
+
+def _assert_same_contents(a, b):
+    assert sorted(a) == sorted(b)
+    for name, (kind, data, attrs) in a.items():
+        kind_b, data_b, attrs_b = b[name]
+        assert kind == kind_b, name
+        assert sorted(attrs) == sorted(attrs_b), name
+        for k, v in attrs.items():
+            assert np.array_equal(v, attrs_b[k]), (name, k)
+        if kind == 'dataset':
+            assert data.dtype == data_b.dtype, name
+            assert np.array_equal(data, data_b), name
+
+
+@pytest.mark.parametrize('which', sorted(MODELS))
+def test_rtin_equals_jax(which, tmp_path):
+    for pkg in PACKAGES:
+        MODELS[which](pkg).write(str(tmp_path / (pkg + '.rtin')))
+    jax_file = _contents(tmp_path / 'jax.rtin')
+    assert 'Dust/dust_001' in jax_file and 'Sources/source_00001' in jax_file
+    _assert_same_contents(_contents(tmp_path / 'port.rtin'), jax_file)
+
+
+def test_model_run_rtout_reads_alike(tmp_path):
+    m = two_dust_model('port')
+    m.write(str(tmp_path / 'm.rtin'))
+    out = m.run(device='cpu', batch_size=1024)
+    assert isinstance(out, hyperion_tpu_torch.model.ModelOutput)
+    readers = [frontend(pkg).ModelOutput(str(tmp_path / 'm.rtout'))
+               for pkg in PACKAGES]
+    grids = [r.get_quantities() for r in readers]
+    names = sorted(grids[0].quantities)
+    assert {'temperature', 'specific_energy', 'density',
+            'n_photons'} <= set(names)
+    assert sorted(grids[1].quantities) == names
+    for q in names:
+        a, b = (np.asarray(g[q].array) for g in grids)
+        np.testing.assert_array_equal(a, b, err_msg=q)
+    t = np.asarray(grids[0]['temperature'].array)
+    assert t.shape == (2,) + m.grid.shape
+    assert np.isfinite(t).all() and (t > 0).all()
+
+
+def test_model_run_refuses_multi_device(tmp_path):
+    m = two_dust_model('port')
+    m.write(str(tmp_path / 'm.rtin'))
+    for kw in (dict(mpi=True), dict(n_processes=2)):
+        with pytest.raises(NotImplementedError, match='item 12'):
+            m.run(device='cpu', **kw)
+
+
+def test_port_imports_neither_jax_nor_hyperion_tpu():
+    """Every module of the port imports, in a fresh interpreter without
+    h5py (as on the card's machine), and leaves jax and hyperion_tpu out of
+    sys.modules; a model is then built and run without HDF5."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules['h5py'] = None      # no HDF5, as on the card's machine
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import hyperion_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            hyperion_tpu_torch.__path__, 'hyperion_tpu_torch.')]
+        for name in names:
+            importlib.import_module(name)
+        from hyperion_tpu_torch.dust import IsotropicDust
+        from hyperion_tpu_torch.model import Model, run_lucy_model
+        m = Model()
+        w = np.linspace(-1e14, 1e14, 4)
+        m.set_cartesian_grid(w, w, w)
+        nu = np.logspace(8, 17, 8)
+        m.add_density_grid(np.full(m.grid.shape, 1e-18),
+                           IsotropicDust(nu, np.repeat(0.4, 8),
+                                         np.repeat(100.0, 8)))
+        s = m.add_point_source()
+        s.luminosity = 3.8e33
+        s.temperature = 6000.0
+        m.set_n_initial_iterations(1)
+        m.set_n_photons(initial=500, imaging=0)
+        run = run_lucy_model(m, device='cpu', batch_size=256)
+        assert run.result.energy_current == 500.0
+        bad = sorted(k for k in sys.modules
+                     if k.split('.')[0] in ('jax', 'hyperion_tpu'))
+        assert not bad, bad
+        print(len(names))
+    """)
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 40
+
+
+def _imports_of(path):
+    """The absolute module names that a source file imports."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_no_source_of_the_port_imports_hyperion_tpu():
+    files = sorted((REPO / 'hyperion_tpu_torch').rglob('*.py')) + \
+        [REPO / 'chip_smoke.py']
+    assert len(files) > 40
+    for path in files:
+        for name in _imports_of(path):
+            assert name.split('.')[0] not in ('jax', 'hyperion_tpu'), \
+                (path, name)

@@ -9,22 +9,20 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from hyperion_tpu.dust import IsotropicDust
-from hyperion_tpu.grid import CartesianGrid
-from hyperion_tpu.sources import PointSource
 from hyperion_tpu.transport import build_cartesian_geometry as j_geometry
 from hyperion_tpu_torch.transport.dtable import build_dust_tables
 from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
 from hyperion_tpu_torch.transport.lucy import run_lucy
 from hyperion_tpu_torch.transport.stable import build_source_tables
+from test_torch_frontend import frontend
 
 torch.set_num_threads(1)
 CPU = torch.device('cpu')
 F64 = torch.float64
 
 
-def _grid():
-    return CartesianGrid(np.array([-1.0, -0.6, -0.1, 0.0, 0.3, 1.0]),
+def _grid(package):
+    return frontend(package).CartesianGrid(np.array([-1.0, -0.6, -0.1, 0.0, 0.3, 1.0]),
                          np.linspace(-1.0, 1.0, 5),
                          np.array([-0.5, 0.0, 0.2, 0.9]))
 
@@ -52,9 +50,8 @@ def _rays(jg, n=3000, seed=21):
 
 
 def test_find_cell_find_wall_snap_in_cell():
-    grid = _grid()
-    jg = j_geometry(grid, dtype=jnp.float64)
-    pg = build_cartesian_geometry(grid, CPU, F64)
+    jg = j_geometry(_grid('jax'), dtype=jnp.float64)
+    pg = build_cartesian_geometry(_grid('port'), CPU, F64)
     pos, k = _rays(jg)
     jpos, jk = [jnp.asarray(a) for a in pos], [jnp.asarray(a) for a in k]
     tpos, tk = [torch.as_tensor(a) for a in pos], [torch.as_tensor(a)
@@ -106,13 +103,15 @@ CAR_POSITIONS = [
 @pytest.mark.parametrize("position", CAR_POSITIONS)
 def test_cartesian_robustness(position):
     """tests/test_propagation.py:test_cartesian_robustness on the port."""
-    grid = CartesianGrid(np.linspace(-1, 1, 9), np.linspace(-1, 1, 9),
-                         np.linspace(-1, 1, 9))
+    P = frontend('port')
+    grid = P.CartesianGrid(np.linspace(-1, 1, 9), np.linspace(-1, 1, 9),
+                           np.linspace(-1, 1, 9))
     geo = build_cartesian_geometry(grid, CPU, F64)
-    dust = IsotropicDust(np.logspace(5, 18, 16), np.repeat(0.5, 16),
-                         np.repeat(1.0, 16))
+    dust = P.IsotropicDust(np.logspace(5, 18, 16), np.repeat(0.5, 16),
+                           np.repeat(1.0, 16))
     dt = build_dust_tables([dust], CPU, F64)
-    src = PointSource(luminosity=1.0, temperature=5000.0, position=position)
+    src = P.PointSource(luminosity=1.0, temperature=5000.0,
+                        position=position)
     st = build_source_tables([src], CPU, F64, length_scale=geo.length_scale)
     density = torch.full((1, geo.n_cells), 0.5 * geo.length_scale,
                          dtype=F64)

@@ -12,9 +12,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from hyperion_tpu.dust import IsotropicDust
-from hyperion_tpu.grid import CartesianGrid
-from hyperion_tpu.sources import PointSource
 from hyperion_tpu.transport import (build_cartesian_geometry as j_geometry,
                                     build_dust_tables as j_dust,
                                     build_source_tables as j_sources,
@@ -25,8 +22,10 @@ from hyperion_tpu_torch.transport.engine import run_lucy_iteration
 from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
 from hyperion_tpu_torch.transport.lucy import compute_jnu_var, run_lucy
 from hyperion_tpu_torch.transport.stable import build_source_tables
+from test_torch_frontend import frontend
 
 torch.set_num_threads(1)
+J, P = frontend('jax'), frontend('port')
 CPU = torch.device('cpu')
 F64 = torch.float64
 
@@ -38,13 +37,13 @@ def _gen(seed):
 def setup_point_model(n=15, half=1.0, rho=1e-4, chi=1.0, albedo=0.0,
                       luminosity=1.0):
     """tests/test_engine_lucy.py:setup_point_model on the port."""
-    grid = CartesianGrid(*[np.linspace(-half, half, n + 1)] * 3)
+    grid = P.CartesianGrid(*[np.linspace(-half, half, n + 1)] * 3)
     nu = np.logspace(5, 18, 20)
-    dust = IsotropicDust(nu, np.repeat(albedo, 20), np.repeat(chi, 20))
+    dust = P.IsotropicDust(nu, np.repeat(albedo, 20), np.repeat(chi, 20))
     geometry = build_cartesian_geometry(grid, CPU, F64)
     dt = build_dust_tables([dust], CPU, F64)
-    st = build_source_tables([PointSource(luminosity=luminosity,
-                                          temperature=5000.0)], CPU, F64,
+    st = build_source_tables([P.PointSource(luminosity=luminosity,
+                                            temperature=5000.0)], CPU, F64,
                              length_scale=geometry.length_scale)
     density = torch.full((1, grid.n_cells), rho * geometry.length_scale,
                          dtype=F64)
@@ -79,12 +78,12 @@ def test_n_photons_cell_unique_photon_dedup():
     """One photon counts each cell at most once, however often it re-enters
     (test_engine_lucy.py:114; ref grid_propagate_3d.f90:91-97)."""
     nu = np.logspace(5, 18, 16)
-    dust = IsotropicDust(nu, np.repeat(0.999, 16), np.repeat(1.0, 16))
-    grid = CartesianGrid(*[np.linspace(-1, 1, 5)] * 3)
+    dust = P.IsotropicDust(nu, np.repeat(0.999, 16), np.repeat(1.0, 16))
+    grid = P.CartesianGrid(*[np.linspace(-1, 1, 5)] * 3)
     geometry = build_cartesian_geometry(grid, CPU, F64)
     dt = build_dust_tables([dust], CPU, F64)
-    st = build_source_tables([PointSource(luminosity=1.0,
-                                          temperature=5000.0)], CPU, F64)
+    st = build_source_tables([P.PointSource(luminosity=1.0,
+                                            temperature=5000.0)], CPU, F64)
     density = torch.full((1, grid.n_cells), 3.0, dtype=F64)
     jid, jfrac = compute_jnu_var(dt, torch.zeros_like(density))
     config = dict(n_inter_max=100000, kill_on_scatter=False,
@@ -108,13 +107,13 @@ def jax_and_port_runs():
     """One iteration of a 9^3 point-source model, 20k photons, B = 2048:
     the JAX run_lucy and the port on the same tables (through
     convert.tables_from_numpy), the port twice with different seeds."""
-    grid = CartesianGrid(*[np.linspace(-1, 1, 10)] * 3)
-    dust = IsotropicDust(np.logspace(5, 18, 20), np.repeat(0.5, 20),
-                         np.repeat(1.0, 20))
+    grid = J.CartesianGrid(*[np.linspace(-1, 1, 10)] * 3)
+    dust = J.IsotropicDust(np.logspace(5, 18, 20), np.repeat(0.5, 20),
+                           np.repeat(1.0, 20))
     jg = j_geometry(grid, dtype=jnp.float64)
     jt = j_dust([dust], dtype=jnp.float64)
-    js = j_sources([PointSource(luminosity=1.0, temperature=5000.0,
-                                position=(0.05, -0.1, 0.02))],
+    js = j_sources([J.PointSource(luminosity=1.0, temperature=5000.0,
+                                  position=(0.05, -0.1, 0.02))],
                    dtype=jnp.float64, length_scale=jg.length_scale)
     rho = np.full((1, grid.n_cells), 0.3 * jg.length_scale)
     kw = dict(n_photons=20000, n_iterations=1, batch_size=2048,

@@ -1,8 +1,9 @@
 """The whole slice: a scaled-down tutorial model (examples/quickstart.py at
-9^3 cells, 2 iterations of 20k photons) through the JAX package's run_model
-and the port's, both read back with the shared ModelOutput. The files must
-have the same layout; temperatures agree statistically (see
-tests/test_torch_lucy.py)."""
+9^3 cells, 2 iterations of 20k photons) built by each package's front end
+and run through its run_model, the files read back with the JAX package's
+ModelOutput. The files must have the same layout; temperatures agree
+statistically (see tests/test_torch_lucy.py). The port's entry points run
+on the card unless asked for the CPU."""
 
 import os
 import subprocess
@@ -15,32 +16,23 @@ import numpy as np
 import pytest
 import torch
 
-from hyperion_tpu.dust import IsotropicDust
-from hyperion_tpu.model import Model, ModelOutput
+from hyperion_tpu.model import ModelOutput
 from hyperion_tpu.model.run import run_model as j_run_model
-from hyperion_tpu.util.constants import au, lsun
-from hyperion_tpu_torch.model.run import run_model
+from hyperion_tpu_torch.util.constants import lsun
+from hyperion_tpu_torch.device import resolve_device
+from hyperion_tpu_torch.model.run import run_lucy_model, run_model
+from test_torch_frontend import tutorial_model as _tutorial
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 
 
-def tutorial_model(n=9, n_photons=20000, iterations=2, seed=-1234):
-    """examples/quickstart.py without its peeled image, scaled down."""
-    nu = np.logspace(8, 17, 32)
-    dust = IsotropicDust(nu, np.repeat(0.4, 32), np.repeat(100.0, 32))
-    m = Model()
-    lim = 50 * au
-    w = np.linspace(-lim, lim, n + 1)
-    m.set_cartesian_grid(w, w, w)
-    # denser than the tutorial, so that 20k photons interact
-    m.add_density_grid(np.full(m.grid.shape, 3e-17), dust)
-    src = m.add_point_source()
-    src.luminosity = lsun
-    src.temperature = 6000.0
-    m.set_n_initial_iterations(iterations)
-    m.set_n_photons(initial=n_photons, imaging=0)
-    m.set_seed(seed)
+def tutorial_model(package='port', seed=-1234):
+    """examples/quickstart.py without its peeled image, scaled down to 9^3
+    cells and 2 iterations of 20k photons, and denser than the tutorial,
+    so that 20k photons interact."""
+    m = _tutorial(package, n=9, n_photons=20000, iterations=2, seed=seed,
+                  density=3e-17)
     m.conf.output.output_n_photons = 'last'
     return m
 
@@ -64,9 +56,11 @@ def _layout(path):
 @pytest.fixture(scope='module')
 def outputs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp('slice')
+    mj = tutorial_model('jax')
+    mj.write(str(tmp / 'mj.rtin'), overwrite=True)
+    j_run_model(mj, str(tmp / 'jax.rtout'), batch_size=2048)
     m = tutorial_model()
     m.write(str(tmp / 'm.rtin'), overwrite=True)
-    j_run_model(m, str(tmp / 'jax.rtout'), batch_size=2048)
     run_model(m, str(tmp / 'port.rtout'), device='cpu', batch_size=2048)
     m2 = tutorial_model(seed=-999)
     m2.write(str(tmp / 'm2.rtin'), overwrite=True)
@@ -114,8 +108,8 @@ def test_port_never_imports_jax(tmp_path):
         import numpy as np
         import torch
         torch.set_num_threads(1)
-        from hyperion_tpu.dust import IsotropicDust
-        from hyperion_tpu.model import Model, ModelOutput
+        from hyperion_tpu_torch.dust import IsotropicDust
+        from hyperion_tpu_torch.model import Model, ModelOutput
         from hyperion_tpu_torch.model.run import run_model
         m = Model()
         w = np.linspace(-1e14, 1e14, 4)
@@ -133,6 +127,7 @@ def test_port_never_imports_jax(tmp_path):
         run_model(m, sys.argv[1], device='cpu', batch_size=256)
         ModelOutput(sys.argv[1]).get_quantities()
         assert 'jax' not in sys.modules, 'jax was imported'
+        assert 'hyperion_tpu' not in sys.modules, 'hyperion_tpu was imported'
     """)
     proc = subprocess.run([sys.executable, '-c', code,
                            str(tmp_path / 'x.rtout')], cwd=REPO,
@@ -144,6 +139,25 @@ def test_cuda_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='cuda'):
         run_model(tutorial_model(), 'unused.rtout', device='cuda')
+
+
+@pytest.mark.parametrize('entry', ['resolve_device', 'run_lucy_model',
+                                   'run_model', 'Model.run'])
+def test_entry_points_need_the_card_unless_asked(entry, monkeypatch,
+                                                 tmp_path):
+    """Without a device argument every entry point asks for the card and
+    raises where there is none; only device='cpu' runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    m = tutorial_model()
+    m.write(str(tmp_path / 'm.rtin'))
+    call = {'resolve_device': lambda: resolve_device(),
+            'run_lucy_model': lambda: run_lucy_model(m),
+            'run_model': lambda: run_model(m, str(tmp_path / 'x.rtout')),
+            'Model.run': lambda: m.run()}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert resolve_device('cpu') == torch.device('cpu')
+    assert not (tmp_path / 'x.rtout').exists()
 
 
 def _peeled(m):

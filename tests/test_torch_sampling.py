@@ -9,13 +9,13 @@ import torch
 import jax.numpy as jnp
 from scipy import stats
 
-from hyperion_tpu.dust import IsotropicDust
 from hyperion_tpu.transport import build_dust_tables as j_dust
 from hyperion_tpu.transport import lucy as jl
 from hyperion_tpu.transport import sampling as js
 from hyperion_tpu_torch.transport import lucy as tl
 from hyperion_tpu_torch.transport import sampling as ts
 from hyperion_tpu_torch.transport.dtable import build_dust_tables
+from test_torch_frontend import lte_dust
 
 torch.set_num_threads(1)
 RTOL = 1e-12
@@ -111,10 +111,8 @@ def test_random_exp_distribution():
     assert torch.isfinite(ts.random_exp(torch.zeros(1, dtype=torch.float64)))
 
 
-def _dust(mode=None, energy=None):
-    nu = np.logspace(np.log10(3e10), np.log10(5e16), 24)
-    d = IsotropicDust(nu, np.full(24, 0.4), np.full(24, 60.0))
-    d.set_lte_emissivities(n_temp=40, temp_min=0.1, temp_max=1600.)
+def _dust(package, mode=None, energy=None):
+    d = lte_dust(package)
     if mode is not None:
         d.set_sublimation_specific_energy(mode, energy)
     return d
@@ -123,9 +121,10 @@ def _dust(mode=None, energy=None):
 @pytest.fixture(scope='module')
 def tables():
     """JAX and port tables of two dusts (the second one sublimates)."""
-    dusts = [_dust(), _dust('fast', 1.0)]
-    return (j_dust(dusts, dtype=jnp.float64),
-            build_dust_tables(dusts, torch.device('cpu'), torch.float64))
+    return (j_dust([_dust('jax'), _dust('jax', 'fast', 1.0)],
+                   dtype=jnp.float64),
+            build_dust_tables([_dust('port'), _dust('port', 'fast', 1.0)],
+                              torch.device('cpu'), torch.float64))
 
 
 def _energies(jt, n_cells=400, seed=7):
@@ -177,9 +176,9 @@ def test_enforce_energy_limits(tables, minimum, enforce):
 
 @pytest.mark.parametrize('mode', ['no', 'fast', 'slow', 'cap'])
 def test_sublimate_dust(mode):
-    dusts = [_dust(), _dust(mode, 0.5)]
-    jt = j_dust(dusts, dtype=jnp.float64)
-    pt = build_dust_tables(dusts, torch.device('cpu'), torch.float64)
+    jt = j_dust([_dust('jax'), _dust('jax', mode, 0.5)], dtype=jnp.float64)
+    pt = build_dust_tables([_dust('port'), _dust('port', mode, 0.5)],
+                           torch.device('cpu'), torch.float64)
     se = _energies(jt)
     rho = np.random.default_rng(9).uniform(0.1, 1.0, se.shape)
     rho_p, se_p = tl.sublimate_dust(pt, _t(rho), _t(se), [1e-3, 2e-3])

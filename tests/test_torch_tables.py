@@ -1,6 +1,7 @@
 """The port's host table builders against the JAX package's: the host code
-is the same numpy, so every table the port builds must equal the JAX one
-exactly (JAX in x64, torch in float64)."""
+is the same numpy, so every table the port builds from its own front end's
+objects must equal the one the JAX package builds from the same objects of
+its front end, exactly (JAX in x64, torch in float64)."""
 
 import dataclasses
 
@@ -9,35 +10,25 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from hyperion_tpu.dust import IsotropicDust
-from hyperion_tpu.grid import CartesianGrid
-from hyperion_tpu.sources import (PointSource, PointSourceCollection,
-                                  SphericalSource)
 from hyperion_tpu.transport import (build_cartesian_geometry as j_geometry,
                                     build_dust_tables as j_dust,
                                     build_source_tables as j_sources)
-from hyperion_tpu.util.constants import au, lsun
 from hyperion_tpu_torch.transport.dtable import build_dust_tables
 from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
 from hyperion_tpu_torch.transport.stable import build_source_tables
+from hyperion_tpu_torch.util.constants import au, lsun
+from test_torch_frontend import frontend, lte_dust
 
 torch.set_num_threads(1)
 CPU = torch.device('cpu')
 F64 = torch.float64
 
 
-def _tutorial_dust():
+def _tutorial_dust(package):
     # examples/quickstart.py
     nu = np.logspace(8, 17, 32)
-    return IsotropicDust(nu, np.repeat(0.4, 32), np.repeat(100.0, 32))
-
-
-def _dust_iso():
-    # tests/test_self_regression.py:_dust_iso
-    nu = np.logspace(np.log10(3e10), np.log10(5e16), 24)
-    d = IsotropicDust(nu, np.full(24, 0.4), np.full(24, 60.0))
-    d.set_lte_emissivities(n_temp=40, temp_min=0.1, temp_max=1600.)
-    return d
+    return frontend(package).IsotropicDust(nu, np.repeat(0.4, 32),
+                                           np.repeat(100.0, 32))
 
 
 def _assert_fields_equal(port, ref):
@@ -50,40 +41,40 @@ def _assert_fields_equal(port, ref):
                                       err_msg=f.name)
 
 
-def _dust_iso_wide():
-    # more frequencies than _dust_iso on the same emissivity grid: the JAX
-    # builder pads frequency tables but fails on fewer emissivity rows
-    nu = np.logspace(np.log10(1e10), np.log10(8e16), 30)
-    d = IsotropicDust(nu, np.linspace(0.1, 0.7, 30), np.geomspace(5, 500, 30))
-    d.set_lte_emissivities(n_temp=40, temp_min=0.1, temp_max=1600.)
-    return d
+def _dust_iso_wide(package):
+    # more frequencies than the selfreg dust on the same emissivity grid:
+    # the JAX builder pads frequency tables but fails on fewer emissivity
+    # rows
+    return lte_dust(package, albedo=np.linspace(0.1, 0.7, 30),
+                    chi=np.geomspace(5, 500, 30), n_nu=30, nu_lo=1e10)
 
 
 @pytest.mark.parametrize('make', [
-    lambda: [_tutorial_dust()],
-    lambda: [_dust_iso()],
+    lambda pkg: [_tutorial_dust(pkg)],
+    # tests/test_self_regression.py:_dust_iso
+    lambda pkg: [lte_dust(pkg)],
     # two dusts of different table sizes exercise the padding
-    lambda: [_dust_iso(), _dust_iso_wide()],
+    lambda pkg: [lte_dust(pkg), _dust_iso_wide(pkg)],
 ], ids=['tutorial', 'selfreg_iso', 'two_dusts'])
 def test_dust_tables_equal_jax(make):
-    dusts = make()
-    ref = j_dust(dusts, dtype=jnp.float64)
-    _assert_fields_equal(build_dust_tables(dusts, CPU, F64), ref)
+    ref = j_dust(make('jax'), dtype=jnp.float64)
+    _assert_fields_equal(build_dust_tables(make('port'), CPU, F64), ref)
 
 
-def _tutorial_source():
-    s = PointSource(luminosity=lsun, temperature=6000.0)
-    return [s]
+def _tutorial_source(package):
+    return [frontend(package).PointSource(luminosity=lsun,
+                                          temperature=6000.0)]
 
 
-def _collection_and_point():
-    c = PointSourceCollection()
+def _collection_and_point(package):
+    F = frontend(package)
+    c = F.PointSourceCollection()
     c.luminosity = np.array([1.0, 2.0, 0.5]) * lsun
     c.position = np.array([[0.0, 0.0, 0.0], [10 * au, 0.0, -5 * au],
                            [-3 * au, 4 * au, 1 * au]])
     c.temperature = 4000.0
-    s = PointSource(luminosity=3 * lsun, temperature=9000.0,
-                    position=(1 * au, 2 * au, 3 * au))
+    s = F.PointSource(luminosity=3 * lsun, temperature=9000.0,
+                      position=(1 * au, 2 * au, 3 * au))
     return [c, s]
 
 
@@ -94,17 +85,19 @@ def _collection_and_point():
 ])
 def test_source_tables_equal_jax(make, evenly):
     L = 50 * au
-    ref = j_sources(make(), dtype=jnp.float64, length_scale=L,
+    ref = j_sources(make('jax'), dtype=jnp.float64, length_scale=L,
                     sample_evenly=evenly)
-    _assert_fields_equal(build_source_tables(make(), CPU, F64,
+    _assert_fields_equal(build_source_tables(make('port'), CPU, F64,
                                              length_scale=L,
                                              sample_evenly=evenly), ref)
 
 
 def test_source_tables_refuse_other_sources():
-    s = SphericalSource(luminosity=lsun, temperature=5000.0, radius=1e11)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        build_source_tables([s], CPU, F64)
+    for package in ('port', 'jax'):
+        s = frontend(package).SphericalSource(luminosity=lsun,
+                                              temperature=5000.0, radius=1e11)
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            build_source_tables([s], CPU, F64)
 
 
 @pytest.mark.parametrize('walls', [
@@ -113,6 +106,7 @@ def test_source_tables_refuse_other_sources():
      np.array([-0.5, 0.0, 0.2, 0.9])],
 ], ids=['tutorial', 'nonuniform'])
 def test_geometry_tables_equal_jax(walls):
-    grid = CartesianGrid(*walls)
-    ref = j_geometry(grid, dtype=jnp.float64)
-    _assert_fields_equal(build_cartesian_geometry(grid, CPU, F64), ref)
+    ref = j_geometry(frontend('jax').CartesianGrid(*walls),
+                     dtype=jnp.float64)
+    _assert_fields_equal(build_cartesian_geometry(
+        frontend('port').CartesianGrid(*walls), CPU, F64), ref)
