@@ -14,10 +14,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    lane deposits into and enters; warps whose lanes form groups of 1, 2, 31
    and 32 equal cells with repeated and tied uids; the 5, 3, 5 overwrite
    case over three carried calls; and 100 calls captured in a CUDA graph
-   and replayed. Then, at the four shapes and the hot cell: device time per
-   call (the graph's replay, CUDA events), host time per call (host clock
-   around 1,000 eager calls, before the synchronise), the plain version's
-   time, the deposits-only index_add_ yardstick and the bound;
+   and replayed. Then, at the four shapes, the hot cell, and on the very
+   calls of 40 steps of the tutorial (the kernels line reports these):
+   device time per call (a CUDA graph's replay, CUDA events), host time per
+   call (host clock around ~1,000 eager calls, before the synchronise), the
+   plain version's time, the deposits-only index_add_ yardstick and the
+   bound;
 4. the slice: examples/quickstart.py without its peeled image (32^3 cells,
    4 Lucy iterations of 500,000 photons) built with the port's own Model
    and run on the card by run_lucy_model, the port's run_model without the
@@ -122,7 +124,7 @@ def warp_group_lanes(rng, B, n_cells, n_dust, device):
 
 # ---------------------------------------------------------------- checks --
 
-def _compare(dv, stats, plain, what):
+def _compare(stats, plain, what):
     """Counts and uids equal, energies within RTOL of the float64 plain
     run; returns the max abs energy error."""
     import torch
@@ -143,7 +145,7 @@ def _compare(dv, stats, plain, what):
     return float(err.max()) if err.numel() else 0.0
 
 
-def _plain_tables(dv, n_dust, n_cells, device):
+def _plain_tables(n_dust, n_cells, device):
     import torch
     return (torch.zeros((n_dust, n_cells), dtype=torch.float64,
                         device=device),
@@ -159,13 +161,13 @@ def check_sequence(dv, make, B, n_cells, n_dust, n_calls, device, seed,
     import torch
     rng = np.random.default_rng(seed)
     stats = dv.DepositVisit(n_dust, n_cells, device, torch.float32)
-    plain = _plain_tables(dv, n_dust, n_cells, device)
+    plain = _plain_tables(n_dust, n_cells, device)
     for _ in range(n_calls):
         cd, dep, enter, uid = make(rng, B, n_cells, n_dust, device)
         stats(cd, dep, enter, uid)
         dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
                                    dep.double(), enter, uid)
-    return _compare(dv, stats, plain, what)
+    return _compare(stats, plain, what)
 
 
 def check_overwrite(dv, device):
@@ -176,7 +178,7 @@ def check_overwrite(dv, device):
     hot = 7
     rng = np.random.default_rng(535)
     stats = dv.DepositVisit(1, n_cells, device, torch.float32)
-    plain = _plain_tables(dv, 1, n_cells, device)
+    plain = _plain_tables(1, n_cells, device)
     for u in (5, 3, 5):
         cd, dep, enter, uid = mixed_lanes(rng, B, n_cells, 1, device)
         enter[enter == hot] = hot + 1
@@ -184,7 +186,7 @@ def check_overwrite(dv, device):
         stats(cd, dep, enter, uid)
         dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
                                    dep.double(), enter, uid)
-    err = _compare(dv, stats, plain, '5, 3, 5')
+    err = _compare(stats, plain, '5, 3, 5')
     got = (int(stats.n_photons_cell[hot]), int(stats.last_uid[hot]))
     if got != (3, 5):
         raise AssertionError('5, 3, 5: count and last uid %s, not (3, 5)'
@@ -204,13 +206,13 @@ def check_graph(dv, device, n_calls=100):
     with torch.cuda.graph(graph):
         for k in range(n_calls):
             stats(*inputs[k % len(inputs)])
-    plain = _plain_tables(dv, n_dust, n_cells, device)
+    plain = _plain_tables(n_dust, n_cells, device)
     for k in range(n_calls):
         cd, dep, enter, uid = inputs[k % len(inputs)]
         dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
                                    dep.double(), enter, uid)
     graph.replay()
-    return _compare(dv, stats, plain, 'CUDA graph of %d calls' % n_calls)
+    return _compare(stats, plain, 'CUDA graph of %d calls' % n_calls)
 
 
 # ---------------------------------------------------------------- timing --
@@ -273,57 +275,123 @@ def event_ms(call, n=20):
 
 def bound_bytes(cell_dep, dep, enter, n_cells):
     """The bytes the function must move for these inputs: every lane input
-    read once (int64 cells, int32 uids, float32 deposits); per (dust,
+    read once (int64 cells, int32 uids, float32 deposits; a visits-only
+    call, dep None, has no deposits and reads no cell_dep); per (dust,
     cell) with a non-zero deposit its energy read and written (8 bytes);
     per entered cell its last uid and its int64 count read and written
     (24 bytes). The arithmetic (a few operations per lane) is far below
     the card's rates, so bytes bound it."""
     import torch
-    B, n_dust = dep.shape
-    lane = B * (8 + 8 + 4 + 4 * n_dust)
+    B = enter.shape[0]
+    n_dust = 0 if dep is None else dep.shape[1]
+    lane = B * (8 + 4) + (0 if dep is None else B * (8 + 4 * n_dust))
     energy = sum(int(torch.unique(cell_dep[dep[:, d] != 0]).numel())
                  for d in range(n_dust)) * 8
     entered = int(torch.unique(enter[enter < n_cells]).numel()) * 24
     return lane + energy + entered
 
 
-def time_shape(dv, make, B, n_cells, n_dust, device, seed):
-    """Device and host time per call of the kernel, the plain version's
-    time, the deposits-only index_add_ yardstick and the bound, at one
-    shape, on one call's lanes. Returns a dict."""
+def time_calls(dv, calls, n_dust, n_cells, device):
+    """Per call of a list of (cell_dep, dep, enter, uid) calls (dep None for
+    visits only): device and host time of the kernel, its time between CUDA
+    events, the plain version's time, the deposits-only index_add_
+    yardstick (per call with deposits) and the bound (the calls' mean).
+    Returns a dict."""
     import torch
-    rng = np.random.default_rng(seed)
-    cd, dep, enter, uid = make(rng, B, n_cells, n_dust, device)
+    n = len(calls)
     stats = dv.DepositVisit(n_dust, n_cells, device, torch.float32)
-    plain = _plain_tables(dv, n_dust, n_cells, device)
+    plain = _plain_tables(n_dust, n_cells, device)
     plain = (plain[0].float(),) + plain[1:]
     lib = torch.zeros((n_dust, n_cells), device=device)
-    dep_t = dep.T
+    deposits = [(cd, dep.T) for cd, dep, _, _ in calls if dep is not None]
 
     def kernel():
-        stats(cd, dep, enter, uid)
+        for lanes in calls:
+            stats(*lanes)
 
     def plain_call():
-        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd, dep,
-                                   enter, uid)
+        for cd, dep, enter, uid in calls:
+            dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd, dep,
+                                       enter, uid)
 
     def library():
-        lib.index_add_(1, cd, dep_t)
+        for cd, dep_t in deposits:
+            lib.index_add_(1, cd, dep_t)
 
-    # in turns: plain, kernel, kernel, plain
-    out = dict(plain_ms=[event_ms(plain_call)], call_ms=[], device_us=[],
-               host_us=[])
+    # in turns: plain, kernel, kernel, plain; ~100 calls in a graph and
+    # ~1,000 eager calls per measurement
+    out = dict(plain_ms=[event_ms(plain_call) / n], call_ms=[],
+               device_us=[], host_us=[])
     for _ in range(2):
-        out['call_ms'].append(event_ms(kernel))
-        out['device_us'].append(graph_us(kernel))
-        out['host_us'].append(host_us(kernel))
-    out['plain_ms'].append(event_ms(plain_call))
+        out['call_ms'].append(event_ms(kernel) / n)
+        out['device_us'].append(graph_us(kernel, max(2, 100 // n)) / n)
+        out['host_us'].append(host_us(kernel, max(10, 1000 // n)) / n)
+    out['plain_ms'].append(event_ms(plain_call) / n)
     res = {k: float(np.median(v)) for k, v in out.items()}
-    res['library_ms'] = graph_us(library) / 1e3
-    nbytes = bound_bytes(cd, dep, enter, n_cells)
-    res.update(B=B, n_cells=n_cells, n_dust=n_dust, bound_bytes=nbytes,
+    res['library_ms'] = graph_us(library, max(2, 100 // len(deposits))) \
+        / len(deposits) / 1e3
+    nbytes = float(np.mean([bound_bytes(cd, dep, enter, n_cells)
+                            for cd, dep, enter, _ in calls]))
+    res.update(calls=n, B=int(calls[0][2].shape[0]), n_cells=n_cells,
+               n_dust=n_dust, bound_bytes=nbytes,
                bound_us=nbytes / HBM_BYTES_PER_S * 1e6)
     return res
+
+
+def tutorial_engine(batch=TUTORIAL[0], warmup=20):
+    """The tutorial model's first Lucy iteration on the card, built with
+    the port's front end and run through ``warmup`` steps: (carry, step,
+    generator, geometry)."""
+    import torch
+    from hyperion_tpu_torch.model.run import _density_array
+    from hyperion_tpu_torch.transport import engine
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+    from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
+    from hyperion_tpu_torch.transport.lucy import compute_jnu_var
+    from hyperion_tpu_torch.transport.stable import build_source_tables
+
+    dev, f32 = torch.device('cuda'), torch.float32
+    m = tutorial_model()
+    geo = build_cartesian_geometry(m.grid, dev, f32)
+    dt = build_dust_tables(m._dust_objects(), dev, f32)
+    st = build_source_tables(m.sources, dev, f32,
+                             length_scale=geo.length_scale)
+    density = _density_array(m, geo.length_scale, dev, f32)
+    jid, jfrac = compute_jnu_var(dt, torch.zeros_like(density))
+    config = dict(n_inter_max=m.n_inter_max, kill_on_scatter=False,
+                  kill_on_absorb=False, check_frequency=0.0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    carry = engine._init_lucy_carry(dt, density, m.n_photons['initial'],
+                                    batch)
+    step = engine.make_lucy_step(geo, dt, st, density, jid, jfrac, config)
+    for _ in range(warmup):
+        step(carry, gen)
+    torch.cuda.synchronize()
+    return carry, step, gen, geo
+
+
+def record_tutorial_calls(dv, n_steps=40):
+    """The lanes of every deposit_visit call of ``n_steps`` steps of the
+    tutorial's first iteration (after 20 warm-up steps), refills included:
+    a list of (cell_dep, dep, enter, uid), cell_dep and dep None for the
+    refills' visits-only calls."""
+    carry, step, gen, _ = tutorial_engine()
+    calls = []
+    run = dv.DepositVisit.__call__
+
+    def recording(self, cell_dep, dep, enter, uid):
+        calls.append((None if dep is None else cell_dep.clone(),
+                      None if dep is None else dep.clone(), enter.clone(),
+                      uid.clone()))
+        run(self, cell_dep, dep, enter, uid)
+
+    dv.DepositVisit.__call__ = recording
+    try:
+        for _ in range(n_steps):
+            step(carry, gen)
+    finally:
+        dv.DepositVisit.__call__ = run
+    return calls
 
 
 def kernel_phase(dv, device, card):
@@ -352,19 +420,30 @@ def kernel_phase(dv, device, card):
     record('5, 3, 5 over three calls', check_overwrite(dv, device))
     record('CUDA graph of 100 calls', check_graph(dv, device))
 
+    # (lanes, calls, n_dust, n_cells): one call at each of the four shapes
+    # and the hot cell, then the very calls of 40 tutorial steps
+    cases = []
+    for k, (B, n_cells, n_dust) in enumerate(
+            [(B, c, d) for B, c in SHAPES for d in (1, 2)] + [TUTORIAL]):
+        make = hot_lanes if k == 4 else mixed_lanes
+        lanes = make(np.random.default_rng(20 + k), B, n_cells, n_dust,
+                     device)
+        cases.append(('hot cell' if k == 4 else 'mixed', [lanes], n_dust,
+                      n_cells))
+    cases.append(('tutorial steps', record_tutorial_calls(dv), 1,
+                  TUTORIAL[1]))
     timings = []
-    cases = [('mixed', mixed_lanes, B, c, d) for B, c in SHAPES
-             for d in (1, 2)] + [('hot cell', hot_lanes) + TUTORIAL]
-    for k, (name, make, B, n_cells, n_dust) in enumerate(cases):
-        t = time_shape(dv, make, B, n_cells, n_dust, device, 20 + k)
+    for name, calls, n_dust, n_cells in cases:
+        t = time_calls(dv, calls, n_dust, n_cells, device)
         t['lanes'] = name
         timings.append(t)
-        phase('deposit_visit %s B=%d n_cells=%d n_dust=%d: device %.2f us, '
-              'host %.2f us per call (one eager call %.4f ms), plain %.4f '
-              'ms, index_add_ %.4f ms, bound %.3f us (%d bytes) [%s]'
-              % (name, B, n_cells, n_dust, t['device_us'], t['host_us'],
-                 t['call_ms'], t['plain_ms'], t['library_ms'], t['bound_us'],
-                 t['bound_bytes'], card))
+        phase('deposit_visit %s (%d calls) B=%d n_cells=%d n_dust=%d: '
+              'device %.2f us, host %.2f us per call (one eager call %.4f '
+              'ms), plain %.4f ms, index_add_ %.4f ms, bound %.3f us (%d '
+              'bytes) [%s]'
+              % (name, t['calls'], t['B'], n_cells, n_dust, t['device_us'],
+                 t['host_us'], t['call_ms'], t['plain_ms'], t['library_ms'],
+                 t['bound_us'], t['bound_bytes'], card))
     return max(errs), rows, timings
 
 
@@ -563,8 +642,7 @@ def main():
     # 5. physics on the card
     median_ratio, bench = physics_on_card(card)
 
-    t = next(r for r in timings if r['lanes'] == 'mixed' and
-             (r['B'], r['n_cells'], r['n_dust']) == TUTORIAL)
+    t = next(r for r in timings if r['lanes'] == 'tutorial steps')
     kernels = [dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
                     replaces=REPLACES, launches=launches,
                     max_abs_err=max_err, ms=t['device_us'] / 1e3,

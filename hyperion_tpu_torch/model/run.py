@@ -25,6 +25,7 @@ from ..transport.gtable import ESCAPED, build_cartesian_geometry
 from ..transport.lucy import run_lucy
 from ..transport.stable import build_source_tables
 from ..util.perf import PerfTable
+from .model import Model
 
 
 def _flatten_quantity(grid, quantity):
@@ -95,6 +96,10 @@ def _check_slice(model):
         raise NotImplementedError("%s is not in the port yet: ROADMAP.md "
                                   "queue 1 item %s" % (what, item))
 
+    if not isinstance(model, Model):
+        raise TypeError("the port runs a hyperion_tpu_torch.model.Model, not "
+                        "a %s.%s" % (type(model).__module__,
+                                     type(model).__name__))
     if not isinstance(model.grid, CartesianGrid):
         refuse("%s" % type(model.grid).__name__, "8 (spherical-polar) or 11")
     if model.mrw:

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Time two designs of the deposit_visit CUDA kernel side by side on one card.
+"""Time designs of the deposit_visit CUDA kernel side by side on one card.
 
     git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
-    python3 scripts/deposit_visit_ab.py --old _checkout/old
+    python3 scripts/deposit_visit_ab.py --old _checkout/old [--prev DIR ...]
 
 ``--old`` is a directory that holds an earlier ``hyperion_tpu_torch/``
 whose ``transport/deposit_visit.py`` has the two-launch interface of the
 first port (``deposit_visit(energy_sum, n_photons_cell, last_uid, win,
 cell_dep, dep_rows, enter, uid)`` on int32 indices and (n_dust, B) rows).
-It is loaded under another package name and builds its own library inside
-that directory. At each shape, in turns (old, new, new, old), it measures
-per call: device microseconds (100 calls captured in a CUDA graph, the
-replay timed with CUDA events), host microseconds (host clock around 1,000
-eager calls, before the synchronise) and one eager call between CUDA
-events. The old design is timed twice: on inputs already in its layout
-('old'), and with the three conversions its caller made each step
-('old+conversions': int64 -> int32 cells and entries, the (B, n_dust) ->
-(n_dust, B) transpose copy). Writes chiprun_out/deposit_visit_ab.json.
+``--prev`` names other trees whose ``DepositVisit`` has the current
+interface, each timed under its directory's name. Each tree is loaded
+under another package name and builds its own library inside its
+directory. At each shape, in turns (old, prev..., new, new, ...prev,
+old), it measures per call: device microseconds (100
+calls captured in a CUDA graph, the replay timed with CUDA events), host
+microseconds (host clock around 1,000 eager calls, before the
+synchronise) and one eager call between CUDA events. The old design is
+timed twice: on inputs already in its layout ('old'), and with the three
+conversions its caller made each step ('old+conversions': int64 -> int32
+cells and entries, the (B, n_dust) -> (n_dust, B) transpose copy). Writes
+chiprun_out/deposit_visit_ab.json.
 """
 
 import argparse
@@ -37,43 +40,66 @@ import chip_smoke as cs  # noqa: E402
 SHAPES = [('mixed', 131072, 3375, 1), ('mixed', 131072, 3375, 2),
           ('mixed', 125000, 32768, 1), ('mixed', 125000, 32768, 2),
           ('hot cell', 125000, 32768, 1)]
+TUTORIAL_STEPS = 40     # recorded steps of the tutorial's first iteration
 
 
-def load_old(directory):
-    """The old design's deposit_visit module, as package 'old_port'."""
+def load_tree(directory, name):
+    """The deposit_visit module of the hyperion_tpu_torch/ in
+    ``directory``, imported as package ``name``."""
     pkg = Path(directory).resolve() / 'hyperion_tpu_torch'
     spec = importlib.util.spec_from_file_location(
-        'old_port', pkg / '__init__.py', submodule_search_locations=[str(pkg)])
+        name, pkg / '__init__.py', submodule_search_locations=[str(pkg)])
     module = importlib.util.module_from_spec(spec)
-    sys.modules['old_port'] = module
+    sys.modules[name] = module
     spec.loader.exec_module(module)
-    return importlib.import_module('old_port.transport.deposit_visit')
+    return importlib.import_module(name + '.transport.deposit_visit')
 
 
-def designs(old, new, lanes, n_dust, n_cells, device):
-    """{design: call} on one call's lanes, each on its own tables."""
+def designs(old, new, prevs, workload, n_dust, n_cells, device):
+    """{design: call}, each call running every (cell_dep, dep or None,
+    enter, uid) of the workload in order, each design on its own tables."""
     import torch
-    cd, dep, enter, uid = lanes
     stats = new.DepositVisit(n_dust, n_cells, device, torch.float32)
     es = torch.zeros((n_dust, n_cells), device=device)
     npc = torch.zeros(n_cells, dtype=torch.int64, device=device)
     luid = torch.full((n_cells + 1,), -2, dtype=torch.int32, device=device)
     win = old.new_visit_scratch(n_cells, device)
-    cd32, en32 = cd.to(torch.int32), enter.to(torch.int32)
-    dep_rows = dep.T.contiguous()
+
+    def old_layout(cd, dep, enter, uid):
+        """The first port's arguments: int32 cells, (n_dust, B) rows, and
+        for a visits-only call no dusts and the entries as cells."""
+        en32 = enter.to(torch.int32)
+        if dep is None:
+            return (es[:0], en32, es.new_empty((0, enter.shape[0])), en32,
+                    uid)
+        return es, cd.to(torch.int32), dep.T.contiguous(), en32, uid
+
+    converted = [old_layout(*lanes) for lanes in workload]
 
     def new_call():
-        stats(cd, dep, enter, uid)
+        for lanes in workload:
+            stats(*lanes)
 
     def old_call():
-        old.deposit_visit(es, npc, luid, win, cd32, dep_rows, en32, uid)
+        for e, cd, dep, enter, uid in converted:
+            old.deposit_visit(e, npc, luid, win, cd, dep, enter, uid)
 
     def old_with_conversions():
-        old.deposit_visit(es, npc, luid, win, cd.to(torch.int32),
-                          dep.T.contiguous(), enter.to(torch.int32), uid)
+        for lanes in workload:
+            e, cd, dep, enter, uid = old_layout(*lanes)
+            old.deposit_visit(e, npc, luid, win, cd, dep, enter, uid)
 
-    return {'old': old_call, 'old+conversions': old_with_conversions,
-            'new': new_call}
+    calls = {'old': old_call, 'old+conversions': old_with_conversions,
+             'new': new_call}
+    for name, prev in prevs.items():
+        prev_stats = prev.DepositVisit(n_dust, n_cells, device,
+                                       torch.float32)
+
+        def prev_call(prev_stats=prev_stats):
+            for lanes in workload:
+                prev_stats(*lanes)
+        calls[name] = prev_call
+    return calls
 
 
 def main():
@@ -81,6 +107,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--old', required=True,
                     help='directory holding the old hyperion_tpu_torch/')
+    ap.add_argument('--prev', nargs='*', default=[],
+                    help='directories holding other hyperion_tpu_torch/ '
+                    'trees of the current interface')
     ap.add_argument('--out', default=str(ROOT / 'chiprun_out' /
                                          'deposit_visit_ab.json'))
     args = ap.parse_args()
@@ -88,31 +117,48 @@ def main():
         print('deposit_visit_ab: needs an NVIDIA card', file=sys.stderr)
         return 1
     from hyperion_tpu_torch.transport import deposit_visit as new
-    old = load_old(args.old)
+    old = load_tree(args.old, 'old_port')
+    prevs = {Path(d).name: load_tree(d, 'prev_port%d' % i)
+             for i, d in enumerate(args.prev)}
     card = cs.card_line()
     print(card, flush=True)
     device = torch.device('cuda')
-    rows = []
+
+    # (name, calls, n_dust, n_cells)
+    workloads = []
     for k, (name, B, n_cells, n_dust) in enumerate(SHAPES):
         make = cs.hot_lanes if name == 'hot cell' else cs.mixed_lanes
         lanes = make(np.random.default_rng(40 + k), B, n_cells, n_dust,
                      device)
-        calls = designs(old, new, lanes, n_dust, n_cells, device)
+        workloads.append((name, [lanes], n_dust, n_cells))
+    recorded = cs.record_tutorial_calls(new, TUTORIAL_STEPS)
+    workloads.append(('tutorial steps', recorded, 1, cs.TUTORIAL[1]))
+
+    rows = []
+    for name, workload, n_dust, n_cells in workloads:
+        n = len(workload)
+        B = workload[0][2].shape[0]
+        calls = designs(old, new, prevs, workload, n_dust, n_cells, device)
         got = {d: dict(device_us=[], host_us=[], call_ms=[]) for d in calls}
-        for d in ('old', 'old+conversions', 'new', 'new', 'old+conversions',
-                  'old'):
-            got[d]['device_us'].append(cs.graph_us(calls[d]))
-            got[d]['host_us'].append(cs.host_us(calls[d]))
-            got[d]['call_ms'].append(cs.event_ms(calls[d]))
-        row = dict(lanes=name, B=B, n_cells=n_cells, n_dust=n_dust,
-                   card=card, bound_us=cs.bound_bytes(
-                       lanes[0], lanes[1], lanes[2], n_cells)
+        order = ['old', 'old+conversions'] + list(prevs) + ['new']
+        for d in order + order[::-1]:
+            # about 100 graph-captured and 1,000 eager calls each
+            reps = max(2, 100 // n)
+            got[d]['device_us'].append(
+                cs.graph_us(calls[d], n_calls=reps) / n)
+            got[d]['host_us'].append(
+                cs.host_us(calls[d], n_calls=max(10, 1000 // n)) / n)
+            got[d]['call_ms'].append(cs.event_ms(calls[d]) / n)
+        bounds = [cs.bound_bytes(cd, dep, enter, n_cells)
+                  for cd, dep, enter, _ in workload]
+        row = dict(lanes=name, calls=n, B=B, n_cells=n_cells, n_dust=n_dust,
+                   card=card, bound_us=float(np.mean(bounds))
                    / cs.HBM_BYTES_PER_S * 1e6)
         for d, m in got.items():
             row[d] = {k: [float(x) for x in v] for k, v in m.items()}
-            print('%-8s B=%d n_cells=%d n_dust=%d %-16s device %s us, host '
-                  '%s us, eager call %s ms [%s]'
-                  % (name, B, n_cells, n_dust, d,
+            print('%-14s %2d call(s) B=%d n_cells=%d n_dust=%d %-16s device '
+                  '%s us, host %s us, eager call %s ms per call [%s]'
+                  % (name, n, B, n_cells, n_dust, d,
                      ' / '.join('%.2f' % x for x in m['device_us']),
                      ' / '.join('%.2f' % x for x in m['host_us']),
                      ' / '.join('%.4f' % x for x in m['call_ms']), card),

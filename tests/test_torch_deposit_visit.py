@@ -248,8 +248,8 @@ def test_kernel_matches_plain_version_on_card(case, cuda_device):
     if case == 'mixed':
         assert int(stats.last_uid[HOT]) == 5
 
-    # the calls captured in a graph (an even number: the scratch tables
-    # rotate) and replayed give the same tables again
+    # the calls captured in a graph and replayed once give the same tables
+    # again (the host's scratch rotation advanced with the capture)
     graph_stats = dv.DepositVisit(n_dust, n_cells, cuda_device,
                                   torch.float32)
     graph = torch.cuda.CUDAGraph()

@@ -179,6 +179,13 @@ def _spherical_source(m):
     s.radius = 1e11
 
 
+def test_jax_model_is_refused(tmp_path):
+    """A model built with hyperion_tpu's front end is not the port's."""
+    with pytest.raises(TypeError, match='hyperion_tpu_torch.model.Model'):
+        run_model(tutorial_model('jax'), str(tmp_path / 'x.rtout'),
+                  device='cpu')
+
+
 @pytest.mark.parametrize('change', [_peeled, _mrw, _pda, _spherical_source])
 def test_outside_the_slice_raises(change, tmp_path):
     m = tutorial_model()
