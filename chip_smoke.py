@@ -10,12 +10,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3. the kernel against its plain PyTorch version, counts and uids equal and
    float32 energies within rtol 1e-4 of a float64 plain run (the kernel's
    float atomics and in-warp sums add in another, run-dependent order):
-   the main path's four shapes over 8 carried calls; a hot cell that every
-   lane deposits into and enters; warps whose lanes form groups of 1, 2, 31
-   and 32 equal cells with repeated and tied uids; the 5, 3, 5 overwrite
-   case over three carried calls; and 100 calls captured in a CUDA graph
-   and replayed. Then, at the four shapes, the hot cell, and on the very
-   calls of 40 steps of the tutorial (the kernels line reports these):
+   the main path's four shapes over 8 carried calls; visits-only calls (a
+   refill's) between step calls; a hot cell that every lane deposits into
+   and enters; warps whose lanes form groups of 1, 2, 31 and 32 equal cells
+   with repeated and tied uids; the 5, 3, 5 overwrite case over three
+   carried calls; CUDA graphs of 1, 2 (refill and step) and 100 calls
+   replayed several times on new lanes; and the very calls of 40 steps of
+   the tutorial, refills included, recorded from the engine. On those
+   calls, the hottest cell's share of the lanes and the warps and blocks
+   that hold it (the same-address atomics left after a merge per warp or
+   per block). Then, at the four shapes, the hot cell, and on the
+   tutorial's calls (the kernels line reports these):
    device time per call (a CUDA graph's replay, CUDA events), host time per
    call (host clock around ~1,000 eager calls, before the synchronise), the
    plain version's time, the deposits-only index_add_ yardstick and the
@@ -95,6 +100,12 @@ def mixed_lanes(rng, B, n_cells, n_dust, device):
     return _tensors(device, cell_dep, dep, enter, uid)
 
 
+def visits_only(rng, B, n_cells, n_dust, device):
+    """A refill's call: mixed_lanes' entries and uids, no deposits."""
+    _, _, enter, uid = mixed_lanes(rng, B, n_cells, n_dust, device)
+    return None, None, enter, uid
+
+
 def hot_lanes(rng, B, n_cells, n_dust, device):
     """Every lane deposits into and enters one cell; uids from a pool of
     40, so they tie within a call and repeat the cell's last uid."""
@@ -153,21 +164,33 @@ def _plain_tables(n_dust, n_cells, device):
             torch.full((n_cells + 1,), -2, dtype=torch.int32, device=device))
 
 
-def check_sequence(dv, make, B, n_cells, n_dust, n_calls, device, seed,
-                   what):
-    """n_calls carried calls of make(...) lanes through the kernel (no
-    flush between them: the scratch rotation carries the uids) and through
-    the plain version in float64."""
+def _plain_call(dv, plain, cd, dep, enter, uid):
+    dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
+                               None if dep is None else dep.double(), enter,
+                               uid)
+
+
+def check_calls(dv, calls, n_dust, n_cells, device, what):
+    """A list of (cell_dep, dep or None, enter, uid) calls carried through
+    the kernel (no flush between them: the scratch tables carry the uids)
+    and through the plain version in float64."""
     import torch
-    rng = np.random.default_rng(seed)
     stats = dv.DepositVisit(n_dust, n_cells, device, torch.float32)
     plain = _plain_tables(n_dust, n_cells, device)
-    for _ in range(n_calls):
-        cd, dep, enter, uid = make(rng, B, n_cells, n_dust, device)
-        stats(cd, dep, enter, uid)
-        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
-                                   dep.double(), enter, uid)
+    for lanes in calls:
+        stats(*lanes)
+        _plain_call(dv, plain, *lanes)
     return _compare(stats, plain, what)
+
+
+def check_sequence(dv, makes, B, n_cells, n_dust, n_calls, device, seed,
+                   what):
+    """n_calls carried calls, call k of makes[k % len(makes)](...) lanes,
+    through the kernel and the plain version (check_calls)."""
+    rng = np.random.default_rng(seed)
+    calls = [makes[k % len(makes)](rng, B, n_cells, n_dust, device)
+             for k in range(n_calls)]
+    return check_calls(dv, calls, n_dust, n_cells, device, what)
 
 
 def check_overwrite(dv, device):
@@ -184,8 +207,7 @@ def check_overwrite(dv, device):
         enter[enter == hot] = hot + 1
         enter[0], uid[0] = hot, u
         stats(cd, dep, enter, uid)
-        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
-                                   dep.double(), enter, uid)
+        _plain_call(dv, plain, cd, dep, enter, uid)
     err = _compare(stats, plain, '5, 3, 5')
     got = (int(stats.n_photons_cell[hot]), int(stats.last_uid[hot]))
     if got != (3, 5):
@@ -194,25 +216,39 @@ def check_overwrite(dv, device):
     return err
 
 
-def check_graph(dv, device, n_calls=100):
-    """n_calls calls at the tutorial's shape captured in one CUDA graph and
-    replayed once: the same tables as the plain version."""
+def check_graph(dv, device, per_graph, replays):
+    """A CUDA graph of ``per_graph`` calls at the tutorial's shape (with
+    two, a refill's visits-only call and a step's call) on static lane
+    buffers that take new lanes before each of ``replays`` replays, as a
+    graph of the step would: the same tables as the plain version over the
+    per_graph x replays calls. The kernel keeps its turn on the device, so
+    any count of calls replays exactly."""
     import torch
     B, n_cells, n_dust = TUTORIAL
-    rng = np.random.default_rng(100)
-    inputs = [mixed_lanes(rng, B, n_cells, n_dust, device) for _ in range(4)]
+    rng = np.random.default_rng(100 + per_graph)
+    forms = [visits_only, mixed_lanes] if per_graph == 2 else [mixed_lanes]
+
+    def lanes():
+        return [forms[k % len(forms)](rng, B, n_cells, n_dust, device)
+                for k in range(per_graph)]
+
+    static = lanes()
     stats = dv.DepositVisit(n_dust, n_cells, device, torch.float32)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for k in range(n_calls):
-            stats(*inputs[k % len(inputs)])
+        for call in static:
+            stats(*call)
     plain = _plain_tables(n_dust, n_cells, device)
-    for k in range(n_calls):
-        cd, dep, enter, uid = inputs[k % len(inputs)]
-        dv.deposit_visit_reference(plain[0], plain[1], plain[2], cd,
-                                   dep.double(), enter, uid)
-    graph.replay()
-    return _compare(stats, plain, 'CUDA graph of %d calls' % n_calls)
+    for _ in range(replays):
+        for buf, new in zip(static, lanes()):
+            for b, n in zip(buf, new):
+                if b is not None:
+                    b.copy_(n)
+        graph.replay()
+        for call in static:
+            _plain_call(dv, plain, *call)
+    return _compare(stats, plain, 'CUDA graph of %d call(s), %d replays'
+                    % (per_graph, replays))
 
 
 # ---------------------------------------------------------------- timing --
@@ -291,6 +327,44 @@ def bound_bytes(cell_dep, dep, enter, n_cells):
     return lane + energy + entered
 
 
+def time_turn(call, n):
+    """One turn of timing ``call``, which makes n kernel calls: per kernel
+    call, device microseconds (~100 calls in a CUDA graph), host
+    microseconds (~1,000 eager calls) and one eager run between CUDA events
+    in milliseconds."""
+    return dict(device_us=graph_us(call, max(2, 100 // n)) / n,
+                host_us=host_us(call, max(10, 1000 // n)) / n,
+                call_ms=event_ms(call) / n)
+
+
+def contention(calls, n_cells):
+    """Per call, the cell that most lanes enter and the cell that most
+    non-zero deposits go to: its share of the call's lanes, and the warps
+    (32 lanes) and blocks (256) that hold those lanes, which is how many
+    same-address atomics per table reach L2 after a merge per warp or per
+    block. The max and mean over the calls, for entries and deposits."""
+    import torch
+    rows = dict(enter=[], deposit=[])
+    for cd, dep, enter, _ in calls:
+        keys = dict(enter=enter.masked_fill(enter >= n_cells, -1))
+        if dep is not None:
+            keys['deposit'] = cd.masked_fill((dep == 0).all(1), -1)
+        for what, key in keys.items():
+            hot = torch.bincount(key[key >= 0], minlength=n_cells).argmax()
+            lanes = torch.nonzero(key == hot).flatten()
+            rows[what].append((lanes.numel() / key.numel(),
+                               torch.unique(lanes // 32).numel(),
+                               torch.unique(lanes // 256).numel()))
+    out = {}
+    for what, r in rows.items():
+        a = np.array(r, dtype=float)
+        out[what] = dict(calls=len(r), share_max=a[:, 0].max(),
+                         share_mean=a[:, 0].mean(), warps_max=a[:, 1].max(),
+                         warps_mean=a[:, 1].mean(), blocks_max=a[:, 2].max(),
+                         blocks_mean=a[:, 2].mean())
+    return out
+
+
 def time_calls(dv, calls, n_dust, n_cells, device):
     """Per call of a list of (cell_dep, dep, enter, uid) calls (dep None for
     visits only): device and host time of the kernel, its time between CUDA
@@ -318,16 +392,12 @@ def time_calls(dv, calls, n_dust, n_cells, device):
         for cd, dep_t in deposits:
             lib.index_add_(1, cd, dep_t)
 
-    # in turns: plain, kernel, kernel, plain; ~100 calls in a graph and
-    # ~1,000 eager calls per measurement
-    out = dict(plain_ms=[event_ms(plain_call) / n], call_ms=[],
-               device_us=[], host_us=[])
-    for _ in range(2):
-        out['call_ms'].append(event_ms(kernel) / n)
-        out['device_us'].append(graph_us(kernel, max(2, 100 // n)) / n)
-        out['host_us'].append(host_us(kernel, max(10, 1000 // n)) / n)
-    out['plain_ms'].append(event_ms(plain_call) / n)
-    res = {k: float(np.median(v)) for k, v in out.items()}
+    # in turns: plain, kernel, kernel, plain
+    plain_ms = [event_ms(plain_call) / n]
+    turns = [time_turn(kernel, n) for _ in range(2)]
+    plain_ms.append(event_ms(plain_call) / n)
+    res = {k: float(np.median([t[k] for t in turns])) for k in turns[0]}
+    res['plain_ms'] = float(np.median(plain_ms))
     res['library_ms'] = graph_us(library, max(2, 100 // len(deposits))) \
         / len(deposits) / 1e3
     nbytes = float(np.mean([bound_bytes(cd, dep, enter, n_cells)
@@ -395,7 +465,8 @@ def record_tutorial_calls(dv, n_steps=40):
 
 
 def kernel_phase(dv, device, card):
-    """Phase 3. Returns (max abs energy error, check rows, timing rows)."""
+    """Phase 3. Returns (max abs energy error, check rows, timing rows,
+    the tutorial calls' contention)."""
     errs, rows = [], []
 
     def record(what, err):
@@ -409,16 +480,37 @@ def kernel_phase(dv, device, card):
         for n_dust in (1, 2):
             seed += 1
             record('B=%d n_cells=%d n_dust=%d, 8 calls' % (B, n_cells, n_dust),
-                   check_sequence(dv, mixed_lanes, B, n_cells, n_dust, 8,
+                   check_sequence(dv, [mixed_lanes], B, n_cells, n_dust, 8,
                                   device, seed, 'mixed'))
     B, n_cells, _ = TUTORIAL
+    for n_dust in (1, 2):
+        record('visits only between steps B=%d n_cells=%d n_dust=%d, 8 '
+               'calls' % (B, n_cells, n_dust),
+               check_sequence(dv, [visits_only, mixed_lanes], B, n_cells,
+                              n_dust, 8, device, 8 + n_dust, 'visits only'))
     record('hot cell B=%d n_cells=%d, 4 calls' % (B, n_cells),
-           check_sequence(dv, hot_lanes, B, n_cells, 1, 4, device, 11, 'hot'))
+           check_sequence(dv, [hot_lanes], B, n_cells, 1, 4, device, 11,
+                          'hot'))
     record('warp groups B=131072 n_cells=%d n_dust=2, 4 calls' % n_cells,
-           check_sequence(dv, warp_group_lanes, 131072, n_cells, 2, 4,
+           check_sequence(dv, [warp_group_lanes], 131072, n_cells, 2, 4,
                           device, 12, 'warp groups'))
     record('5, 3, 5 over three calls', check_overwrite(dv, device))
-    record('CUDA graph of 100 calls', check_graph(dv, device))
+    for per_graph, replays in ((1, 5), (2, 4), (100, 2)):
+        record('CUDA graph of %d call(s), %d replays' % (per_graph, replays),
+               check_graph(dv, device, per_graph, replays))
+    recorded = record_tutorial_calls(dv)
+    n_vis = sum(dep is None for _, dep, _, _ in recorded)
+    record('tutorial calls, 40 steps (%d calls, %d visits only)'
+           % (len(recorded), n_vis),
+           check_calls(dv, recorded, 1, n_cells, device, 'tutorial calls'))
+    hot = contention(recorded, n_cells)
+    for what, h in hot.items():
+        phase('tutorial calls, hottest cell by %s over %d calls: share of '
+              'lanes max %.4f mean %.4f; warps holding it max %d mean %.1f; '
+              'blocks max %d mean %.1f' % (
+                  what, h['calls'], h['share_max'], h['share_mean'],
+                  h['warps_max'], h['warps_mean'], h['blocks_max'],
+                  h['blocks_mean']))
 
     # (lanes, calls, n_dust, n_cells): one call at each of the four shapes
     # and the hot cell, then the very calls of 40 tutorial steps
@@ -430,8 +522,7 @@ def kernel_phase(dv, device, card):
                      device)
         cases.append(('hot cell' if k == 4 else 'mixed', [lanes], n_dust,
                       n_cells))
-    cases.append(('tutorial steps', record_tutorial_calls(dv), 1,
-                  TUTORIAL[1]))
+    cases.append(('tutorial steps', recorded, 1, TUTORIAL[1]))
     timings = []
     for name, calls, n_dust, n_cells in cases:
         t = time_calls(dv, calls, n_dust, n_cells, device)
@@ -444,7 +535,7 @@ def kernel_phase(dv, device, card):
               % (name, t['calls'], t['B'], n_cells, n_dust, t['device_us'],
                  t['host_us'], t['call_ms'], t['plain_ms'], t['library_ms'],
                  t['bound_us'], t['bound_bytes'], card))
-    return max(errs), rows, timings
+    return max(errs), rows, timings, hot
 
 
 # ----------------------------------------------------------------- slice --
@@ -634,7 +725,7 @@ def main():
     phase('built %s in %.2f s' % (lib.name, time.time() - t0))
 
     # 3. kernel against the plain version, and its times
-    max_err, checks, timings = kernel_phase(dv, device, card)
+    max_err, checks, timings, hot = kernel_phase(dv, device, card)
 
     # 4. the slice, through the kernel
     launches, iterations, wall = run_slice(dv, card)
@@ -652,7 +743,7 @@ def main():
                     bound_us=t['bound_us'])]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, kernel_checks=checks,
-                  kernel_timings=timings,
+                  kernel_timings=timings, tutorial_contention=hot,
                   slice=dict(wall_s=wall, iterations=iterations),
                   inverse_square_median_ratio=median_ratio,
                   bench_quickstart=bench, kernels=kernels)

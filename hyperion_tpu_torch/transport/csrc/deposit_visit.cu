@@ -26,28 +26,34 @@
 //    one float atomicAdd per dust of the group's sum (a shuffle tree over the
 //    group, group_sum below), one int64 atomicAdd of the group's fresh count
 //    (__popc of a ballot) and one atomicMax of the group's largest uid
-//    (__reduce_max_sync). Leaders of groups of two or more lanes then meet
-//    in a hash table in shared memory, keyed by cell (kSlots slots, at least
-//    twice the keys a block can hold), where shared-memory atomics merge the
-//    block's warps; after a barrier each occupied slot issues the global
-//    atomics. So one set of atomics per block and cell reaches L2: 1/256 of
-//    the old ones on a hot cell. Where lanes spread over many cells (most
-//    steps) merging buys nothing, so groups of one lane go straight to L2;
-//    deposits of more than kBlockDust dusts skip the table too. The float
-//    sums run in another order than the plain version's. Lanes on distinct
-//    cells still cost one atomic each per table (energy, count, last uid):
-//    those scattered atomics, not the bytes, bound a call whose lanes spread.
+//    (__reduce_max_sync). That is at most 1/32 of the old atomics on a hot
+//    cell. The float sums run in another order than the plain version's.
+//    Lanes on distinct cells still cost one atomic each per table (energy,
+//    count, last uid): those scattered atomics, not the bytes, bound a call
+//    whose lanes spread, as the tutorial's do. A merge across the block's
+//    warps in a shared-memory hash table cuts a hot cell's atomics 8x more
+//    (4.8 against 9.6 us at the hot cell on an H100), but on the tutorial's
+//    own calls, whose busiest cell holds at most 3.7% of the lanes, setting
+//    the table up costs more than it saves (13.0 against 12.3 us per call):
+//    it is not done here.
 // 2. Two launches per call. A call's maxima go into a scratch table that the
-//    NEXT call's launch commits into last_uid, so one launch does both. The
-//    wrapper rotates three scratch tables (INT_MIN where untouched): in call
-//    k, win_cur takes this call's maxima, win_prev holds call k-1's, and
-//    win_old holds call k-2's, which call k-1 already committed. Threads
-//    c < n_cells copy win_prev[c] into last_uid[c] where it is set, and reset
-//    win_old[c] for its turn as win_cur in call k+1. A lane reads the table
-//    before this call as win_prev[c] where that is set, else last_uid[c]:
-//    the launch writes last_uid[c] only where win_prev[c] is set, and
-//    nothing writes win_prev, so no lane reads what this launch writes, and
-//    no fence or ordering is needed. The grid is max(B, n_cells) threads.
+//    NEXT call's launch commits into last_uid, so one launch does both. Three
+//    scratch tables (INT_MIN where untouched) take turns: in call k, win_cur
+//    takes this call's maxima, win_prev holds call k-1's, and win_old holds
+//    call k-2's, which call k-1 already committed. Threads c < n_cells copy
+//    win_prev[c] into last_uid[c] where it is set, and reset win_old[c] for
+//    its turn as win_cur in call k+1. A lane reads the table before this call
+//    as win_prev[c] where that is set, else last_uid[c]: the launch writes
+//    last_uid[c] only where win_prev[c] is set, and nothing writes win_prev,
+//    so no lane reads what this launch writes, and no fence or ordering is
+//    needed there. The turn k % 3 lives on the device (state[0]), so a CUDA
+//    graph that holds any number of calls replays exactly, any number of
+//    times. Thread 0 of each block reads it into shared memory and then
+//    counts its block in (state[1]) with a release add, before it writes
+//    anything global, so the add waits for nothing; the block that counts
+//    in last takes an acquire fence at its end and advances the turn for
+//    the next launch. Every block has read the turn before it counts in, so
+//    none reads the advanced one. The grid is max(B, n_cells) threads.
 //    last_uid lags one call behind until the wrapper's flush(), which is
 //    this kernel with B = 0 (commit only).
 // 3. Host cost per call (the wrapper): argtypes set once, table pointers
@@ -61,35 +67,13 @@
 // One launch on the caller's stream; nothing here allocates or syncs.
 
 #include <climits>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSlotBits = 10;
-constexpr int kSlots = 1 << kSlotBits;  // >= 2 * kThreads: load factor <= 1/2
-constexpr int kBlockDust = 4;           // dusts merged in shared memory
-constexpr int kEmpty = -1;
-
-// A block's per-cell partial results, in shared memory (28 KB).
-struct BlockTable {
-  int key[kSlots];                      // cell, or kEmpty
-  float dep[kBlockDust][kSlots];
-  int fresh[kSlots];
-  int umax[kSlots];
-};
-
-// The slot of `cell` in the block's table, claimed if it is new (linear
-// probing from a Fibonacci hash; a claimed key never changes).
-__device__ __forceinline__ int slot_of(int* keys, int cell) {
-  unsigned h = (static_cast<unsigned>(cell) * 2654435761u) >> (32 - kSlotBits);
-  while (true) {
-    const int prev = atomicCAS(&keys[h], kEmpty, cell);
-    if (prev == kEmpty || prev == cell) return static_cast<int>(h);
-    h = (h + 1) & (kSlots - 1);
-  }
-}
 
 // The sum of x over the lanes of `peers` (this lane's __match_any_sync group),
 // in the group's lowest lane; other lanes get partial sums. A tree over the
@@ -112,66 +96,62 @@ __device__ __forceinline__ float group_sum(unsigned peers, float x, int lane) {
 __global__ void __launch_bounds__(kThreads)
 deposit_visit_kernel(float* __restrict__ energy_sum,
                      unsigned long long* __restrict__ n_photons,
-                     int* __restrict__ last_uid, int* __restrict__ win_cur,
-                     const int* __restrict__ win_prev,
-                     int* __restrict__ win_old,
+                     int* __restrict__ last_uid, int* __restrict__ win,
+                     unsigned* __restrict__ state,
                      const long long* __restrict__ cell_dep,
                      const float* __restrict__ dep,
                      const long long* __restrict__ enter,
                      const int* __restrict__ uid,
                      int n_dust, int n_cells, int B) {
-  __shared__ BlockTable table;
+  __shared__ unsigned block_turn;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
+  const bool lane_ok = t < B;
+  cuda::atomic_ref<unsigned, cuda::thread_scope_device> turn_ref(state[0]);
+  cuda::atomic_ref<unsigned, cuda::thread_scope_device> counted(state[1]);
 
-  for (int i = threadIdx.x; i < kSlots; i += kThreads) {
-    table.key[i] = kEmpty;
-    for (int d = 0; d < kBlockDust; ++d) table.dep[d][i] = 0.0f;
-    table.fresh[i] = 0;
-    table.umax[i] = INT_MIN;
-  }
+  // the lanes' inputs do not depend on the turn: load them first
+  const long long cd = (lane_ok && n_dust > 0) ? cell_dep[t] : -1;
+  const long long c = lane_ok ? enter[t] : -1;
+  const int u = lane_ok ? uid[t] : INT_MIN;
+  if (threadIdx.x == 0) block_turn = turn_ref.load(cuda::memory_order_relaxed);
+  // No thread returns early: the warp votes and shuffles take all 32 lanes,
+  // and the barrier all of the block.
+  __syncthreads();
+  // this call's turn k: win_cur is table k % 3, win_prev (k - 1) % 3 and
+  // win_old (k - 2) % 3 (see 2. above); the block counts itself in
+  const unsigned turn = block_turn;
+  const unsigned n_counted =
+      threadIdx.x == 0 ? counted.fetch_add(1u, cuda::memory_order_release) : 0u;
+  const size_t stride = static_cast<size_t>(n_cells) + 1;
+  int* win_cur = win + turn * stride;
+  const int* win_prev = win + ((turn + 2u) % 3u) * stride;
+  int* win_old = win + ((turn + 1u) % 3u) * stride;
 
   // commit the previous call's maxima; clear the table committed before it
-  // (see 2. above)
   if (t < n_cells) {
     const int w = win_prev[t];
     if (w != INT_MIN) last_uid[t] = w;
     if (win_old[t] != INT_MIN) win_old[t] = INT_MIN;
   }
 
-  // No thread returns early: the warp votes and shuffles take all 32 lanes,
-  // and the barriers all of the block.
-  __syncthreads();
-  const bool lane_ok = t < B;
-  const bool block_dust = n_dust <= kBlockDust;
-
-  // deposits, summed per cell within the warp, then within the block
+  // deposits, summed per cell within the warp
   if (n_dust > 0) {
-    const long long cd = lane_ok ? cell_dep[t] : -1;
     const int dkey = (cd >= 0 && cd < n_cells) ? static_cast<int>(cd) : -1;
     const unsigned dpeers = __match_any_sync(kFull, dkey);
     const bool dlead = dkey >= 0 && lane == __ffs(dpeers) - 1;
-    const bool dtable = block_dust && __popc(dpeers) > 1;
-    const int slot = (dlead && dtable) ? slot_of(table.key, dkey) : 0;
     for (int d = 0; d < n_dust; ++d) {
       const float v = dkey >= 0 ? dep[static_cast<size_t>(t) * n_dust + d] : 0.0f;
       const float s = group_sum(dpeers, v, lane);
       // a zero sum (masked lanes carry 0) adds nothing: skip its atomic
-      if (dlead && s != 0.0f) {
-        if (dtable)
-          atomicAdd(&table.dep[d][slot], s);
-        else
-          atomicAdd(&energy_sum[static_cast<size_t>(d) * n_cells + dkey], s);
-      }
+      if (dlead && s != 0.0f)
+        atomicAdd(&energy_sum[static_cast<size_t>(d) * n_cells + dkey], s);
     }
   }
 
-  // unique visits, counted and maximised per cell within the warp, then
-  // within the block (counts are non-negative, so the unsigned add is the
-  // int64 add)
-  const long long c = lane_ok ? enter[t] : -1;
+  // unique visits, counted and maximised per cell within the warp (counts
+  // are non-negative, so the unsigned add is the int64 add)
   const int ekey = (c >= 0 && c < n_cells) ? static_cast<int>(c) : -1;
-  const int u = lane_ok ? uid[t] : INT_MIN;
   bool fresh = false;
   if (ekey >= 0) {
     const int w = win_prev[ekey];
@@ -182,45 +162,30 @@ deposit_visit_kernel(float* __restrict__ energy_sum,
   const int umax = __reduce_max_sync(epeers, u);
   if (ekey >= 0 && lane == __ffs(epeers) - 1) {
     const int n_fresh = __popc(fresh_lanes & epeers);
-    if (__popc(epeers) > 1) {
-      const int slot = slot_of(table.key, ekey);
-      if (n_fresh) atomicAdd(&table.fresh[slot], n_fresh);
-      atomicMax(&table.umax[slot], umax);
-    } else {
-      if (n_fresh) atomicAdd(&n_photons[ekey], 1ULL);
-      atomicMax(&win_cur[ekey], umax);
-    }
+    if (n_fresh) atomicAdd(&n_photons[ekey], static_cast<unsigned long long>(n_fresh));
+    atomicMax(&win_cur[ekey], umax);
   }
 
-  // the block's merged results leave for L2, one set of atomics per cell
-  __syncthreads();
-  for (int i = threadIdx.x; i < kSlots; i += kThreads) {
-    const int cell = table.key[i];
-    if (cell == kEmpty) continue;
-    if (block_dust) {
-      for (int d = 0; d < n_dust; ++d) {
-        const float v = table.dep[d][i];
-        if (v != 0.0f) atomicAdd(&energy_sum[static_cast<size_t>(d) * n_cells + cell], v);
-      }
-    }
-    const int n_fresh = table.fresh[i];
-    if (n_fresh) atomicAdd(&n_photons[cell], static_cast<unsigned long long>(n_fresh));
-    const int u_max = table.umax[i];
-    if (u_max != INT_MIN) atomicMax(&win_cur[cell], u_max);
+  // the block that counted in last advances the turn for the next launch
+  if (threadIdx.x == 0 && n_counted == gridDim.x - 1) {
+    cuda::atomic_thread_fence(cuda::memory_order_acquire,
+                              cuda::thread_scope_device);
+    counted.store(0u, cuda::memory_order_relaxed);
+    turn_ref.store((turn + 1u) % 3u, cuda::memory_order_relaxed);
   }
 }
 
 }  // namespace
 
 // energy_sum (n_dust, n_cells) f32; n_photons (n_cells,) int64;
-// last_uid, win_cur, win_prev and win_old (n_cells + 1,) int32, the scratch
-// tables at INT_MIN where untouched; cell_dep, enter (B,) int64; uid (B,) int32;
-// dep (B, n_dust) f32. n_dust may be 0 (visits only) and B may be 0 (commit
-// only). Returns the cudaError_t of the launch (0 on success).
+// last_uid (n_cells + 1,) int32; win (3, n_cells + 1) int32, the scratch
+// tables, INT_MIN where untouched; state (2,) int32, the turn and the count of
+// finished blocks, both 0 at the start; cell_dep, enter (B,) int64; uid (B,)
+// int32; dep (B, n_dust) f32. n_dust may be 0 (visits only) and B may be 0
+// (commit only). Returns the cudaError_t of the launch (0 on success).
 extern "C" int deposit_visit(float* energy_sum, long long* n_photons,
-                             int* last_uid, int* win_cur, const int* win_prev,
-                             int* win_old, const long long* cell_dep,
-                             const float* dep,
+                             int* last_uid, int* win, int* state,
+                             const long long* cell_dep, const float* dep,
                              const long long* enter, const int* uid,
                              int n_dust, int n_cells, int B,
                              cudaStream_t stream) {
@@ -228,7 +193,7 @@ extern "C" int deposit_visit(float* energy_sum, long long* n_photons,
   if (n <= 0) return 0;
   deposit_visit_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       energy_sum, reinterpret_cast<unsigned long long*>(n_photons), last_uid,
-      win_cur, win_prev, win_old, cell_dep, dep, enter, uid, n_dust, n_cells,
-      B);
+      win, reinterpret_cast<unsigned*>(state), cell_dep, dep, enter, uid,
+      n_dust, n_cells, B);
   return static_cast<int>(cudaGetLastError());
 }

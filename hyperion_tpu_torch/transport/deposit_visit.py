@@ -64,14 +64,14 @@ class DepositVisit:
 
     ``energy_sum`` (n_dust, n_cells) and ``n_photons_cell`` (n_cells,) int64
     start at 0, ``last_uid`` (n_cells + 1,) int32 at -2. On CUDA the tables
-    are float32 energies, the kernel's three rotating scratch tables are
-    allocated here, and the tables' pointers are checked and cached once:
-    a call checks only its lane tensors, launches once, allocates nothing
-    and does not synchronise, so it can be captured in a CUDA graph. There
-    ``last_uid`` lags one call behind until :meth:`flush`; the counts and
-    energies are exact after every call. A graph replays the scratch
-    rotation it captured: replayed more than once, it should hold a
-    multiple of three calls."""
+    are float32 energies, the kernel's three scratch tables and its turn
+    (kept on the device, advanced by the kernel) are allocated here, and
+    the tables' pointers are checked and cached once: a call checks only
+    its lane tensors, launches once, allocates nothing and does not
+    synchronise, so it can be captured in a CUDA graph, and a graph of any
+    number of calls replays exactly. There ``last_uid`` lags one call
+    behind until :meth:`flush`; the counts and energies are exact after
+    every call."""
 
     def __init__(self, n_dust, n_cells, device, dtype):
         device = torch.device(device)
@@ -93,12 +93,14 @@ class DepositVisit:
         if dtype != torch.float32:
             raise ValueError("deposit_visit on CUDA takes float32 energies, "
                              "not %s" % dtype)
-        self._win = [torch.full((n_cells + 1,), INT_MIN, dtype=torch.int32,
-                                device=device) for _ in range(3)]
+        self._win = torch.full((3, n_cells + 1), INT_MIN, dtype=torch.int32,
+                               device=device)
+        # the turn (which scratch table takes this call's maxima) and the
+        # count of the launch's blocks that have read it
+        self._state = torch.zeros(2, dtype=torch.int32, device=device)
         self._ptrs = (self.energy_sum.data_ptr(),
-                      self.n_photons_cell.data_ptr(), self.last_uid.data_ptr())
-        self._win_ptrs = tuple(w.data_ptr() for w in self._win)
-        self._turn = 0
+                      self.n_photons_cell.data_ptr(), self.last_uid.data_ptr(),
+                      self._win.data_ptr(), self._state.data_ptr())
         self._fn = _kernel()
         # the current stream's raw handle as an int, without building a
         # torch.cuda.Stream object (a captured graph runs on a side stream)
@@ -138,24 +140,18 @@ class DepositVisit:
 
     def _launch(self, cell_dep, dep, enter, uid, n_dust, B):
         global launches
-        es, npc, luid = self._ptrs
-        # call k: this call's maxima, call k-1's, call k-2's (committed)
-        turn = self._turn
-        w = self._win_ptrs
-        err = self._fn(es, npc, luid, w[turn], w[(turn + 2) % 3],
-                       w[(turn + 1) % 3], cell_dep, dep, enter, uid, n_dust,
+        err = self._fn(*self._ptrs, cell_dep, dep, enter, uid, n_dust,
                        self.n_cells, B, self._stream(self.device.index))
         if err != 0:
             raise RuntimeError("deposit_visit kernel launch failed: "
                                "cudaError %d" % err)
-        self._turn = (turn + 1) % 3
         launches += 1
 
 
 def _kernel():
     fn = _build.load('deposit_visit').deposit_visit
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

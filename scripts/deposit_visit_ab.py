@@ -1,25 +1,25 @@
 #!/usr/bin/env python3
-"""Time designs of the deposit_visit CUDA kernel side by side on one card.
+"""Time the first port's deposit_visit design beside the current one on one
+card.
 
     git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
-    python3 scripts/deposit_visit_ab.py --old _checkout/old [--prev DIR ...]
+    python3 scripts/deposit_visit_ab.py --old _checkout/old
 
 ``--old`` is a directory that holds an earlier ``hyperion_tpu_torch/``
 whose ``transport/deposit_visit.py`` has the two-launch interface of the
 first port (``deposit_visit(energy_sum, n_photons_cell, last_uid, win,
 cell_dep, dep_rows, enter, uid)`` on int32 indices and (n_dust, B) rows).
-``--prev`` names other trees whose ``DepositVisit`` has the current
-interface, each timed under its directory's name. Each tree is loaded
-under another package name and builds its own library inside its
-directory. At each shape, in turns (old, prev..., new, new, ...prev,
-old), it measures per call: device microseconds (100
-calls captured in a CUDA graph, the replay timed with CUDA events), host
-microseconds (host clock around 1,000 eager calls, before the
-synchronise) and one eager call between CUDA events. The old design is
-timed twice: on inputs already in its layout ('old'), and with the three
-conversions its caller made each step ('old+conversions': int64 -> int32
-cells and entries, the (B, n_dust) -> (n_dust, B) transpose copy). Writes
-chiprun_out/deposit_visit_ab.json.
+It is loaded under another package name and builds its own library inside
+its directory. At the main path's four shapes, the hot cell and on the
+calls of 40 recorded tutorial steps, in turns (old, old+conversions, new,
+new, old+conversions, old), it measures per call what
+``chip_smoke.time_turn`` does: device microseconds (~100 calls in a CUDA
+graph), host microseconds (~1,000 eager calls) and one eager run between
+CUDA events. The old design is timed on inputs already in its layout
+('old'), and with the three conversions its caller made each step
+('old+conversions': int64 -> int32 cells and entries, the (B, n_dust) ->
+(n_dust, B) transpose copy). Writes chip_smoke_out/deposit_visit_ab.json
+unless --out names another file.
 """
 
 import argparse
@@ -40,22 +40,22 @@ import chip_smoke as cs  # noqa: E402
 SHAPES = [('mixed', 131072, 3375, 1), ('mixed', 131072, 3375, 2),
           ('mixed', 125000, 32768, 1), ('mixed', 125000, 32768, 2),
           ('hot cell', 125000, 32768, 1)]
-TUTORIAL_STEPS = 40     # recorded steps of the tutorial's first iteration
+ORDER = ['old', 'old+conversions', 'new']
 
 
-def load_tree(directory, name):
+def load_old(directory):
     """The deposit_visit module of the hyperion_tpu_torch/ in
-    ``directory``, imported as package ``name``."""
+    ``directory``, imported as package ``old_port``."""
     pkg = Path(directory).resolve() / 'hyperion_tpu_torch'
     spec = importlib.util.spec_from_file_location(
-        name, pkg / '__init__.py', submodule_search_locations=[str(pkg)])
+        'old_port', pkg / '__init__.py', submodule_search_locations=[str(pkg)])
     module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module
+    sys.modules['old_port'] = module
     spec.loader.exec_module(module)
-    return importlib.import_module(name + '.transport.deposit_visit')
+    return importlib.import_module('old_port.transport.deposit_visit')
 
 
-def designs(old, new, prevs, workload, n_dust, n_cells, device):
+def designs(old, new, workload, n_dust, n_cells, device):
     """{design: call}, each call running every (cell_dep, dep or None,
     enter, uid) of the workload in order, each design on its own tables."""
     import torch
@@ -89,17 +89,8 @@ def designs(old, new, prevs, workload, n_dust, n_cells, device):
             e, cd, dep, enter, uid = old_layout(*lanes)
             old.deposit_visit(e, npc, luid, win, cd, dep, enter, uid)
 
-    calls = {'old': old_call, 'old+conversions': old_with_conversions,
-             'new': new_call}
-    for name, prev in prevs.items():
-        prev_stats = prev.DepositVisit(n_dust, n_cells, device,
-                                       torch.float32)
-
-        def prev_call(prev_stats=prev_stats):
-            for lanes in workload:
-                prev_stats(*lanes)
-        calls[name] = prev_call
-    return calls
+    return {'old': old_call, 'old+conversions': old_with_conversions,
+            'new': new_call}
 
 
 def main():
@@ -107,19 +98,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--old', required=True,
                     help='directory holding the old hyperion_tpu_torch/')
-    ap.add_argument('--prev', nargs='*', default=[],
-                    help='directories holding other hyperion_tpu_torch/ '
-                    'trees of the current interface')
-    ap.add_argument('--out', default=str(ROOT / 'chiprun_out' /
+    ap.add_argument('--out', default=str(ROOT / 'chip_smoke_out' /
                                          'deposit_visit_ab.json'))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('deposit_visit_ab: needs an NVIDIA card', file=sys.stderr)
         return 1
     from hyperion_tpu_torch.transport import deposit_visit as new
-    old = load_tree(args.old, 'old_port')
-    prevs = {Path(d).name: load_tree(d, 'prev_port%d' % i)
-             for i, d in enumerate(args.prev)}
+    old = load_old(args.old)
     card = cs.card_line()
     print(card, flush=True)
     device = torch.device('cuda')
@@ -131,37 +117,30 @@ def main():
         lanes = make(np.random.default_rng(40 + k), B, n_cells, n_dust,
                      device)
         workloads.append((name, [lanes], n_dust, n_cells))
-    recorded = cs.record_tutorial_calls(new, TUTORIAL_STEPS)
-    workloads.append(('tutorial steps', recorded, 1, cs.TUTORIAL[1]))
+    workloads.append(('tutorial steps', cs.record_tutorial_calls(new), 1,
+                      cs.TUTORIAL[1]))
 
     rows = []
     for name, workload, n_dust, n_cells in workloads:
         n = len(workload)
         B = workload[0][2].shape[0]
-        calls = designs(old, new, prevs, workload, n_dust, n_cells, device)
-        got = {d: dict(device_us=[], host_us=[], call_ms=[]) for d in calls}
-        order = ['old', 'old+conversions'] + list(prevs) + ['new']
-        for d in order + order[::-1]:
-            # about 100 graph-captured and 1,000 eager calls each
-            reps = max(2, 100 // n)
-            got[d]['device_us'].append(
-                cs.graph_us(calls[d], n_calls=reps) / n)
-            got[d]['host_us'].append(
-                cs.host_us(calls[d], n_calls=max(10, 1000 // n)) / n)
-            got[d]['call_ms'].append(cs.event_ms(calls[d]) / n)
+        calls = designs(old, new, workload, n_dust, n_cells, device)
+        got = {d: [] for d in ORDER}
+        for d in ORDER + ORDER[::-1]:
+            got[d].append(cs.time_turn(calls[d], n))
         bounds = [cs.bound_bytes(cd, dep, enter, n_cells)
                   for cd, dep, enter, _ in workload]
         row = dict(lanes=name, calls=n, B=B, n_cells=n_cells, n_dust=n_dust,
                    card=card, bound_us=float(np.mean(bounds))
                    / cs.HBM_BYTES_PER_S * 1e6)
-        for d, m in got.items():
-            row[d] = {k: [float(x) for x in v] for k, v in m.items()}
+        for d, turns in got.items():
+            row[d] = {k: [float(t[k]) for t in turns] for k in turns[0]}
             print('%-14s %2d call(s) B=%d n_cells=%d n_dust=%d %-16s device '
                   '%s us, host %s us, eager call %s ms per call [%s]'
                   % (name, n, B, n_cells, n_dust, d,
-                     ' / '.join('%.2f' % x for x in m['device_us']),
-                     ' / '.join('%.2f' % x for x in m['host_us']),
-                     ' / '.join('%.4f' % x for x in m['call_ms']), card),
+                     ' / '.join('%.2f' % x for x in row[d]['device_us']),
+                     ' / '.join('%.2f' % x for x in row[d]['host_us']),
+                     ' / '.join('%.4f' % x for x in row[d]['call_ms']), card),
                   flush=True)
         rows.append(row)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

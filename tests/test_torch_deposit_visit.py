@@ -9,7 +9,9 @@ n_dust)); the JAX functions take int32 cells and (n_dust, B) rows, so the
 test converts at that boundary. The sequences hold the 5 -> 3 -> 5
 overwrite case, heavy collisions in one cell, one hot cell that every lane
 deposits into and enters, warps whose lanes form groups of 1, 2, 31 and 32
-equal cells with repeated and tied uids, and drop-slot lanes. Counts and
+equal cells with repeated and tied uids, drop-slot lanes, and a refill's
+visits-only calls (``dep`` None; the JAX functions get zero deposits
+there) between step calls. Counts and
 uids must be equal, and float32 energies match to rtol 1e-5 (the sums run
 in another order). The drop slot ``last_uid[n_cells]`` is never read for
 counting; the port leaves it untouched, so uids are compared over the
@@ -107,6 +109,14 @@ def _warp_group_steps(n_dust, n_cells, n_steps=4, seed=6):
     return out
 
 
+def _refill_steps(n_dust, n_cells, n_steps=6, seed=41):
+    """A refill's visits-only call (cell_dep and dep None) before each step
+    call, as the engine makes them; the two draw their lanes alike."""
+    calls = _steps(n_dust, n_cells, n_steps, seed)
+    return [(None, None) + c[2:] if k % 2 == 0 else c
+            for k, c in enumerate(calls)]
+
+
 def _run_references(steps, n_dust, n_cells):
     """The JAX kernel (interpret mode), visit_update and the numpy model
     over the steps; yields their tables after each step."""
@@ -120,9 +130,15 @@ def _run_references(steps, n_dust, n_cells):
     r_npc = np.zeros(n_cells, np.int64)
     r_luid = np.full(n_cells + 1, -2, np.int64)
     for cell_dep, dep, enter, uid in steps:
-        # the JAX functions' layout: int32 cells, (n_dust, B) rows
-        cd32, dep_rows = cell_dep.astype(np.int32), np.ascontiguousarray(dep.T)
+        # the JAX functions' layout: int32 cells, (n_dust, B) rows; a
+        # visits-only call deposits zeros
         en32 = enter.astype(np.int32)
+        if dep is None:
+            cd32 = np.zeros_like(en32)
+            dep_rows = np.zeros((n_dust, len(en32)), np.float32)
+        else:
+            cd32 = cell_dep.astype(np.int32)
+            dep_rows = np.ascontiguousarray(dep.T)
         j_es, j_npc, j_luid = j_kernel(
             j_es, j_npc, j_luid, jnp.asarray(cd32), jnp.asarray(dep_rows),
             jnp.asarray(en32), jnp.asarray(uid), interpret=True)
@@ -141,7 +157,8 @@ def _check_plain_against_jax(steps, n_dust, n_cells):
     launches = dv.launches
     refs = _run_references(steps, n_dust, n_cells)
     for (cell_dep, dep, enter, uid), (j, m, r) in zip(steps, refs):
-        stats(*(torch.as_tensor(a) for a in (cell_dep, dep, enter, uid)))
+        stats(*(None if a is None else torch.as_tensor(a)
+                for a in (cell_dep, dep, enter, uid)))
         for ref_npc in (j[1], m[0], r[1]):
             np.testing.assert_array_equal(stats.n_photons_cell.numpy(),
                                           np.asarray(ref_npc))
@@ -170,9 +187,10 @@ def test_plain_version_matches_jax_multi_step(n_dust, n_cells):
 
 
 @pytest.mark.parametrize('n_dust', [1, 2])
-@pytest.mark.parametrize('case', ['hot_cell', 'warp_groups'])
+@pytest.mark.parametrize('case', ['hot_cell', 'warp_groups', 'refills'])
 def test_plain_version_matches_jax_contention(case, n_dust):
-    make = {'hot_cell': _hot_cell_steps, 'warp_groups': _warp_group_steps}
+    make = {'hot_cell': _hot_cell_steps, 'warp_groups': _warp_group_steps,
+            'refills': _refill_steps}
     stats = _check_plain_against_jax(make[case](n_dust, 300), n_dust, 300)
     assert int(stats.n_photons_cell.sum()) > 0
 
@@ -218,16 +236,28 @@ def cuda_device():
     return torch.device('cuda')
 
 
+def _assert_tables_equal(stats, r_es, r_npc, r_luid):
+    stats.flush()
+    torch.cuda.synchronize()
+    assert torch.equal(stats.n_photons_cell, r_npc)
+    assert torch.equal(stats.last_uid, r_luid)
+    torch.testing.assert_close(stats.energy_sum.double(), r_es, rtol=1e-5,
+                               atol=0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('case', ['mixed', 'hot_cell', 'warp_groups'])
+@pytest.mark.parametrize('case', ['mixed', 'hot_cell', 'warp_groups',
+                                  'refills'])
 def test_kernel_matches_plain_version_on_card(case, cuda_device):
-    """The kernel against the plain version in float64, call by call, and
-    the same calls replayed from a CUDA graph."""
+    """The kernel against the plain version in float64, call by call; then
+    the same calls through CUDA graphs of one call each (one per call form)
+    on static lane buffers, replayed once per call, as a graph of the step
+    would be."""
     n_dust, n_cells = 2, 1000
     make = {'mixed': _steps, 'hot_cell': _hot_cell_steps,
-            'warp_groups': _warp_group_steps}[case]
-    steps = [[torch.as_tensor(a, device=cuda_device) for a in s]
-             for s in make(n_dust, n_cells)]
+            'warp_groups': _warp_group_steps, 'refills': _refill_steps}[case]
+    steps = [[None if a is None else torch.as_tensor(a, device=cuda_device)
+              for a in s] for s in make(n_dust, n_cells)]
     stats = dv.DepositVisit(n_dust, n_cells, cuda_device, torch.float32)
     plain = dv.DepositVisit(n_dust, n_cells, 'cpu', torch.float64)
     r_es, r_npc, r_luid = (t.to(cuda_device) for t in (
@@ -235,34 +265,31 @@ def test_kernel_matches_plain_version_on_card(case, cuda_device):
     launches = dv.launches
     for t in steps:
         stats(*t)
-        dv.deposit_visit_reference(r_es, r_npc, r_luid, t[0], t[1].double(),
+        dv.deposit_visit_reference(r_es, r_npc, r_luid, t[0],
+                                   None if t[1] is None else t[1].double(),
                                    t[2], t[3])
         torch.cuda.synchronize()
         assert torch.equal(stats.n_photons_cell, r_npc)
     assert dv.launches == launches + len(steps)
-    stats.flush()
-    torch.cuda.synchronize()
-    assert torch.equal(stats.last_uid, r_luid)
-    torch.testing.assert_close(stats.energy_sum.double(), r_es, rtol=1e-5,
-                               atol=0)
+    _assert_tables_equal(stats, r_es, r_npc, r_luid)
     if case == 'mixed':
         assert int(stats.last_uid[HOT]) == 5
 
-    # the calls captured in a graph and replayed once give the same tables
-    # again (the host's scratch rotation advanced with the capture)
+    # one graph per call form, each of one call: the kernel keeps its turn
+    # on the device, so replays of any count are exact
     graph_stats = dv.DepositVisit(n_dust, n_cells, cuda_device,
                                   torch.float32)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for t in steps:
-            graph_stats(*t)
-    graph_stats.energy_sum.zero_()
-    graph_stats.n_photons_cell.zero_()
-    graph_stats.last_uid.fill_(-2)
-    graph.replay()
-    graph_stats.flush()
-    torch.cuda.synchronize()
-    assert torch.equal(graph_stats.n_photons_cell, r_npc)
-    assert torch.equal(graph_stats.last_uid, r_luid)
-    torch.testing.assert_close(graph_stats.energy_sum.double(), r_es,
-                               rtol=1e-5, atol=0)
+    full = next(t for t in steps if t[1] is not None)
+    static = [torch.empty_like(a) for a in full]
+    graphs = {}
+    for form, args in (('deposits', static),
+                       ('visits', [None, None] + static[2:])):
+        graphs[form] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[form]):
+            graph_stats(*args)
+    for t in steps:
+        for buf, a in zip(static, t):
+            if a is not None:
+                buf.copy_(a)
+        graphs['visits' if t[1] is None else 'deposits'].replay()
+    _assert_tables_equal(graph_stats, r_es, r_npc, r_luid)
