@@ -10,7 +10,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3. the kernel against its plain PyTorch version, counts and uids equal and
    float32 energies within rtol 1e-4 of a float64 plain run (the kernel's
    float atomics and in-warp sums add in another, run-dependent order):
-   the main path's four shapes over 8 carried calls; visits-only calls (a
+   the main path's six shapes over 8 carried calls; visits-only calls (a
    refill's) between step calls; a hot cell that every lane deposits into
    and enters; warps whose lanes form groups of 1, 2, 31 and 32 equal cells
    with repeated and tied uids; the 5, 3, 5 overwrite case over three
@@ -19,7 +19,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the tutorial, refills included, recorded from the engine. On those
    calls, the hottest cell's share of the lanes and the warps and blocks
    that hold it (the same-address atomics left after a merge per warp or
-   per block). Then, at the four shapes, the hot cell, and on the
+   per block). Then, at the six shapes, the hot cell, and on the
    tutorial's calls (the kernels line reports these):
    device time per call (a CUDA graph's replay, CUDA events), host time per
    call (host clock around ~1,000 eager calls, before the synchronise), the
@@ -33,13 +33,36 @@ Phases, each of which raises on failure (exit code 1, no result line):
    after;
 5. physics on the card in float32: the optically thin inverse-square check
    of tests/test_engine_lucy.py, one iteration of bench.py's quickstart
-   configuration, and the host synchronisations per step.
+   configuration, and the host synchronisations per step;
+6. deposit_visit on the very calls of 40 steps of bench.py's yso_thick
+   configuration (a spherical star in the innermost shell, MRW lanes in the
+   dense midplane, B = 4,096), refills included: against the plain
+   version, the hottest cell's share of them, and their times;
+7. MRW physics on the card in float32 (tests/test_mrw.py:42-58 with 20,000
+   photons, on 4^3 cells of 20 mean free paths): MRW on and off agree
+   (median specific-energy ratio within 0.05), MRW takes fewer than 0.85 x
+   the steps, nothing is killed;
+8. examples/class2_sed.py without its peeled SED, built with the port's
+   AnalyticalYSOModel (96 x 32 x 1 auto grid, MRW, a spherical star) and
+   run on the card by run_lucy_model, cut to 1 iteration of 200,000
+   photons capped at 8,000 steps (CLASS2_CUT): no geometry kills,
+   energy_current the photon count; per iteration wall, photons/s, steps,
+   ms per step, occupancy, killed_int and host syncs per step (at most
+   1.05);
+9. bench.py's yso_thick configuration through transport.lucy.run_lucy as
+   bench.py calls it, cut to 1 iteration of 50,000 photons (bench.py: 2
+   of 2,000,000; ``--yso-thick-photons N`` runs phases 1, 2 and 9 alone
+   with 2 iterations of N photons): nothing killed, the steps per
+   iteration beside the JAX package's.
 
+The kernel's launch count is reset just before and read just after each
+main-path run (phases 4, 8 and 9); the kernels line sums them.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
 It needs no network and imports nothing of JAX or of hyperion_tpu.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -53,10 +76,31 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / 'chip_smoke_out'
 KERNEL_SOURCE = 'hyperion_tpu_torch/transport/csrc/deposit_visit.cu'
 REPLACES = 'hyperion_tpu/transport/pallas_ops.py:116'
-# (B, n_cells): bench.py's quickstart (15^3 cells, 131,072 lanes) and the
-# tutorial (32^3 cells, run.py's batch for 500,000 photons)
-SHAPES = [(131072, 3375), (125000, 32768)]
+# (B, n_cells): bench.py's quickstart (15^3 cells, 131,072 lanes), the
+# tutorial (32^3 cells, run.py's batch for 500,000 photons) and bench.py's
+# yso_thick (64 x 32 spherical-polar cells, 4,096 lanes)
+SHAPES = [(131072, 3375), (125000, 32768), (4096, 2048)]
 TUTORIAL = (125000, 32768, 1)
+# The YSO steps are host-bound (7-17 ms each on the H100) and the diffusion
+# tail sets their count, so phases 8 and 9 run cut to keep the script well
+# inside 10 minutes: fewer iterations first, then fewer photons (or, for
+# class2, a step cap); grid, dust, densities, star and MRW stay as given.
+# bench.py:103-195, yso_thick: the run_lucy arguments, and the photons and
+# iterations chip_smoke runs (bench.py: 2 x 2,000,000, some 58,000 steps
+# each; 1 x 50,000 takes ~13,000; --yso-thick-photons runs it at bench size)
+YSO_THICK = dict(batch_size=4096, mrw_gamma=1.0, n_mrw_max=100000,
+                 n_reabs_max=100, max_steps=100000)
+YSO_THICK_CUT = dict(n_photons=50_000, n_iterations=1)
+# examples/class2_sed.py as chip_smoke runs it: its 200,000 photons, 1 of
+# its 5 iterations, capped at 8,000 steps. The diffusion tail (photons deep
+# in the disk's inner rim, whose innermost shells are too thin for MRW
+# jumps) is heavy: on the H100 145-155 of the 200,000 photons were still
+# alive at 8,000 steps, and the iteration's occupancy was 5% at B = 50,000.
+# Lanes alive at the cap are killed and counted in killed_int.
+CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=8000)
+# the JAX package's yso_thick steps per iteration at B = 4,096
+# (BENCH_r05.json, TPU v5e): a property of the algorithm and the batch
+JAX_YSO_THICK_STEPS = 55580
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
 RTOL = 1e-4
 
@@ -408,16 +452,33 @@ def time_calls(dv, calls, n_dust, n_cells, device):
     return res
 
 
+def warm_engine(geo, dt, st, density, n_photons, batch, config, mrw=None,
+                warmup=20):
+    """A model's first Lucy iteration on the card, run through ``warmup``
+    steps: (carry, step, generator)."""
+    import torch
+    from hyperion_tpu_torch.transport import engine
+    from hyperion_tpu_torch.transport.lucy import compute_jnu_var
+
+    jid, jfrac = compute_jnu_var(dt, torch.zeros_like(density))
+    gen = torch.Generator(device=density.device).manual_seed(1)
+    carry = engine._init_lucy_carry(dt, density, n_photons, batch)
+    step = engine.make_lucy_step(geo, dt, st, density, jid, jfrac, config,
+                                 mrw=mrw)
+    for _ in range(warmup):
+        step(carry, gen)
+    torch.cuda.synchronize()
+    return carry, step, gen
+
+
 def tutorial_engine(batch=TUTORIAL[0], warmup=20):
     """The tutorial model's first Lucy iteration on the card, built with
     the port's front end and run through ``warmup`` steps: (carry, step,
     generator, geometry)."""
     import torch
     from hyperion_tpu_torch.model.run import _density_array
-    from hyperion_tpu_torch.transport import engine
     from hyperion_tpu_torch.transport.dtable import build_dust_tables
     from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
-    from hyperion_tpu_torch.transport.lucy import compute_jnu_var
     from hyperion_tpu_torch.transport.stable import build_source_tables
 
     dev, f32 = torch.device('cuda'), torch.float32
@@ -427,25 +488,38 @@ def tutorial_engine(batch=TUTORIAL[0], warmup=20):
     st = build_source_tables(m.sources, dev, f32,
                              length_scale=geo.length_scale)
     density = _density_array(m, geo.length_scale, dev, f32)
-    jid, jfrac = compute_jnu_var(dt, torch.zeros_like(density))
     config = dict(n_inter_max=m.n_inter_max, kill_on_scatter=False,
                   kill_on_absorb=False, check_frequency=0.0)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    carry = engine._init_lucy_carry(dt, density, m.n_photons['initial'],
-                                    batch)
-    step = engine.make_lucy_step(geo, dt, st, density, jid, jfrac, config)
-    for _ in range(warmup):
-        step(carry, gen)
-    torch.cuda.synchronize()
-    return carry, step, gen, geo
+    return warm_engine(geo, dt, st, density, m.n_photons['initial'], batch,
+                       config, warmup=warmup) + (geo,)
 
 
-def record_tutorial_calls(dv, n_steps=40):
-    """The lanes of every deposit_visit call of ``n_steps`` steps of the
-    tutorial's first iteration (after 20 warm-up steps), refills included:
-    a list of (cell_dep, dep, enter, uid), cell_dep and dep None for the
-    refills' visits-only calls."""
-    carry, step, gen, _ = tutorial_engine()
+def yso_thick_engine(warmup=20):
+    """bench.py's yso_thick configuration's first Lucy iteration on the
+    card (B = 4,096, MRW with gamma 1, source re-absorption), run through
+    ``warmup`` steps: (carry, step, generator, geometry)."""
+    import torch
+    from hyperion_tpu_torch.transport.mrw import prepare_mrw_tables
+
+    geo, dt, st, density = yso_thick_tables()
+    mrw = prepare_mrw_tables(dt, density, torch.zeros_like(density),
+                             YSO_THICK['mrw_gamma'])
+    config = dict(n_inter_max=1000000, kill_on_scatter=False,
+                  kill_on_absorb=False, check_frequency=0.0,
+                  n_mrw_max=YSO_THICK['n_mrw_max'],
+                  n_reabs_max=YSO_THICK['n_reabs_max'],
+                  source_intersect=st.any_intersect)
+    return warm_engine(geo, dt, st, density, 2_000_000,
+                       YSO_THICK['batch_size'], config, mrw=mrw,
+                       warmup=warmup) + (geo,)
+
+
+def record_calls(dv, engine, n_steps=40):
+    """The lanes of every deposit_visit call of ``n_steps`` steps of a warm
+    engine (carry, step, generator, ...), refills included: a list of
+    (cell_dep, dep, enter, uid), cell_dep and dep None for the refills'
+    visits-only calls."""
+    carry, step, gen = engine[:3]
     calls = []
     run = dv.DepositVisit.__call__
 
@@ -462,6 +536,12 @@ def record_tutorial_calls(dv, n_steps=40):
     finally:
         dv.DepositVisit.__call__ = run
     return calls
+
+
+def record_tutorial_calls(dv, n_steps=40):
+    """The deposit_visit calls of ``n_steps`` steps of the tutorial's first
+    iteration after 20 warm-up steps (:func:`record_calls`)."""
+    return record_calls(dv, tutorial_engine(), n_steps)
 
 
 def kernel_phase(dv, device, card):
@@ -515,12 +595,13 @@ def kernel_phase(dv, device, card):
     # (lanes, calls, n_dust, n_cells): one call at each of the four shapes
     # and the hot cell, then the very calls of 40 tutorial steps
     cases = []
+    hot_k = 2 * len(SHAPES)
     for k, (B, n_cells, n_dust) in enumerate(
             [(B, c, d) for B, c in SHAPES for d in (1, 2)] + [TUTORIAL]):
-        make = hot_lanes if k == 4 else mixed_lanes
+        make = hot_lanes if k == hot_k else mixed_lanes
         lanes = make(np.random.default_rng(20 + k), B, n_cells, n_dust,
                      device)
-        cases.append(('hot cell' if k == 4 else 'mixed', [lanes], n_dust,
+        cases.append(('hot cell' if k == hot_k else 'mixed', [lanes], n_dust,
                       n_cells))
     cases.append(('tutorial steps', recorded, 1, TUTORIAL[1]))
     timings = []
@@ -536,6 +617,39 @@ def kernel_phase(dv, device, card):
                  t['host_us'], t['call_ms'], t['plain_ms'], t['library_ms'],
                  t['bound_us'], t['bound_bytes'], card))
     return max(errs), rows, timings, hot
+
+
+def yso_calls_phase(dv, device, card):
+    """Phase 6: deposit_visit on the calls of 40 steps of bench.py's
+    yso_thick configuration (after 20 warm-up steps), refills included:
+    against the plain version, the busiest cell's share of them, and their
+    times. Returns (max abs energy error, check row, timing row,
+    contention)."""
+    recorded = record_calls(dv, yso_thick_engine())
+    n_cells = SHAPES[-1][1]
+    n_vis = sum(dep is None for _, dep, _, _ in recorded)
+    what = 'yso_thick calls, 40 steps (%d calls, %d visits only)' % (
+        len(recorded), n_vis)
+    err = check_calls(dv, recorded, 1, n_cells, device, 'yso_thick calls')
+    phase('deposit_visit %s: counts and uids equal, max abs energy err %.3g'
+          % (what, err))
+    hot = contention(recorded, n_cells)
+    for kind, h in hot.items():
+        phase('yso_thick calls, hottest cell by %s over %d calls: share of '
+              'lanes max %.4f mean %.4f; warps holding it max %d mean %.1f; '
+              'blocks max %d mean %.1f' % (
+                  kind, h['calls'], h['share_max'], h['share_mean'],
+                  h['warps_max'], h['warps_mean'], h['blocks_max'],
+                  h['blocks_mean']))
+    t = time_calls(dv, recorded, 1, n_cells, device)
+    t['lanes'] = 'yso_thick steps'
+    phase('deposit_visit yso_thick steps (%d calls) B=%d n_cells=%d: device '
+          '%.2f us, host %.2f us per call (one eager call %.4f ms), plain '
+          '%.4f ms, index_add_ %.4f ms, bound %.3f us (%d bytes) [%s]'
+          % (t['calls'], t['B'], n_cells, t['device_us'], t['host_us'],
+             t['call_ms'], t['plain_ms'], t['library_ms'], t['bound_us'],
+             t['bound_bytes'], card))
+    return err, dict(check=what, max_abs_err=err), t, hot
 
 
 # ----------------------------------------------------------------- slice --
@@ -698,8 +812,289 @@ def physics_on_card(card):
     return med, bench
 
 
-def main():
+# ------------------------------------------------------------------ yso --
+
+@contextlib.contextmanager
+def transport_syncs():
+    """Count the host synchronisations inside each Lucy iteration's
+    transport loop (``lucy.run_lucy_iteration``, table set-up included)
+    with torch's sync debug mode; yields the list of per-iteration
+    counts."""
     import torch
+    from hyperion_tpu_torch.transport import lucy
+
+    counts = []
+    inner = lucy.run_lucy_iteration
+
+    def counted(*args, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                out = inner(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        counts.append(sum('synchroniz' in str(w.message) for w in caught))
+        return out
+
+    lucy.run_lucy_iteration = counted
+    try:
+        yield counts
+    finally:
+        lucy.run_lucy_iteration = inner
+
+
+def report_iterations(what, rows, syncs, n_photons, card):
+    """Print and check per-iteration rows (wall, steps, events, lanes,
+    energy_current, killed): energy_current is the photon count, nothing
+    is killed by the geometry, and the transport loop reads the device at
+    most 1.05 times per step. Returns the rows with the derived figures."""
+    out = []
+    for i, (row, n_sync) in enumerate(zip(rows, syncs), 1):
+        if row['killed_geo'] or row['energy_current'] != n_photons:
+            raise AssertionError('%s iteration %d: killed_geo %d, '
+                                 'energy_current %r' % (
+                                     what, i, row['killed_geo'],
+                                     row['energy_current']))
+        per_step = n_sync / row['steps']
+        if per_step > 1.05:
+            raise AssertionError('%s iteration %d: %.3f host syncs per step'
+                                 % (what, i, per_step))
+        r = dict(row, photons_per_sec=n_photons / row['wall'],
+                 ms_per_step=row['wall'] * 1e3 / row['steps'],
+                 occupancy=row['events'] / (row['steps'] * row['lanes']),
+                 host_syncs_per_step=per_step)
+        out.append(r)
+        phase('%s iteration %d: %.3f s, %.0f photons/s, %d steps, %.3f ms '
+              'per step, occupancy %.4f, %.3f host syncs per step, killed '
+              '%d/%d [%s]' % (what, i, r['wall'], r['photons_per_sec'],
+                              r['steps'], r['ms_per_step'], r['occupancy'],
+                              per_step, r['killed_int'], r['killed_geo'],
+                              card))
+    return out
+
+
+def yso_thick_tables():
+    """bench.py:103-195's yso_thick configuration, built with the port's
+    classes, on the card in float32: a flared disk (2e-5 Msun, 0.1 to 300
+    au, tau_mid ~ 7.6e3) on a 64 x 32 x 1 spherical-polar grid, gray dust
+    of albedo 0.5 and chi 800 cm^2/g, and a 1 Lsun, 2 Rsun, 4000 K
+    spherical star. Returns (geometry, dust tables, source tables, engine
+    density)."""
+    import torch
+    from hyperion_tpu_torch.densities import FlaredDisk
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.grid import SphericalPolarGrid
+    from hyperion_tpu_torch.sources import SphericalSource
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+    from hyperion_tpu_torch.transport.gtable_spherical import \
+        build_spherical_geometry
+    from hyperion_tpu_torch.transport.stable import build_source_tables
+    from hyperion_tpu_torch.util.constants import au, lsun, msun, rsun
+
+    dev, f32 = torch.device('cuda'), torch.float32
+    rmin, rmax = 0.1 * au, 300.0 * au
+    grid = SphericalPolarGrid(
+        np.hstack([0.0, np.logspace(np.log10(rmin), np.log10(rmax), 64)]),
+        np.linspace(0.0, np.pi, 33), np.array([0.0, 2.0 * np.pi]))
+    nu = np.logspace(9, 17, 32)
+    dust = IsotropicDust(nu, np.repeat(0.5, 32), np.repeat(800.0, 32))
+    disk = FlaredDisk(mass=2e-5 * msun, rmin=rmin, rmax=rmax,
+                      r_0=10.0 * au, h_0=1.0 * au, p=-1.0, beta=1.25)
+    rho = np.asarray(disk.density(grid), float).reshape(-1)
+    geo = build_spherical_geometry(grid, dev, f32)
+    dt = build_dust_tables([dust], dev, f32)
+    star = SphericalSource(luminosity=lsun, radius=2.0 * rsun,
+                           temperature=4000.0)
+    st = build_source_tables([star], dev, f32, length_scale=geo.length_scale)
+    density = torch.as_tensor(rho[None, :] * geo.length_scale, dtype=f32,
+                              device=dev)
+    return geo, dt, st, density
+
+
+def mrw_phase(card, n_photons=20000):
+    """Phase 7: tests/test_mrw.py:42-58 on the card in float32, with
+    ``n_photons`` photons in one batch: a point source in a box of gray
+    absorbing dust whose cells are 20 mean free paths across (4^3 cells of
+    density 40, where the test has 6^3 of density 60: the same cells, and
+    half the direct run's steps), run with and without MRW (gamma 1). The
+    specific energies agree (median ratio within 0.05), MRW takes fewer
+    than 0.85 x the steps, and nothing is killed."""
+    import torch
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.grid import CartesianGrid
+    from hyperion_tpu_torch.sources import PointSource
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+    from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
+    from hyperion_tpu_torch.transport.lucy import run_lucy
+    from hyperion_tpu_torch.transport.stable import build_source_tables
+
+    dev, f32 = torch.device('cuda'), torch.float32
+    grid = CartesianGrid(*[np.linspace(-1, 1, 5)] * 3)
+    nu = np.logspace(5, 18, 20)
+    dust = IsotropicDust(nu, np.repeat(0.0, 20), np.repeat(1.0, 20))
+    geo = build_cartesian_geometry(grid, dev, f32)
+    dt = build_dust_tables([dust], dev, f32)
+    st = build_source_tables([PointSource(luminosity=1.0, temperature=500.0)],
+                             dev, f32, length_scale=geo.length_scale)
+    density = torch.full((1, geo.n_cells), 40.0 * geo.length_scale,
+                         dtype=f32, device=dev)
+    runs = {}
+    for use_mrw in (False, True):
+        t0 = time.time()
+        runs[use_mrw] = run_lucy(
+            geo, dt, st, density,
+            torch.Generator(device=dev).manual_seed(1 + use_mrw),
+            n_photons=n_photons, n_iterations=1, batch_size=n_photons,
+            use_mrw=use_mrw, mrw_gamma=1.0, verbose=False)
+        phase('MRW %s: %d steps, %.3f s, killed %d/%d [%s]' % (
+            'on' if use_mrw else 'off', runs[use_mrw].n_steps,
+            time.time() - t0, runs[use_mrw].killed_int,
+            runs[use_mrw].killed_geo, card))
+    direct, mrw = runs[False], runs[True]
+    sel = direct.specific_energy > 0
+    med = float(np.median(mrw.specific_energy[sel] /
+                          direct.specific_energy[sel]))
+    step_ratio = mrw.n_steps / direct.n_steps
+    if abs(med - 1.0) >= 0.05 or step_ratio >= 0.85 or any(
+            r.killed_int or r.killed_geo for r in runs.values()):
+        raise AssertionError('MRW on/off: median ratio %g, steps %d/%d, '
+                             'killed %d/%d' % (med, mrw.n_steps,
+                                               direct.n_steps,
+                                               mrw.killed_int,
+                                               direct.killed_int))
+    phase('MRW on/off (float32, %d photons): median specific-energy ratio '
+          '%.4f, steps %d against %d (%.3f)' % (n_photons, med, mrw.n_steps,
+                                                direct.n_steps, step_ratio))
+    return dict(photons=n_photons, median_ratio=med,
+                steps_mrw=mrw.n_steps, steps_direct=direct.n_steps)
+
+
+def class2_model(n_photons=200_000, n_iterations=5):
+    """examples/class2_sed.py without its peeled SED, built with the port's
+    AnalyticalYSOModel and evaluated to a Model (no file: the card's
+    machine has no h5py): a flared disk around a 2 Rsun star, HG dust, the
+    96 x 32 x 1 auto spherical-polar grid, MRW with gamma 2, Lucy
+    iterations with convergence checking (the example: 5 of 200,000
+    photons)."""
+    from hyperion_tpu_torch.dust import HenyeyGreensteinDust
+    from hyperion_tpu_torch.model import AnalyticalYSOModel
+    from hyperion_tpu_torch.util.constants import au, lsun, msun, rsun
+
+    nu = np.logspace(8, 17, 64)
+    dust = HenyeyGreensteinDust(nu, np.repeat(0.5, 64), np.repeat(400.0, 64),
+                                np.repeat(0.4, 64), np.repeat(0.8, 64))
+    m = AnalyticalYSOModel()
+    m.star.luminosity = lsun
+    m.star.radius = 2.0 * rsun
+    m.star.temperature = 4300.0
+    disk = m.add_flared_disk()
+    disk.mass = 1e-3 * msun
+    disk.rmin = 0.1 * au
+    disk.rmax = 200.0 * au
+    disk.r_0 = 10.0 * au
+    disk.h_0 = 0.4 * au
+    disk.p = -1.0
+    disk.beta = 1.25
+    disk.dust = dust
+    m.set_spherical_polar_grid_auto(96, 32, 1)
+    m.set_mrw(True, gamma=2.0)
+    m.set_n_initial_iterations(n_iterations)
+    m.set_convergence(True, percentile=99., absolute=2., relative=1.02)
+    m.set_n_photons(initial=n_photons, imaging=500_000)
+    m.evaluate_optically_thin_radii()
+    return m.to_model()
+
+
+def class2_phase(dv, card, n_photons, n_iterations, max_steps):
+    """Phase 8: the class2 YSO model through run_lucy_model on the card
+    (run.py's batch rule: B = n_photons / 4, at least 4,096), each
+    iteration capped at ``max_steps``. Returns (launches, report)."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+
+    m = class2_model(n_photons, n_iterations)
+    dv.launches = 0
+    t0 = time.time()
+    with transport_syncs() as syncs:
+        run = run_lucy_model(m, device='cuda', max_steps=max_steps)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dv.launches
+    temp = run.result.temperature[0]
+    dusty = run.density0[0] > 0
+    if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
+        raise AssertionError('class2: temperatures not finite and > 0 in '
+                             'dusty cells')
+    rows = report_iterations('class2', run.perf.rows, syncs, n_photons, card)
+    steps = sum(r['steps'] for r in rows)
+    if not steps < launches <= 2 * steps:
+        raise AssertionError('class2: deposit_visit launches %d vs %d steps'
+                             % (launches, steps))
+    phase('class2: %d iterations (converged: %s) in %.3f s, T %.1f .. %.1f '
+          'K, killed_int %d, deposit_visit launches %d over %d steps [%s]'
+          % (run.result.iterations, run.result.converged, wall,
+             temp[dusty].min(), temp.max(), run.result.killed_int, launches,
+             steps, card))
+    return launches, dict(photons=n_photons, max_steps=max_steps,
+                          wall_s=wall, iterations=rows,
+                          converged=bool(run.result.converged),
+                          launches=launches, steps=steps)
+
+
+def yso_thick_phase(dv, card, n_photons, n_iterations):
+    """Phase 9: bench.py's yso_thick configuration through the port's
+    transport.lucy.run_lucy, as bench.py calls it (B = 4,096, MRW gamma 1,
+    n_mrw_max 100,000, n_reabs_max 100, max_steps 100,000), with
+    ``n_photons`` photons per iteration. Nothing may be killed. Returns
+    (launches, report)."""
+    import torch
+    from hyperion_tpu_torch.transport.lucy import run_lucy
+
+    geo, dt, st, density = yso_thick_tables()
+    rows = []
+    t_last = [time.time()]
+
+    def callback(it, se, rho, n_photons_cell, se_spectrum, stats):
+        now = time.time()
+        rows.append(dict(stats, wall=now - t_last[0], events=stats['n_events'],
+                         steps=stats['n_steps'], lanes=stats['batch_size']))
+        t_last[0] = now
+
+    dv.launches = 0
+    with transport_syncs() as syncs:
+        res = run_lucy(geo, dt, st, density,
+                       torch.Generator(device='cuda').manual_seed(1),
+                       n_photons, n_iterations, use_mrw=True,
+                       verbose=False, iteration_callback=callback,
+                       **YSO_THICK)
+    launches = dv.launches
+    rows = report_iterations('yso_thick', rows, syncs, n_photons, card)
+    if any(r['killed_int'] for r in rows):
+        raise AssertionError('yso_thick: photons killed: %s'
+                             % [r['killed_int'] for r in rows])
+    temp = res.temperature[0]
+    dusty = res.density[0] > 0
+    if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
+        raise AssertionError('yso_thick: temperatures not finite and > 0')
+    steps = [r['steps'] for r in rows]
+    phase('yso_thick: %d x %d photons, steps per iteration %s (the JAX '
+          'package at 2,000,000 photons: %d), deposit_visit launches %d '
+          '[%s]' % (n_iterations, n_photons, steps, JAX_YSO_THICK_STEPS,
+                    launches, card))
+    return launches, dict(photons=n_photons, iterations=rows,
+                          launches=launches, T_max=float(temp.max()))
+
+
+def main():
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--yso-thick-photons', type=int, default=None,
+                    help='run only phases 1, 2 and 9, with 2 iterations of '
+                    'this many photons (bench.py: 2000000)')
+    args = ap.parse_args()
+    t_start = time.time()
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False: this needs '
               'an NVIDIA card', file=sys.stderr)
@@ -718,11 +1113,25 @@ def main():
              nvcc[-1], torch.cuda.get_device_name(0)))
     OUT.mkdir(parents=True, exist_ok=True)
     device = torch.device('cuda')
+    result_line = json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}})
 
     # 2. build
     t0 = time.time()
     lib = _build.build('deposit_visit')
     phase('built %s in %.2f s' % (lib.name, time.time() - t0))
+
+    if args.yso_thick_photons:
+        # 9 alone, at the size asked for
+        t0 = time.time()
+        _, yso = yso_thick_phase(dv, card, args.yso_thick_photons, 2)
+        yso.update(card=card, wall_s=time.time() - t0)
+        (OUT / ('yso_thick_%d.json' % args.yso_thick_photons)).write_text(
+            json.dumps(yso, indent=1))
+        print(json.dumps({'yso_thick': yso}), flush=True)
+        print(result_line, flush=True)
+        return 0
 
     # 3. kernel against the plain version, and its times
     max_err, checks, timings, hot = kernel_phase(dv, device, card)
@@ -733,25 +1142,52 @@ def main():
     # 5. physics on the card
     median_ratio, bench = physics_on_card(card)
 
+    # 6. deposit_visit on the YSO path's own calls
+    yso_err, yso_check, yso_t, yso_hot = yso_calls_phase(dv, device, card)
+    checks.append(yso_check)
+    timings.append(yso_t)
+
+    # 7. MRW physics on the card
+    mrw = mrw_phase(card)
+
+    # 8. the class2 YSO model through the normal entry point
+    launches_c2, class2 = class2_phase(dv, card, **CLASS2_CUT)
+
+    # 9. bench.py's yso_thick configuration, cut
+    launches_yso, yso = yso_thick_phase(dv, card, **YSO_THICK_CUT)
+    phase('phases 1-9 in %.1f s' % (time.time() - t_start))
+
     t = next(r for r in timings if r['lanes'] == 'tutorial steps')
     kernels = [dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
-                    replaces=REPLACES, launches=launches,
-                    max_abs_err=max_err, ms=t['device_us'] / 1e3,
+                    replaces=REPLACES,
+                    launches=launches + launches_c2 + launches_yso,
+                    max_abs_err=max(max_err, yso_err),
+                    ms=t['device_us'] / 1e3,
                     plain_ms=t['plain_ms'], bound_ms=t['bound_us'] / 1e3,
                     bound_by='bytes', library_ms=t['library_ms'],
                     device_us=t['device_us'], host_us=t['host_us'],
-                    bound_us=t['bound_us'])]
+                    bound_us=t['bound_us'],
+                    launches_by_phase=dict(tutorial=launches,
+                                           class2=launches_c2,
+                                           yso_thick=launches_yso),
+                    yso_device_us=yso_t['device_us'],
+                    yso_host_us=yso_t['host_us'],
+                    yso_bound_us=yso_t['bound_us'],
+                    yso_plain_ms=yso_t['plain_ms'],
+                    yso_library_ms=yso_t['library_ms'],
+                    yso_contention=yso_hot)]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, kernel_checks=checks,
                   kernel_timings=timings, tutorial_contention=hot,
+                  yso_thick_contention=yso_hot,
                   slice=dict(wall_s=wall, iterations=iterations),
                   inverse_square_median_ratio=median_ratio,
-                  bench_quickstart=bench, kernels=kernels)
+                  bench_quickstart=bench, mrw=mrw, class2=class2,
+                  yso_thick=yso, kernels=kernels,
+                  wall_s=time.time() - t_start)
     (OUT / 'results.json').write_text(json.dumps(record, indent=1))
     print(json.dumps({'kernels': kernels}), flush=True)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}), flush=True)
+    print(result_line, flush=True)
     return 0
 
 

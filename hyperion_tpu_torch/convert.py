@@ -12,6 +12,8 @@ import torch
 
 from .transport.dtable import DustTables
 from .transport.gtable import CartesianGeometry
+from .transport.gtable_spherical import SphericalGeometry
+from .transport.mrw import MRWTables
 from .transport.stable import SourceTables
 
 
@@ -29,12 +31,21 @@ def _build(cls, fields, device, dtype):
 
 
 def tables_from_numpy(dust, sources, geometry, device, dtype):
-    """(DustTables, SourceTables, CartesianGeometry) from dicts of numpy
-    fields of the JAX DustTables, SourceTables and CartesianGeometry."""
+    """(DustTables, SourceTables, geometry) from dicts of numpy fields of
+    the JAX DustTables, SourceTables and CartesianGeometry or
+    SphericalGeometry (told apart by the radial walls ``rw``)."""
     sources = dict(sources, energy_total=float(sources['energy_total']))
+    geometry_cls = SphericalGeometry if 'rw' in geometry else \
+        CartesianGeometry
     return (_build(DustTables, dust, device, dtype),
             _build(SourceTables, sources, device, dtype),
-            _build(CartesianGeometry, geometry, device, dtype))
+            _build(geometry_cls, geometry, device, dtype))
+
+
+def mrw_tables_from_numpy(mrw, device, dtype):
+    """The port's MRWTables from a dict of numpy fields of the JAX
+    MRWTables (its TPU row layout ``x_rows`` is dropped)."""
+    return _build(MRWTables, mrw, device, dtype)
 
 
 def visit_state_from_numpy(last_uid_padded, n_cells):

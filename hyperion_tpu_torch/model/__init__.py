@@ -1,4 +1,5 @@
 from .model import Model, Configuration  # noqa: F401
+from .analytical_yso_model import AnalyticalYSOModel, Star  # noqa: F401
 from .model_output import ModelOutput  # noqa: F401
 from .sed import SED  # noqa: F401
 from .image import Image  # noqa: F401

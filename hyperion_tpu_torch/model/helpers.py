@@ -3,9 +3,9 @@
 
 ``tau_to_radius`` finds the radial photosphere of a spherical-polar model;
 ``hseq_profile`` is the vertical hydrostatic-equilibrium density profile.
-``run_with_vertical_hseq`` of ``hyperion_tpu/model/helpers.py`` drives an
-AnalyticalYSOModel, which comes to the port with the yso_thick slice
-(ROADMAP.md queue 1 item 8).
+``run_with_vertical_hseq`` of ``hyperion_tpu/model/helpers.py`` iterates
+an AnalyticalYSOModel on a cylindrical-polar grid, which the port does not
+run yet (ROADMAP.md queue 1 item 11), so it is left out here.
 """
 
 import numpy as np

@@ -1,12 +1,16 @@
 """Run a Model through the port and write its .rtout (counterpart of
 ``hyperion_tpu/model/run.py``).
 
-The slice: a cartesian grid, point sources and point-source collections,
-any number of dust types, Lucy iterations with or without convergence
-checking, the minimum-specific-energy floor, ``enforce_energy_range``,
-sublimation and the probabilistic geometry self-check. Anything else
-raises ``NotImplementedError`` naming its ROADMAP.md item. The output
-layout is the JAX package's, read by either package's ``ModelOutput``;
+The slice: cartesian and spherical-polar grids; point sources,
+point-source collections and spherical sources (limb darkening, spots, and
+the re-absorption of photons that hit them); any number of dust types;
+Lucy iterations with or without convergence checking, the modified random
+walk, the partial diffusion approximation, frequency-resolved specific
+energy bins, an initial or additional specific energy read from the grid,
+the minimum-specific-energy floor, ``enforce_energy_range``, sublimation
+and the probabilistic geometry self-check. Anything else raises
+``NotImplementedError`` naming its ROADMAP.md item. The output layout is
+the JAX package's, read by either package's ``ModelOutput``;
 :func:`run_lucy_model` is the same run without the file, for machines
 without HDF5. Both run on the card unless the caller passes
 ``device='cpu'``."""
@@ -19,10 +23,13 @@ import numpy as np
 import torch
 
 from ..device import engine_dtype, resolve_device
-from ..grid import AMRGrid, CartesianGrid
+from ..grid import AMRGrid, CartesianGrid, SphericalPolarGrid
+from ..sources import PointSource, PointSourceCollection, SphericalSource
 from ..transport.dtable import build_dust_tables
 from ..transport.gtable import ESCAPED, build_cartesian_geometry
+from ..transport.gtable_spherical import build_spherical_geometry
 from ..transport.lucy import run_lucy
+from ..transport.pda import build_pda_tables
 from ..transport.stable import build_source_tables
 from ..util.perf import PerfTable
 from .model import Model
@@ -100,20 +107,30 @@ def _check_slice(model):
         raise TypeError("the port runs a hyperion_tpu_torch.model.Model, not "
                         "a %s.%s" % (type(model).__module__,
                                      type(model).__name__))
-    if not isinstance(model.grid, CartesianGrid):
-        refuse("%s" % type(model.grid).__name__, "8 (spherical-polar) or 11")
-    if model.mrw:
-        refuse("the modified random walk", 8)
-    if model.pda:
-        refuse("the partial diffusion approximation", 8)
-    if model.specific_energy_spectrum_bins is not None:
-        refuse("specific_energy_spectrum binning", 8)
-    if 'specific_energy' in model.grid:
-        refuse("an initial specific energy in the grid", 7)
+    if not isinstance(model.grid, (CartesianGrid, SphericalPolarGrid)):
+        refuse("%s" % type(model.grid).__name__, 11)
+    for s in model.sources:
+        if not isinstance(s, (PointSource, PointSourceCollection,
+                              SphericalSource)):
+            refuse("%s" % type(s).__name__, 4)
     if model.peeled_output:
         refuse("peeled images and SEDs", 9)
     if model.binned_output is not None:
         refuse("binned images", 10)
+
+
+def build_geometry_tables(grid, device, dtype):
+    """The geometry tables of a cartesian or spherical-polar grid."""
+    if isinstance(grid, SphericalPolarGrid):
+        return build_spherical_geometry(grid, device, dtype)
+    return build_cartesian_geometry(grid, device, dtype)
+
+
+def _initial_specific_energy(model):
+    """(n_dust, n_cells) specific energy read from the grid, or None."""
+    if 'specific_energy' in model.grid:
+        return _flatten_quantity(model.grid, 'specific_energy')
+    return None
 
 
 def _density_array(model, length_scale, device, dtype):
@@ -127,8 +144,9 @@ def _density_array(model, length_scale, device, dtype):
 
 
 def _validate_model(geometry, st, dt):
-    """Fail fast where the reference aborts at run time: a source outside
-    the grid, or a source spectrum beyond the dust frequency tables."""
+    """Fail fast where the reference aborts at run time: a source (a
+    point, or a sphere's centre) outside the grid, or a source spectrum
+    beyond the dust frequency tables."""
     pos = st.position
     zero = torch.zeros_like(pos[:, 0])
     cell = geometry.find_cell(pos[:, 0], pos[:, 1], pos[:, 2], zero, zero,
@@ -156,17 +174,22 @@ def _validate_model(geometry, st, dt):
 class ModelRun(NamedTuple):
     """What :func:`run_lucy_model` computed, in memory."""
     result: object        # transport.lucy.LucyResult, None without iterations
-    iterations: list      # per iteration: specific_energy, density, n_photons
+    # per iteration: specific_energy, density, n_photons and
+    # specific_energy_spectrum (None without spectrum bins)
+    iterations: list
     density0: np.ndarray  # (n_dust, n_cells) physical density before the run
     # one row per iteration: wall seconds, photons, steps, transport events,
     # lanes, energy_current, killed_int, killed_geo
     perf: PerfTable
 
 
-def run_lucy_model(model, device=None, batch_size=None, dtype=None):
+def run_lucy_model(model, device=None, batch_size=None, dtype=None,
+                   max_steps=100000000):
     """Run the model's Lucy iterations on ``device`` ('cuda', the default,
     or 'cpu') and return a :class:`ModelRun`. This is :func:`run_model`
-    without the file: it needs no HDF5."""
+    without the file: it needs no HDF5. ``max_steps`` caps the steps of an
+    iteration (run_lucy's bounded-step safety net: lanes still alive at the
+    cap are killed and counted in killed_int)."""
     device = resolve_device(device)
     dtype = engine_dtype(device, dtype)
     _check_slice(model)
@@ -176,7 +199,7 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None):
         raise Exception("Cannot run a model with no dust or density "
                         "(pure-source models are not yet supported)")
 
-    geometry = build_cartesian_geometry(model.grid, device, dtype)
+    geometry = build_geometry_tables(model.grid, device, dtype)
     dt = build_dust_tables(dusts, device, dtype)
     st = build_source_tables(model.sources, device, dtype,
                              length_scale=geometry.length_scale,
@@ -188,6 +211,7 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None):
     if batch_size is None:
         batch_size = int(min(2 ** 17, max(4096, n_initial // 4)))
     min_se = model._resolved_minimum_specific_energy(dusts)
+    init_se = _initial_specific_energy(model)
     generator = torch.Generator(device=device)
     generator.manual_seed(abs(model._seed) % (2 ** 31))
 
@@ -195,7 +219,7 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None):
     iterations = []
     iter_t = [time.time()]
 
-    def callback(it, se, rho, n_photons_cell, stats):
+    def callback(it, se, rho, n_photons_cell, se_spectrum, stats):
         now = time.time()
         perf.add('lucy iteration %d' % it, now - iter_t[-1],
                  photons=n_initial, events=stats['n_events'],
@@ -207,7 +231,8 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None):
         # the engine density carries the length scale: store the physical one
         iterations.append(dict(specific_energy=se,
                                density=rho / geometry.length_scale,
-                               n_photons=n_photons_cell))
+                               n_photons=n_photons_cell,
+                               specific_energy_spectrum=se_spectrum))
 
     density0 = density.cpu().numpy().astype(float) / geometry.length_scale
     result = None
@@ -219,6 +244,7 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None):
             n_inter_max=model.n_inter_max,
             kill_on_scatter=model.kill_on_scatter,
             kill_on_absorb=model.kill_on_absorb,
+            n_reabs_max=model.n_reabs_max,
             minimum_specific_energy=min_se,
             enforce_energy_range=model.enforce_energy_range,
             check_convergence=model.check_convergence,
@@ -226,8 +252,17 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None):
             convergence_relative=getattr(model, 'convergence_relative', 1.02),
             convergence_percentile=getattr(model, 'convergence_percentile',
                                            100.0),
+            initial_specific_energy=init_se,
+            additional_specific_energy=(
+                init_se if model.specific_energy_type == 'additional'
+                else None),
+            use_mrw=model.mrw, mrw_gamma=getattr(model, 'mrw_gamma', 1.0),
+            n_mrw_max=getattr(model, 'n_inter_mrw_max', 1000),
+            use_pda=model.pda,
+            pda_tables=build_pda_tables(model.grid) if model.pda else None,
             check_frequency=getattr(model, '_frequency', 0.0),
-            verbose=True, iteration_callback=callback)
+            spectrum_bins=model.specific_energy_spectrum_bins,
+            max_steps=max_steps, verbose=True, iteration_callback=callback)
     perf.report()
     return ModelRun(result, iterations, density0, perf)
 
@@ -274,6 +309,17 @@ def _write_rtout(model, filename, run, t_start):
             if want(oc.output_n_photons):
                 _write_grid_dataset(g, 'n_photons', itdata['n_photons'],
                                     model.grid)
+            if itdata['specific_energy_spectrum'] is not None and \
+                    want(oc.output_specific_energy_spectrum):
+                # (n_dust, n_bins, *grid shape) and the bin edges (ref
+                # grid_generic.f90:68-74)
+                _write_grid_dataset(g, 'specific_energy_spectrum',
+                                    itdata['specific_energy_spectrum'],
+                                    model.grid, io_dtype=io_dtype)
+                g.create_dataset('specific_energy_spectrum_bin_edges',
+                                 data=np.asarray(
+                                     model.specific_energy_spectrum_bins,
+                                     float))
             g.attrs['killed_photons_geo'] = result.killed_geo
             g.attrs['killed_photons_int'] = result.killed_int
 

@@ -3,8 +3,8 @@
 
 The host code is the JAX package's numpy, copied because importing any
 ``hyperion_tpu.transport`` module imports JAX; only the tables the Lucy
-path reads are built. All CDFs are made on the host in float64 and the
-tensors are cast to the engine dtype."""
+path reads are built (with MRW, PDA and spectrum bins). All CDFs are made
+on the host in float64 and the tensors are cast to the engine dtype."""
 
 from dataclasses import dataclass
 
@@ -24,13 +24,23 @@ class DustTables:
     # emissivity specific-energy grid (n_dust, n_var) and its log10
     emiss_var: torch.Tensor
     log_emiss_var: torch.Tensor
-    # log2(nu) quantile tables of j_nu, (n_dust * n_var, n_q)
+    # emissivity frequencies (n_dust, n_enu) and the CDFs of j_nu over them
+    # per (dust, var) row, (n_dust * n_var, n_enu): the spectrum bins'
+    # emissivity fractions
+    emiss_nu: torch.Tensor
+    jnu_cdf: torch.Tensor
+    # log2(nu) quantile tables of j_nu, and of b_nu = j_nu / kappa (the MRW
+    # re-emission, ref dust_setup), (n_dust * n_var, n_q)
     jnu_q: torch.Tensor
+    bnu_q: torch.Tensor
     # mu quantile tables of the P1 phase function, (n_dust * n_nu, n_q_mu)
     mu_q: torch.Tensor
-    # mean opacities vs specific energy: (n_dust, n_e)
+    # mean opacities vs specific energy: (n_dust, n_e); kappa_planck and
+    # chi_inv_planck feed the MRW tables and the PDA
     me_specific_energy: torch.Tensor
     me_temperature: torch.Tensor
+    me_kappa_planck: torch.Tensor
+    me_chi_inv_planck: torch.Tensor
     me_chi_rosseland: torch.Tensor
     # sublimation: (n_dust,) mode codes 0=no 1=fast 2=slow 3=cap + threshold
     sublimation_mode: torch.Tensor
@@ -51,6 +61,15 @@ def _pad_to(arr, n):
     if pad <= 0:
         return arr
     return np.concatenate([arr, np.repeat(arr[-1:], pad)])
+
+
+def _pad_rows(cdf, n_rows, n_cols):
+    """A (rows, cols) CDF table padded to (n_rows, n_cols): missing rows
+    repeat the last row, missing columns hold 1."""
+    out = np.ones((n_rows, n_cols))
+    out[:cdf.shape[0], :cdf.shape[1]] = cdf
+    out[cdf.shape[0]:, :cdf.shape[1]] = cdf[-1]
+    return out
 
 
 def _cdf_loglog(x, y_rows):
@@ -111,6 +130,7 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
             d.emissivities.set_lte(d.optical_properties, d.mean_opacities)
 
     n_nu = max(len(d.optical_properties.nu) for d in dusts)
+    n_enu = max(len(d.emissivities.nu) for d in dusts)
     n_var = max(len(d.emissivities.var) for d in dusts)
     n_e = max(len(d.mean_opacities.temperature) for d in dusts)
 
@@ -118,10 +138,14 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
     chi = np.zeros((n_dust, n_nu))
     albedo = np.zeros((n_dust, n_nu))
     emiss_var = np.zeros((n_dust, n_var))
+    emiss_nu = np.zeros((n_dust, n_enu))
+    jnu_cdf = np.zeros((n_dust, n_var, n_enu))
     jnu_q = np.zeros((n_dust, n_var, n_quantiles))
+    bnu_q = np.zeros((n_dust, n_var, n_quantiles))
     mu_q = np.zeros((n_dust, n_nu, n_quantiles_mu))
     me = {k: np.zeros((n_dust, n_e))
-          for k in ('specific_energy', 'temperature', 'chi_rosseland')}
+          for k in ('specific_energy', 'temperature', 'kappa_planck',
+                    'chi_inv_planck', 'chi_rosseland')}
     subl_mode = np.zeros(n_dust, dtype=np.int32)
     subl_energy = np.zeros(n_dust)
 
@@ -135,12 +159,22 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
         em = d.emissivities
         enu = np.asarray(em.nu, float)
         emiss_var[i] = _pad_to(np.asarray(em.var, float), n_var)
-        # CDF of j_nu over nu per var bin; missing var rows repeat the last
-        cj = _cdf_loglog(enu, np.asarray(em.jnu, float).T)
-        if cj.shape[0] < n_var:
-            cj = np.concatenate([cj, np.repeat(cj[-1:], n_var - cj.shape[0],
-                                               axis=0)])
-        jnu_q[i] = quantile_table(enu, cj, n_quantiles, log2=True)
+        emiss_nu[i] = _pad_to(enu, n_enu)
+        # CDFs of j_nu and of b_nu = j_nu / kappa(nu) over nu per var bin
+        # (ref dust_setup); missing var rows repeat the last, missing
+        # frequencies hold 1
+        rows = np.asarray(em.jnu, float).T
+        kappa_enu = 10.0 ** np.interp(
+            np.log10(enu), np.log10(np.asarray(op.nu, float)),
+            np.log10(np.maximum(np.asarray(op.kappa, float), 1e-300)))
+        cj = _pad_rows(_cdf_loglog(enu, rows), n_var, n_enu)
+        cb = _pad_rows(_cdf_loglog(enu, rows / kappa_enu[None, :]), n_var,
+                       n_enu)
+        jnu_cdf[i] = cj
+        jnu_q[i] = quantile_table(enu, cj[:, :len(enu)], n_quantiles,
+                                  log2=True)
+        bnu_q[i] = quantile_table(enu, cb[:, :len(enu)], n_quantiles,
+                                  log2=True)
 
         mu_d = np.asarray(op.mu, float)
         mq = quantile_table(mu_d, _cdf_linear(mu_d, np.asarray(op.P1, float)),
@@ -161,10 +195,15 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
     return DustTables(
         nu=f(nu), chi=f(chi), albedo=f(albedo),
         emiss_var=f(emiss_var), log_emiss_var=f(np.log10(emiss_var)),
+        emiss_nu=f(emiss_nu),
+        jnu_cdf=f(jnu_cdf.reshape(n_dust * n_var, n_enu)),
         jnu_q=f(jnu_q.reshape(n_dust * n_var, n_quantiles)),
+        bnu_q=f(bnu_q.reshape(n_dust * n_var, n_quantiles)),
         mu_q=f(mu_q.reshape(n_dust * n_nu, n_quantiles_mu)),
         me_specific_energy=f(me['specific_energy']),
         me_temperature=f(me['temperature']),
+        me_kappa_planck=f(me['kappa_planck']),
+        me_chi_inv_planck=f(me['chi_inv_planck']),
         me_chi_rosseland=f(me['chi_rosseland']),
         sublimation_mode=torch.as_tensor(subl_mode, device=device),
         sublimation_energy=f(subl_energy),

@@ -93,6 +93,15 @@ class CartesianGeometry:
         wall_coord = torch.where(ax == 0, w1, torch.where(ax == 1, w2, w3))
         return t, next_cell, ax, wall_coord
 
+    def closest_wall_distance(self, cell, x, y, z):
+        """Perpendicular distance to the nearest wall of the cell (the MRW
+        trigger, ref distance_to_closest_wall)."""
+        i1, i2, i3 = self.decode(cell)
+        d1 = torch.minimum(x - self.xw[i1], self.xw[i1 + 1] - x)
+        d2 = torch.minimum(y - self.yw[i2], self.yw[i2 + 1] - y)
+        d3 = torch.minimum(z - self.zw[i3], self.zw[i3 + 1] - z)
+        return torch.minimum(torch.minimum(d1, d2), d3).clamp_min(0.0)
+
     def in_cell_tol(self, cell, x, y, z, tol=0.01):
         """Is the position inside the cell's bounds within a ``tol``
         fraction of the cell extent? The geometry self-check oracle (ref

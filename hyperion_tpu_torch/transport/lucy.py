@@ -2,9 +2,10 @@
 ``hyperion_tpu/transport/lucy.py``).
 
 Between iterations (ref iter_lucy.f90:216-238, grid_physics_3d.f90:500-690):
-energy normalization, the emissivity locator, the minimum-specific-energy
-floor and energy range, sublimation, temperatures and the percentile
-convergence test."""
+energy normalization, an additional specific energy, the emissivity
+locator, the MRW tables, the minimum-specific-energy floor and energy
+range, the PDA, sublimation, temperatures and the percentile convergence
+test."""
 
 from typing import NamedTuple
 
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from .engine import run_lucy_iteration
+from .mrw import prepare_mrw_tables
+from .pda import solve_pda
 from .sampling import interp_loglog, searchsorted_right
 
 
@@ -132,6 +135,25 @@ def specific_energy_converged(se_prev, se, percentile, absolute, relative,
     return (value < absolute) and (abs(rel_change) < relative), value
 
 
+def spectrum_bin_fractions(dt, edges):
+    """The fraction of the local LTE emissivity in each spectrum bin per
+    (dust, var) row, (n_dust * n_var, n_bins): it spreads MRW deposits over
+    the bins without sampling (ref j_nu_bin_frac of
+    deposit_specific_energy_spectrum, grid_physics_3d.f90:367-415). Host
+    numpy, a copy of the JAX package's."""
+    n_dust, n_var = dt.n_dust, dt.n_var
+    cdf = dt.jnu_cdf.cpu().numpy().astype(float)
+    emiss_nu = dt.emiss_nu.cpu().numpy().astype(float)
+    edges = np.asarray(edges, float)
+    out = np.zeros((n_dust * n_var, len(edges) - 1))
+    for d in range(n_dust):
+        lg = np.log(np.maximum(emiss_nu[d], 1e-300))
+        for v in range(n_var):
+            c_at = np.interp(np.log(edges), lg, cdf[d * n_var + v])
+            out[d * n_var + v] = np.maximum(np.diff(c_at), 0.0)
+    return out
+
+
 class LucyResult(NamedTuple):
     specific_energy: np.ndarray     # (n_dust, n_cells)
     temperature: np.ndarray         # (n_dust, n_cells)
@@ -144,30 +166,64 @@ class LucyResult(NamedTuple):
     n_events: int                   # occupancy = n_events/(n_steps*batch)
     converged: bool
     iterations: int
+    # (n_dust, n_bins, n_cells) with spectrum bins, else None
+    specific_energy_spectrum: np.ndarray = None
 
 
 def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
              batch_size=65536, n_inter_max=1000000, kill_on_scatter=False,
-             kill_on_absorb=False, max_steps=100000000,
+             kill_on_absorb=False, n_reabs_max=0, max_steps=100000000,
              minimum_specific_energy=None, enforce_energy_range=True,
              check_convergence=False, convergence_absolute=0.0,
              convergence_relative=1.02, convergence_percentile=100.0,
-             check_frequency=0.0, verbose=True, iteration_callback=None):
+             initial_specific_energy=None, additional_specific_energy=None,
+             use_mrw=False, mrw_gamma=1.0, n_mrw_max=1000, use_pda=False,
+             pda_tables=None, check_frequency=0.0, spectrum_bins=None,
+             verbose=True, iteration_callback=None):
     """Run n_iterations Lucy iterations (or until converged) on one device.
 
     ``density`` is (n_dust, n_cells) in engine units; ``generator`` is the
     ``torch.Generator`` on the density's device that every step draws from.
-    ``iteration_callback(it, specific_energy, density, n_photons_cell,
-    stats)`` gets numpy arrays after each iteration."""
+    ``initial_specific_energy`` seeds the first iteration's emissivities;
+    ``additional_specific_energy`` is added to every iteration's estimate
+    (ref grid_physics_3d.f90:213-240,530-541); both are (n_dust, n_cells).
+    ``use_mrw`` turns the modified random walk on, its tables made each
+    iteration from the current specific energy; ``use_pda`` with
+    ``pda_tables`` (:func:`.pda.build_pda_tables`) fills photon-starved
+    cells by diffusion; ``spectrum_bins`` are frequency bin edges (Hz) of
+    the frequency-resolved specific energy. ``iteration_callback(it,
+    specific_energy, density, n_photons_cell, specific_energy_spectrum,
+    stats)`` gets numpy arrays after each iteration (the spectrum None
+    without bins)."""
     if n_photons >= 2 ** 31 - 1:
         raise ValueError("n_photons = %d: photon ids are int32, so an "
                          "iteration holds fewer than 2**31 - 1 photons"
                          % n_photons)
     n_dust, n_cells = density.shape
-    specific_energy = torch.zeros_like(density)
+    dtype, device = density.dtype, density.device
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, float), dtype=dtype,
+                               device=device)
+
+    specific_energy = torch.zeros_like(density) \
+        if initial_specific_energy is None else \
+        tensor(initial_specific_energy)
+    if additional_specific_energy is not None:
+        additional_specific_energy = tensor(additional_specific_energy)
     config = dict(n_inter_max=n_inter_max, kill_on_scatter=kill_on_scatter,
-                  kill_on_absorb=kill_on_absorb,
+                  kill_on_absorb=kill_on_absorb, n_mrw_max=n_mrw_max,
+                  n_reabs_max=n_reabs_max,
+                  # the re-absorption branch only where a source can
+                  # intersect photon paths
+                  source_intersect=st.any_intersect,
                   check_frequency=check_frequency, max_steps=max_steps)
+    spec_bins = spec_bin_frac = None
+    if spectrum_bins is not None:
+        edges = np.asarray(spectrum_bins, float)
+        spec_bins = tensor(np.log2(np.maximum(edges, 1e-300)))
+        if use_mrw:
+            spec_bin_frac = tensor(spectrum_bin_fractions(dt, edges))
 
     se_prev = None
     value_prev = None
@@ -175,13 +231,17 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
     stats = dict(killed_int=0, killed_geo=0, n_steps=0, n_events=0,
                  energy_current=0.0)
     n_photons_cell = np.zeros(n_cells, dtype=np.int64)
+    se_spectrum = None
     it = 0
     for it in range(1, n_iterations + 1):
         jnu_var_id, jnu_var_frac = compute_jnu_var(dt, specific_energy)
+        mrw = prepare_mrw_tables(dt, density, specific_energy, mrw_gamma) \
+            if use_mrw else None
         energy_sum, energy_current, npc, killed_int, killed_geo, n_steps, \
-            _, n_events = run_lucy_iteration(
+            energy_sum_spec, n_events = run_lucy_iteration(
                 geometry, dt, st, density, jnu_var_id, jnu_var_frac,
-                generator, n_photons, batch_size, config)
+                generator, n_photons, batch_size, config, mrw=mrw,
+                spec_bins=spec_bins, spec_bin_frac=spec_bin_frac)
         n_photons_cell = npc.cpu().numpy()
 
         # host float64 for the combined scale; engine lengths carry one
@@ -190,9 +250,28 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
             / geometry.length_scale ** 2
         specific_energy = normalize_specific_energy(energy_sum, scale,
                                                     geometry.volumes)
+        if spec_bins is not None:
+            # the same luminosity and volume normalization per bin
+            nb = energy_sum_spec.shape[1]
+            se_spectrum = normalize_specific_energy(
+                energy_sum_spec.reshape(n_dust * nb, n_cells), scale,
+                geometry.volumes).reshape(n_dust, nb, n_cells).cpu().numpy()
+        if additional_specific_energy is not None:
+            specific_energy = specific_energy + additional_specific_energy
         specific_energy = enforce_energy_limits(
             dt, specific_energy, minimum_specific_energy,
             enforce_energy_range)
+        if use_pda and pda_tables is not None:
+            # diffusion fill-in of photon-starved cells, on the host (ref
+            # iter_lucy.f90:228 solve_pda)
+            rho_phys = density.cpu().numpy().astype(float) / \
+                geometry.length_scale
+            se_fixed, n_pda = solve_pda(
+                pda_tables, dt, rho_phys,
+                specific_energy.cpu().numpy().astype(float), n_photons_cell)
+            if verbose and n_pda:
+                print("[pda] corrected %d photon-starved cells" % n_pda)
+            specific_energy = tensor(se_fixed)
         density, specific_energy = sublimate_dust(
             dt, density, specific_energy, minimum_specific_energy)
         specific_energy = enforce_energy_limits(
@@ -209,7 +288,7 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
         se_np = specific_energy.cpu().numpy()
         if iteration_callback is not None:
             iteration_callback(it, se_np, density.cpu().numpy(),
-                               n_photons_cell,
+                               n_photons_cell, se_spectrum,
                                stats=dict(stats, batch_size=batch_size))
 
         if check_convergence and se_prev is not None:
@@ -235,4 +314,5 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
         energy_current=stats['energy_current'],
         killed_int=stats['killed_int'], killed_geo=stats['killed_geo'],
         n_steps=stats['n_steps'], n_events=stats['n_events'],
-        converged=converged, iterations=it)
+        converged=converged, iterations=it,
+        specific_energy_spectrum=se_spectrum)

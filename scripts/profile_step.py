@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where a transport step of the port spends its time, on one card.
 
-    python3 scripts/profile_step.py [--warmup 20] [--steps 40]
+    python3 scripts/profile_step.py [--model tutorial|yso_thick]
+                                    [--warmup 20] [--steps 40]
 
 Builds the tutorial model (examples/quickstart.py without its peeled
 image: 32^3 cells, 500,000 photons, B = 125,000) with the port's front
-end, takes ``--warmup`` steps of its first Lucy iteration, then profiles
+end, or bench.py's yso_thick configuration (64 x 32 spherical-polar
+cells, MRW, a re-absorbing star, B = 4,096; chip_smoke.yso_thick_engine),
+takes ``--warmup`` steps of its first Lucy iteration, then profiles
 ``--steps`` steps with torch.profiler (CPU and CUDA activities) and times
 as many unprofiled steps with the host clock around work that ends in a
 synchronise. Prints one JSON object: device kernels and their launches
@@ -29,17 +32,22 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import card_line, tutorial_engine
+    from chip_smoke import card_line, tutorial_engine, yso_thick_engine
 
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--model', choices=['tutorial', 'yso_thick'],
+                    default='tutorial')
     ap.add_argument('--warmup', type=int, default=20)
     ap.add_argument('--steps', type=int, default=40)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('profile_step: needs an NVIDIA card', file=sys.stderr)
         return 1
-    batch = 125_000
-    carry, step, gen, geo = tutorial_engine(batch, args.warmup)
+    if args.model == 'tutorial':
+        carry, step, gen, geo = tutorial_engine(warmup=args.warmup)
+    else:
+        carry, step, gen, geo = yso_thick_engine(warmup=args.warmup)
+    batch = carry.packets.x.shape[0]
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -68,7 +76,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     n = args.steps
     out = dict(
-        card=card_line(), torch=torch.__version__, B=batch,
+        card=card_line(), torch=torch.__version__, model=args.model, B=batch,
         n_cells=geo.n_cells, steps=n, alive_after=carry.n_alive,
         device_launches_per_step=launches / n,
         device_busy_ms_per_step=busy_us / n / 1e3,

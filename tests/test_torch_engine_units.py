@@ -2,7 +2,9 @@
 uniforms: each JAX function draws from its key, and the test draws the same
 uniforms from that key, following the function's own split sequence, and
 hands them to the port. Floats match to rtol 1e-12; integer outputs and
-masks are equal."""
+masks are equal. The YSO path's pieces too: sphere, limb and spot
+emission, source intersections, the MRW tables and move, and the host
+copies of the spectrum-bin fractions and the PDA solver."""
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from hyperion_tpu_torch.transport import engine as te
 from hyperion_tpu_torch.transport.dtable import build_dust_tables
 from hyperion_tpu_torch.transport.stable import (build_source_tables,
                                                  emit_packets)
+from hyperion_tpu_torch.util.constants import au, lsun
 from test_torch_frontend import frontend, point_sources
 
 torch.set_num_threads(1)
@@ -159,3 +162,202 @@ def test_emit_packets_point_sources():
     for k in ('x', 'y', 'z', 'kx', 'ky', 'kz', 'nu', 'energy'):
         np.testing.assert_allclose(port[k].numpy(), np.asarray(ref[k]),
                                    rtol=RTOL, atol=1e-15, err_msg=k)
+
+
+# ---- the YSO path: spherical sources, MRW, spectrum bins, PDA ----
+
+def _sphere_sources(package):
+    from test_torch_tables import star_with_spots
+    star, point = star_with_spots(package)
+    plain = frontend(package).SphericalSource(
+        luminosity=0.5 * lsun, temperature=3000.0, radius=1e12,
+        position=(-0.3 * au, 0.2 * au, 0.1 * au))
+    return [star, point, plain]
+
+
+@pytest.fixture(scope='module')
+def spheres():
+    kw = dict(length_scale=au, sample_evenly=False)
+    jst = j_sources(_sphere_sources('jax'), dtype=F64, **kw)
+    pst = build_source_tables(_sphere_sources('port'), torch.device('cpu'),
+                              torch.float64, **kw)
+    return jst, pst
+
+
+def _emit_uniforms(key):
+    """The uniforms JAX's emit_packets draws from ``key``, in the port's
+    order: (u_src, u_nu, u_mu, u_phi), (u_cap, u_cap_phi, u_out,
+    u_out_phi)."""
+    k_src, k_nu, k_dir, k_pos, _ = jax.random.split(key, 5)
+    k_cap1, k_cap2 = jax.random.split(k_pos)
+    k1, k2 = jax.random.split(k_dir)
+    k_mu, k_phi = jax.random.split(k1)
+    u = [_t(_uniform(k)) for k in (k_src, k_nu, k_mu, k_phi)]
+    return u, tuple(_t(_uniform(k)) for k in (
+        k_cap1, k_cap2, k2, jax.random.fold_in(k2, 1)))
+
+
+@pytest.mark.parametrize('reemit', [False, True])
+def test_emit_packets_spheres_limb_spots(spheres, reemit):
+    """Point, limb-darkened spotted and plain sphere rows: surface points
+    (on the spots' caps), outward cosine-law or limb-darkened directions;
+    with ``src`` given, the re-emission from those rows."""
+    jst, pst = spheres
+    key = jax.random.PRNGKey(6)
+    src = np.random.default_rng(7).integers(0, pst.n_sources, B) \
+        if reemit else None
+    ref = j_emit(jst, key, B, F64,
+                 src=None if src is None else jnp.asarray(src))
+    u, u_sphere = _emit_uniforms(key)
+    port = emit_packets(pst, *u, u_sphere,
+                        src=None if src is None else _t(src))
+    for k in ('x', 'y', 'z', 'kx', 'ky', 'kz', 'nu', 'energy'):
+        np.testing.assert_allclose(port[k].numpy(), np.asarray(ref[k]),
+                                   rtol=RTOL, atol=1e-15, err_msg=k)
+    # every row was drawn, and sphere photons leave their surface outward
+    rows = np.asarray(ref['source'])
+    assert len(np.unique(rows)) == pst.n_sources
+    pos = np.stack([port[k].numpy() for k in 'xyz'])
+    k = np.stack([port[k].numpy() for k in ('kx', 'ky', 'kz')])
+    normal = pos - pst.position.numpy()[rows].T
+    sphere = pst.type_code.numpy()[rows] == 2
+    assert (np.einsum('ij,ij->j', normal, k)[sphere] >= 0).all()
+
+
+def test_nearest_source_intersection(spheres):
+    """Rays from around the spheres, from their surfaces (the 1e-3 radius
+    exclusion) and from far away, toward and away from them."""
+    from hyperion_tpu.transport.stable import \
+        nearest_source_intersection as j_near
+    from hyperion_tpu_torch.transport.stable import \
+        nearest_source_intersection
+    jst, pst = spheres
+    rng = np.random.default_rng(8)
+    rows = rng.choice(np.where(pst.intersect.numpy())[0], B)
+    centre = pst.position.numpy()[rows]
+    d = rng.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=1)[:, None]
+    dist = pst.radius.numpy()[rows] * np.where(rng.random(B) < 0.3, 1.0,
+                                               rng.uniform(1.0, 30.0, B))
+    pos = centre + d * dist[:, None]
+    k = -d + rng.normal(scale=0.3, size=(B, 3))
+    k[rng.random(B) < 0.3] *= -1.0
+    k /= np.linalg.norm(k, axis=1)[:, None]
+    t_j, row_j = j_near(jst, *(jnp.asarray(a) for a in (*pos.T, *k.T)))
+    t_p, row_p = nearest_source_intersection(pst, *(_t(a)
+                                                    for a in (*pos.T, *k.T)))
+    np.testing.assert_allclose(t_p.numpy(), np.asarray(t_j), rtol=RTOL)
+    hit = np.asarray(t_j) < 1e300
+    assert 0.1 < hit.mean() < 0.9
+    np.testing.assert_array_equal(row_p.numpy()[hit], np.asarray(row_j)[hit])
+
+
+@pytest.fixture(scope='module')
+def mrw_tables(setup):
+    from hyperion_tpu.transport.mrw import prepare_mrw_tables as j_prepare
+    from hyperion_tpu_torch.convert import mrw_tables_from_numpy
+    from hyperion_tpu_torch.transport.mrw import prepare_mrw_tables
+    jt, pt, _ = setup
+    rng = np.random.default_rng(9)
+    density = rng.uniform(0.0, 50.0, (2, 300))
+    density[:, :20] = 0.0
+    se = 10 ** rng.uniform(-4, 6, (2, 300))
+    ref = j_prepare(jt, jnp.asarray(density), jnp.asarray(se), 1.5, F64)
+    port = prepare_mrw_tables(pt, _t(density), _t(se), 1.5)
+    return ref, port, mrw_tables_from_numpy(
+        {k: np.asarray(v) for k, v in ref._asdict().items()},
+        torch.device('cpu'), torch.float64)
+
+
+def test_prepare_mrw_tables_and_sample_min09(mrw_tables):
+    from hyperion_tpu.transport.mrw import sample_min09 as j_sample
+    from hyperion_tpu_torch.transport.mrw import sample_min09
+    ref, port, carried = mrw_tables
+    for k in ('alpha_inv_planck', 'kappa_planck', 'x_grid'):
+        _close(getattr(port, k), getattr(ref, k))
+        np.testing.assert_array_equal(getattr(carried, k).numpy(),
+                                      np.asarray(getattr(ref, k)))
+    assert port.gamma == carried.gamma == 1.5
+    key = jax.random.PRNGKey(10)
+    _close(sample_min09(port, _t(_uniform(key))),
+           j_sample(ref, key, (B,), F64))
+
+
+def test_mrw_jump_update(setup, mrw_tables):
+    jt, pt, lanes = setup
+    ref_t, _, port_t = mrw_tables
+    rng = np.random.default_rng(11)
+    chi = je.update_optical_constants(jt, jnp.asarray(lanes['nu']))[0]
+    cell = rng.integers(0, 300, B)
+    args = dict(
+        mrw_now=rng.random(B) < 0.5, x=rng.normal(size=B),
+        y=rng.normal(size=B), z=rng.normal(size=B),
+        energy=rng.uniform(0.5, 2.0, B), d_close=rng.uniform(0, 0.1, B),
+        alpha_inv=np.asarray(ref_t.alpha_inv_planck)[cell],
+        kappa_p_rows=np.asarray(ref_t.kappa_planck).T[cell])
+    keys = jax.random.split(jax.random.PRNGKey(12), 5)
+    rows = [lanes[k] for k in ('rho_rows', 'vid_rows', 'vfrac_rows')]
+    ref = je.mrw_jump_update(
+        jt, ref_t, tuple(keys), jnp.asarray(args['mrw_now']),
+        *(jnp.asarray(args[k]) for k in ('x', 'y', 'z', 'energy')), chi,
+        *(jnp.asarray(args[k]) for k in ('d_close', 'alpha_inv',
+                                           'kappa_p_rows')),
+        *(jnp.asarray(r) for r in rows), F64)
+    k1, k2, k3, k4, k5 = keys
+    u = [_uniform(k1), *(_uniform(k) for k in jax.random.split(k2)),
+         *(_uniform(k) for k in jax.random.split(k3)), _uniform(k4),
+         *(_uniform(k) for k in jax.random.split(k5))]
+    port = te.mrw_jump_update(
+        pt, port_t, [_t(v) for v in u], _t(args['mrw_now']),
+        *(_t(args[k]) for k in ('x', 'y', 'z', 'energy')), _t(chi),
+        *(_t(args[k]) for k in ('d_close', 'alpha_inv', 'kappa_p_rows')),
+        *(_t(r) for r in rows))
+    deps, *rest = ref
+    _close(port[0], np.stack(deps, axis=-1))
+    assert (np.stack(deps)[:, ~args['mrw_now']] == 0).all()
+    assert (np.stack(deps) > 0).any()
+    for a, b in zip(port[1:4], rest[0:3]):
+        _close(a, b)
+    for a, b in zip(port[4], rest[3]):
+        _close(a, b)
+    for a, b in zip(port[5:], rest[4:]):
+        _close(a, b)
+
+
+def test_spectrum_bin_fractions(setup):
+    from hyperion_tpu.transport.lucy import spectrum_bin_fractions as j_frac
+    from hyperion_tpu_torch.transport.lucy import spectrum_bin_fractions
+    jt, pt, _ = setup
+    edges = np.logspace(9, 17, 7)
+    ref = j_frac(jt, edges)
+    np.testing.assert_allclose(spectrum_bin_fractions(pt, edges), ref,
+                               rtol=RTOL, atol=1e-300)
+    assert (ref.sum(axis=1) > 0.5).all()
+
+
+@pytest.mark.parametrize('n_cells_starved', [12, 30])
+def test_solve_pda(setup, n_cells_starved):
+    """The same fields into both copies of solve_pda, on a spherical-polar
+    grid: the photon-starved cells' specific energies match."""
+    from hyperion_tpu.transport.pda import build_pda_tables as j_tables
+    from hyperion_tpu.transport.pda import solve_pda as j_solve
+    from hyperion_tpu_torch.transport.pda import build_pda_tables, solve_pda
+    jt, pt, _ = setup
+
+    def grid(package):
+        return frontend(package).SphericalPolarGrid(
+            np.hstack([0.0, np.geomspace(1e12, 1e14, 12)]),
+            np.linspace(0.0, np.pi, 9), np.linspace(0.0, 2 * np.pi, 4))
+
+    rng = np.random.default_rng(13)
+    n_cells = 12 * 8 * 3
+    density = rng.uniform(1e-19, 1e-17, (2, n_cells))
+    se = 10 ** rng.uniform(-2, 3, (2, n_cells))
+    n_phot = rng.integers(40, 400, n_cells)
+    n_phot[rng.choice(n_cells, n_cells_starved, replace=False)] = 3
+    ref, n_ref = j_solve(j_tables(grid('jax')), jt, density, se, n_phot)
+    port, n_port = solve_pda(build_pda_tables(grid('port')), pt, density,
+                             se, n_phot)
+    assert n_port == n_ref > 0
+    np.testing.assert_allclose(port, ref, rtol=RTOL)
+    assert (port != se).any()

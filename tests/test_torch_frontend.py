@@ -40,11 +40,18 @@ def frontend(package):
     dust, grid, sources = mod('dust'), mod('grid'), mod('sources')
     model, const = mod('model'), mod('util.constants')
     return SimpleNamespace(
-        IsotropicDust=dust.IsotropicDust, CartesianGrid=grid.CartesianGrid,
+        IsotropicDust=dust.IsotropicDust,
+        HenyeyGreensteinDust=dust.HenyeyGreensteinDust,
+        CartesianGrid=grid.CartesianGrid,
+        SphericalPolarGrid=grid.SphericalPolarGrid,
+        CylindricalPolarGrid=grid.CylindricalPolarGrid,
         PointSource=sources.PointSource,
         PointSourceCollection=sources.PointSourceCollection,
-        SphericalSource=sources.SphericalSource, Model=model.Model,
-        ModelOutput=model.ModelOutput, au=const.au, lsun=const.lsun)
+        SphericalSource=sources.SphericalSource,
+        ExternalSphericalSource=sources.ExternalSphericalSource,
+        Model=model.Model, AnalyticalYSOModel=model.AnalyticalYSOModel,
+        ModelOutput=model.ModelOutput, densities=mod('densities'),
+        au=const.au, lsun=const.lsun, rsun=const.rsun, msun=const.msun)
 
 
 def tutorial_model(package, n=32, n_photons=500_000, iterations=4,
@@ -120,9 +127,41 @@ def two_dust_model(package, n=6, n_photons=4000):
     return m
 
 
+def class2_model(package, n_r=24, n_t=8, n_photons=200, iterations=1,
+                 seed=-1234):
+    """examples/class2_sed.py without its peeled SED: an AnalyticalYSOModel
+    of a flared disk around a 2 Rsun star, HG dust, an auto spherical-polar
+    grid (96 x 32 x 1 in the example), MRW with gamma 2."""
+    F = frontend(package)
+    nu = np.logspace(8, 17, 64)
+    dust = F.HenyeyGreensteinDust(nu, np.repeat(0.5, 64),
+                                  np.repeat(400.0, 64), np.repeat(0.4, 64),
+                                  np.repeat(0.8, 64))
+    m = F.AnalyticalYSOModel()
+    m.star.luminosity = F.lsun
+    m.star.radius = 2.0 * F.rsun
+    m.star.temperature = 4300.0
+    disk = m.add_flared_disk()
+    disk.mass = 1e-3 * F.msun
+    disk.rmin = 0.1 * F.au
+    disk.rmax = 200.0 * F.au
+    disk.r_0 = 10.0 * F.au
+    disk.h_0 = 0.4 * F.au
+    disk.p = -1.0
+    disk.beta = 1.25
+    disk.dust = dust
+    m.set_spherical_polar_grid_auto(n_r, n_t, 1)
+    m.set_mrw(True, gamma=2.0)
+    m.set_n_initial_iterations(iterations)
+    m.set_n_photons(initial=n_photons, imaging=0)
+    m.set_seed(seed)
+    return m
+
+
 MODELS = {'tutorial': lambda pkg: tutorial_model(pkg, n=8, n_photons=3000,
                                                  iterations=1),
-          'two_dusts_collection': two_dust_model}
+          'two_dusts_collection': two_dust_model,
+          'class2_yso': class2_model}
 
 # attributes that name the writing package or the time of writing
 _UNCOMPARED = ('python_version', 'date_started', 'date_ended')
@@ -185,6 +224,77 @@ def test_model_run_rtout_reads_alike(tmp_path):
     t = np.asarray(grids[0]['temperature'].array)
     assert t.shape == (2,) + m.grid.shape
     assert np.isfinite(t).all() and (t > 0).all()
+
+
+def test_yso_model_runs_on_the_cpu(tmp_path):
+    """The port's AnalyticalYSOModel (class2 at 24 x 8 x 1, MRW, a
+    spherical star that re-absorbs) runs through its own run() on the CPU:
+    nothing killed, temperatures finite and positive in dusty
+    cells."""
+    m = class2_model('port', iterations=2)
+    model = m.write(str(tmp_path / 'c2.rtin'))
+    out = m.run(str(tmp_path / 'c2.rtout'), device='cpu', batch_size=256)
+    with h5py.File(tmp_path / 'c2.rtout', 'r') as f:
+        for g in ('iteration_00001', 'iteration_00002'):
+            assert f[g].attrs['killed_photons_geo'] == 0
+            assert f[g].attrs['killed_photons_int'] == 0
+    grid = out.get_quantities()
+    t = np.asarray(grid['temperature'][0].array)
+    dusty = np.asarray(model.grid['density'][0].array) > 0
+    assert np.isfinite(t).all()
+    assert dusty.sum() > 30 and (t[dusty] > 0.0).all()
+
+
+def _structures(package, grid):
+    """Every density class of the densities package on ``grid`` (the
+    ambient medium on a spherical-polar grid only)."""
+    D = frontend(package).densities
+    F = frontend(package)
+    star = type('Star', (), {'mass': F.msun, 'radius': F.rsun})()
+    yr = 365.25 * 24 * 3600
+    flared = D.FlaredDisk(mass=0.01 * F.msun, rmin=0.5 * F.au,
+                          rmax=100 * F.au, r_0=F.au, h_0=0.5 * F.au)
+    alpha = D.AlphaDisk(mass=0.01 * F.msun, rmin=5 * F.rsun,
+                        rmax=50 * F.au, r_0=F.au, h_0=0.5 * F.au,
+                        mdot=1e-7 * F.msun / yr, star=star)
+    power = D.PowerLawEnvelope(mass=0.1 * F.msun, rmin=0.5 * F.au,
+                               rmax=400 * F.au, r_0=F.au, power=-1.5)
+    cav = power.add_bipolar_cavity()
+    cav.theta_0, cav.power, cav.r_0, cav.rho_0 = 20.0, 1.5, 100 * F.au, 1e-20
+    ulrich = D.UlrichEnvelope(mdot=1e-6 * F.msun / yr, rc=50 * F.au,
+                              rmin=0.5 * F.au, rmax=400 * F.au, star=star)
+    out = {'flared': flared.density(grid), 'alpha': alpha.density(grid),
+           'power_law_with_cavity': power.density(grid),
+           'cavity': cav.density(grid), 'ulrich': ulrich.density(grid),
+           'flared_column': flared.midplane_cumulative_density(
+               np.array([F.au, 10 * F.au]))}
+    if isinstance(grid, F.SphericalPolarGrid):
+        # an ambient medium takes spherical-polar grids only
+        out['ambient'] = D.AmbientMedium(
+            rho=1e-21, rmin=0.5 * F.au, rmax=400 * F.au,
+            subtract=[power]).density(grid)
+    return out
+
+
+@pytest.mark.parametrize('kind', ['spherical', 'cylindrical'])
+def test_densities_equal_jax(kind):
+    def grid(package):
+        F = frontend(package)
+        if kind == 'spherical':
+            return F.SphericalPolarGrid(
+                np.hstack([0.0, np.geomspace(0.05 * F.au, 500 * F.au, 40)]),
+                np.linspace(0, np.pi, 17), np.array([0.0, 2 * np.pi]))
+        return F.CylindricalPolarGrid(
+            np.hstack([0.0, np.geomspace(0.05 * F.au, 500 * F.au, 40)]),
+            np.linspace(-100 * F.au, 100 * F.au, 21),
+            np.linspace(0.0, 2 * np.pi, 3))
+
+    ref = _structures('jax', grid('jax'))
+    port = _structures('port', grid('port'))
+    assert sorted(port) == sorted(ref)
+    for name, rho in ref.items():
+        assert np.asarray(rho).any(), name
+        np.testing.assert_array_equal(port[name], rho, err_msg=name)
 
 
 def test_model_run_refuses_multi_device(tmp_path):

@@ -1,7 +1,8 @@
 """The port's cartesian geometry against the JAX package's on the same
 rays (JAX x64, torch float64): seeded rays, rays exactly on walls, edges and
 vertices, and rays with zero direction components. Cells and axes must be
-equal and distances match to rtol 1e-14. Then the zero-killed placement
+equal, wall distances match to rtol 1e-14 and closest-wall distances are
+equal. Then the zero-killed placement
 cases of tests/test_propagation.py through the port's run_lucy."""
 
 import numpy as np
@@ -75,6 +76,11 @@ def test_find_cell_find_wall_snap_in_cell():
     np.testing.assert_array_equal(next_p.numpy(), np.asarray(next_j))
     np.testing.assert_array_equal(ax_p.numpy(), np.asarray(ax_j))
     np.testing.assert_array_equal(wc_p.numpy(), np.asarray(wc_j))
+
+    # the MRW trigger's distance
+    np.testing.assert_array_equal(
+        pg.closest_wall_distance(cell_p[sel], *args_p[:3]).numpy(),
+        np.asarray(jg.closest_wall_distance(cj, *args_j[:3])))
 
     crossed = np.random.default_rng(22).random(len(sel)) < 0.5
     snap_j = jg.snap(*args_j[:3], ax_j, wc_j, jnp.asarray(crossed))

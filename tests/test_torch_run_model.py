@@ -164,19 +164,23 @@ def _peeled(m):
     m.add_peeled_images(sed=True, image=False)
 
 
-def _mrw(m):
-    m.set_mrw(True)
+def _binned(m):
+    m.add_binned_images(sed=True, image=False)
 
 
-def _pda(m):
-    m.set_pda(True)
+def _cylindrical(m):
+    dust = m.dust[0]
+    m.set_cylindrical_polar_grid(np.linspace(0.0, 1e14, 5),
+                                 np.linspace(-1e14, 1e14, 5),
+                                 [0.0, 2 * np.pi])
+    m.add_density_grid(np.full(m.grid.shape, 1e-18), dust)
 
 
-def _spherical_source(m):
-    s = m.add_spherical_source()
+def _external_spherical_source(m):
+    s = m.add_external_spherical_source()
     s.luminosity = lsun
     s.temperature = 5000.0
-    s.radius = 1e11
+    s.radius = 1e15
 
 
 def test_jax_model_is_refused(tmp_path):
@@ -186,7 +190,8 @@ def test_jax_model_is_refused(tmp_path):
                   device='cpu')
 
 
-@pytest.mark.parametrize('change', [_peeled, _mrw, _pda, _spherical_source])
+@pytest.mark.parametrize('change', [_peeled, _binned, _cylindrical,
+                                    _external_spherical_source])
 def test_outside_the_slice_raises(change, tmp_path):
     m = tutorial_model()
     change(m)
@@ -207,3 +212,30 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_initial_and_additional_specific_energy():
+    """A specific energy in the grid seeds the first iteration's
+    emissivities ('initial'); with 'additional' it is also added to every
+    iteration's estimate (ref grid_physics_3d.f90:213-240,530-541). With
+    the same seed the two runs' Monte-Carlo parts are the same, so they
+    differ by exactly the added field."""
+    def run(kind):
+        m = tutorial_model()
+        m.set_n_initial_iterations(1)
+        add = np.random.default_rng(5).uniform(1e4, 3e4, m.grid.shape)
+        dust = m.dust[0]
+        m.grid['density'] = []
+        m.dust = []
+        m.add_density_grid(np.full(m.grid.shape, 3e-17), dust,
+                           specific_energy=add)
+        m.set_specific_energy_type(kind)
+        return run_lucy_model(m, device='cpu', batch_size=2048), add
+
+    initial, add = run('initial')
+    additional, _ = run('additional')
+    se_i = initial.result.specific_energy[0]
+    se_a = additional.result.specific_energy[0]
+    assert initial.result.energy_current == 20000.0
+    assert (se_i > 0).all()
+    np.testing.assert_allclose(se_a, se_i + add.reshape(-1), rtol=1e-12)

@@ -78,10 +78,28 @@ def _collection_and_point(package):
     return [c, s]
 
 
+def star_with_spots(package, limb=True):
+    """A limb-darkened 2 Rsun star with two spots of their own spectra,
+    beside a point source (the spots' rows share the star's group)."""
+    F = frontend(package)
+    star = F.SphericalSource(luminosity=lsun, temperature=4300.0,
+                             radius=2 * F.rsun, limb=limb,
+                             position=(0.5 * au, 0.0, -0.2 * au))
+    for lon, lat, size, temp in ((30.0, 10.0, 20.0, 8000.0),
+                                 (200.0, -45.0, 5.0, 9000.0)):
+        spot = star.add_spot()
+        spot.longitude, spot.latitude, spot.radius = lon, lat, size
+        spot.luminosity = 0.1 * lsun
+        spot.temperature = temp
+    return [star, F.PointSource(luminosity=2 * lsun, temperature=6000.0)]
+
+
 @pytest.mark.parametrize('make,evenly', [
     (_tutorial_source, False),
     (_collection_and_point, False),
     (_collection_and_point, True),
+    (star_with_spots, False),
+    (star_with_spots, True),
 ])
 def test_source_tables_equal_jax(make, evenly):
     L = 50 * au
@@ -94,8 +112,8 @@ def test_source_tables_equal_jax(make, evenly):
 
 def test_source_tables_refuse_other_sources():
     for package in ('port', 'jax'):
-        s = frontend(package).SphericalSource(luminosity=lsun,
-                                              temperature=5000.0, radius=1e11)
+        s = frontend(package).ExternalSphericalSource(
+            luminosity=lsun, temperature=5000.0, radius=1e11)
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             build_source_tables([s], CPU, F64)
 
@@ -110,3 +128,39 @@ def test_geometry_tables_equal_jax(walls):
                      dtype=jnp.float64)
     _assert_fields_equal(build_cartesian_geometry(
         frontend('port').CartesianGrid(*walls), CPU, F64), ref)
+
+
+def test_tables_from_numpy_carry_the_yso_tables():
+    """convert.tables_from_numpy carries the JAX dust, spherical-source and
+    spherical-polar geometry tables into the port's, equal to the port's
+    own builds."""
+    from hyperion_tpu.transport.gtable_spherical import \
+        build_spherical_geometry as j_spherical
+    from hyperion_tpu_torch.convert import tables_from_numpy
+    from hyperion_tpu_torch.transport.gtable_spherical import \
+        build_spherical_geometry
+
+    def grid(package):
+        return frontend(package).SphericalPolarGrid(
+            np.hstack([0.0, np.geomspace(au, 100 * au, 9)]),
+            np.linspace(0.0, np.pi, 7), np.linspace(0.0, 2 * np.pi, 3))
+
+    jg = j_spherical(grid('jax'), dtype=jnp.float64)
+    L = jg.length_scale
+    jax_tables = [j_dust([lte_dust('jax')], dtype=jnp.float64),
+                  j_sources(star_with_spots('jax'), dtype=jnp.float64,
+                            length_scale=L), jg]
+
+    def fields(t):
+        items = t._asdict().items() if hasattr(t, '_asdict') else \
+            ((f.name, getattr(t, f.name)) for f in dataclasses.fields(t))
+        return {k: np.asarray(v) for k, v in items}
+
+    carried = tables_from_numpy(*map(fields, jax_tables), CPU, F64)
+    built = (build_dust_tables([lte_dust('port')], CPU, F64),
+             build_source_tables(star_with_spots('port'), CPU, F64,
+                                 length_scale=L),
+             build_spherical_geometry(grid('port'), CPU, F64))
+    for mine, theirs in zip(built, carried):
+        assert type(mine) is type(theirs)
+        _assert_fields_equal(mine, theirs)
