@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. the card and the software: name and power limit, torch, CUDA, nvcc;
-2. build the deposit_visit kernel from hyperion_tpu_torch/transport/csrc;
+2. build the deposit_visit and escape_tau kernels from
+   hyperion_tpu_torch/transport/csrc, one nvcc per source, all at once;
 3. the kernel against its plain PyTorch version, counts and uids equal and
    float32 energies within rtol 1e-4 of a float64 plain run (the kernel's
    float atomics and in-warp sums add in another, run-dependent order):
@@ -25,15 +26,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    call (host clock around ~1,000 eager calls, before the synchronise), the
    plain version's time, the deposits-only index_add_ yardstick and the
    bound;
-4. the slice: examples/quickstart.py without its peeled image (32^3 cells,
-   4 Lucy iterations of 500,000 photons) built with the port's own Model
-   and run on the card by run_lucy_model, the port's run_model without the
-   .rtout file (the card's machine has no h5py; the tests check the file on
-   the CPU); the kernel's launch count is reset just before and read just
-   after;
+4. the slice: examples/quickstart.py whole (32^3 cells, 4 Lucy iterations
+   of 500,000 photons, then 1,000,000 imaging photons with forced first
+   interaction into its peeled 128 x 128 image and SED of 60 wavelengths
+   at 45 degrees) built with the port's own Model and run on the card by
+   run_lucy_model, the port's run_model without the .rtout file (the
+   card's machine has no h5py; the tests check the file on the CPU):
+   nothing killed, energy_current the photon count, the SED and image
+   finite and >= 0, the band-integrated peeled luminosity (sum of nu L_nu
+   dln nu) within 2% of L_sun times the 6000 K blackbody's share of 0.3 to
+   1000 um (the box's tau is ~0.015), the imaging wall, steps, ms per step
+   and host reads per step (at most 1.05); both kernels' launch counts are
+   reset just before and read just after;
 5. physics on the card in float32: the optically thin inverse-square check
    of tests/test_engine_lucy.py, one iteration of bench.py's quickstart
-   configuration, and the host synchronisations per step;
+   configuration, the host synchronisations per step, and the binned-image
+   check of tests/test_binned_images.py:9-41 with that test's model (all
+   the emitted energy within 5%, each theta bin's flux in proportion to
+   its solid angle within 10%);
 6. deposit_visit on the very calls of 40 steps of bench.py's yso_thick
    configuration (a spherical star in the innermost shell, MRW lanes in the
    dense midplane, B = 4,096), refills included: against the plain
@@ -42,20 +52,33 @@ Phases, each of which raises on failure (exit code 1, no result line):
    photons, on 4^3 cells of 20 mean free paths): MRW on and off agree
    (median specific-energy ratio within 0.05), MRW takes fewer than 0.85 x
    the steps, nothing is killed;
-8. examples/class2_sed.py without its peeled SED, built with the port's
-   AnalyticalYSOModel (96 x 32 x 1 auto grid, MRW, a spherical star) and
-   run on the card by run_lucy_model, cut to 1 iteration of 200,000
-   photons capped at 8,000 steps (CLASS2_CUT): no geometry kills,
-   energy_current the photon count; per iteration wall, photons/s, steps,
-   ms per step, occupancy, killed_int and host syncs per step (at most
-   1.05);
+8. examples/class2_sed.py with its peeled SEDs at 20, 45 and 80 degrees,
+   built with the port's AnalyticalYSOModel (96 x 32 x 1 auto grid, MRW, a
+   spherical star) and run on the card by run_lucy_model, cut to 1 Lucy
+   iteration of 200,000 photons capped at 8,000 steps and 100,000 imaging
+   photons capped at 3,000 steps (CLASS2_CUT; lanes alive at a cap are
+   killed and counted in killed_int): no geometry kills, energy_current
+   the photon count, the SEDs finite and >= 0 and the 80 degree view
+   fainter than the 20 degree one at the shortest wavelength; per
+   iteration wall, photons/s, steps, ms per step, occupancy, killed_int and
+   host syncs per step (at most 1.05);
 9. bench.py's yso_thick configuration through transport.lucy.run_lucy as
-   bench.py calls it, cut to 1 iteration of 50,000 photons (bench.py: 2
+   bench.py calls it, cut to 1 iteration of 20,000 photons (bench.py: 2
    of 2,000,000; ``--yso-thick-photons N`` runs phases 1, 2 and 9 alone
    with 2 iterations of N photons): nothing killed, the steps per
-   iteration beside the JAX package's.
+   iteration beside the JAX package's;
+10. escape_tau against its plain version on the very walk calls of
+   imaging steps 1-20 and 41-60 (WALK_WINDOWS) of the quickstart
+   (cartesian, B = 125,000) and of class2 (spherical-polar, B = 50,000),
+   recorded from imaging_runner.run_imaging: in each window, the kernel
+   (which walks in float64) with float64 lanes within 1e-10 relative of
+   the float64 plain version on every lane, with float32 lanes within 1e-6
+   relative of it on every lane (ESCAPE_TAU_RTOL32 says why) and equal to
+   its own plain version; the longest walk's crossings, and the times:
+   device us per call (CUDA events), host us per call, the plain
+   version's, and the bound.
 
-The kernel's launch count is reset just before and read just after each
+Each kernel's launch count is reset just before and read just after each
 main-path run (phases 4, 8 and 9); the kernels line sums them.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
@@ -76,6 +99,9 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / 'chip_smoke_out'
 KERNEL_SOURCE = 'hyperion_tpu_torch/transport/csrc/deposit_visit.cu'
 REPLACES = 'hyperion_tpu/transport/pallas_ops.py:116'
+ESCAPE_TAU_SOURCE = 'hyperion_tpu_torch/transport/csrc/escape_tau.cu'
+# an XLA while_loop, not a Pallas kernel
+ESCAPE_TAU_REPLACES = 'hyperion_tpu/transport/imaging.py:465'
 # (B, n_cells): bench.py's quickstart (15^3 cells, 131,072 lanes), the
 # tutorial (32^3 cells, run.py's batch for 500,000 photons) and bench.py's
 # yso_thick (64 x 32 spherical-polar cells, 4,096 lanes)
@@ -87,22 +113,45 @@ TUTORIAL = (125000, 32768, 1)
 # class2, a step cap); grid, dust, densities, star and MRW stay as given.
 # bench.py:103-195, yso_thick: the run_lucy arguments, and the photons and
 # iterations chip_smoke runs (bench.py: 2 x 2,000,000, some 58,000 steps
-# each; 1 x 50,000 takes ~13,000; --yso-thick-photons runs it at bench size)
+# each; 1 x 50,000 takes ~12,600, 1 x 20,000 ~8,400, at 10-16 ms a step on
+# the H100: 20,000 since class2's imaging joined phase 8;
+# --yso-thick-photons runs it at bench size)
 YSO_THICK = dict(batch_size=4096, mrw_gamma=1.0, n_mrw_max=100000,
                  n_reabs_max=100, max_steps=100000)
-YSO_THICK_CUT = dict(n_photons=50_000, n_iterations=1)
+YSO_THICK_CUT = dict(n_photons=20_000, n_iterations=1)
 # examples/class2_sed.py as chip_smoke runs it: its 200,000 photons, 1 of
 # its 5 iterations, capped at 8,000 steps. The diffusion tail (photons deep
 # in the disk's inner rim, whose innermost shells are too thin for MRW
 # jumps) is heavy: on the H100 145-155 of the 200,000 photons were still
 # alive at 8,000 steps, and the iteration's occupancy was 5% at B = 50,000.
 # Lanes alive at the cap are killed and counted in killed_int.
-CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=8000)
+# Imaging is cut to 100,000 of its 500,000 photons, capped at 3,000 steps,
+# for the same diffusion tail.
+CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=8000,
+                  n_imaging=100_000, imaging_max_steps=3000)
 # the JAX package's yso_thick steps per iteration at B = 4,096
 # (BENCH_r05.json, TPU v5e): a property of the algorithm and the batch
 JAX_YSO_THICK_STEPS = 55580
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
+FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+FP64_FLOPS = 34e12             # H100 SXM float64 outside the tensor cores
 RTOL = 1e-4
+# escape_tau (phase 10) walks in float64 whatever its lanes' type. The
+# float64 kernel must equal the float64 plain version to 1e-10 on every lane:
+# that holds the kernel's logic. The float32 kernel (float32 lanes, chi rows
+# and density, as the engine keeps them) must be within 1e-6 tau of the
+# float64 plain version on the float64 density on every lane: the float32
+# rounding of each cell's density and of tau moves tau by at most ~1.2e-7,
+# and a wrong crossing moves it by a whole segment.
+ESCAPE_TAU_RTOL32 = 1e-6
+# phase 10's windows of imaging steps (indices from 0): the first 20 steps,
+# and steps 41-60, past the first refills, where class2's walks are the long
+# ones of its steady state (deep in the disk, grazing the cones)
+WALK_WINDOWS = ((0, 20), (40, 60))
+# the float64 operations of one crossing, counted from csrc/escape_tau.cu:
+# three plane distances and the move (cartesian); two spheres, two cones,
+# the nudged find_cell at the landing point (spherical-polar)
+FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120}
 
 
 def phase(msg):
@@ -655,8 +704,8 @@ def yso_calls_phase(dv, device, card):
 # ----------------------------------------------------------------- slice --
 
 def tutorial_model():
-    """examples/quickstart.py without its peeled image, with a fixed seed,
-    built with the port's own front end."""
+    """examples/quickstart.py with its peeled image and SED, with a fixed
+    seed, built with the port's own front end."""
     from hyperion_tpu_torch.dust import IsotropicDust
     from hyperion_tpu_torch.model import Model
     from hyperion_tpu_torch.util.constants import au, lsun
@@ -671,34 +720,123 @@ def tutorial_model():
     src = m.add_point_source()
     src.luminosity = lsun
     src.temperature = 6000.0
+    sed = m.add_peeled_images(sed=True, image=True)
+    sed.set_viewing_angles([45.0], [0.0])
+    sed.set_image_size(128, 128)
+    sed.set_image_limits(-lim, lim, -lim, lim)
+    sed.set_wavelength_range(60, 0.3, 1000.0)
+    sed.set_aperture_radii(1, 2 * lim, 2 * lim)
     m.set_n_initial_iterations(4)
-    m.set_n_photons(initial=500_000, imaging=0)
+    m.set_n_photons(initial=500_000, imaging=1_000_000)
     m.set_seed(20261016)
     return m
 
 
-def run_slice(dv, card):
+@contextlib.contextmanager
+def imaging_syncs():
+    """Count the host synchronisations of the imaging iteration
+    (``imaging.run_final``, table set-up included) with torch's sync debug
+    mode; yields the list of counts, one per run."""
+    import torch
+    from hyperion_tpu_torch.transport import imaging
+
+    counts = []
+    inner = imaging.run_final
+
+    def counted(*args, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                out = inner(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        counts.append(sum('synchroniz' in str(w.message) for w in caught))
+        return out
+
+    imaging.run_final = counted
+    try:
+        yield counts
+    finally:
+        imaging.run_final = inner
+
+
+def check_imaging(what, run, n_photons, syncs, card):
+    """The imaging row of a run: energy_current the photon count, no
+    geometry kills, at most 1.05 host reads per step, the peeled arrays
+    finite and >= 0. Returns the row with ms per step and reads per step."""
+    img = run.imaging
+    row = dict(run.perf.rows[-1])
+    if row['label'] != 'imaging' or img is None:
+        raise AssertionError('%s: no imaging iteration ran' % what)
+    if img.energy_current != n_photons:
+        raise AssertionError('%s imaging: energy_current %r'
+                             % (what, img.energy_current))
+    per_step = syncs[-1] / img.n_steps
+    if per_step > 1.05:
+        raise AssertionError('%s imaging: %.3f host reads per step'
+                             % (what, per_step))
+    for g in img.peeled:
+        for name, (data, _) in g['datasets'].items():
+            if not np.isfinite(data).all() or (data < 0).any():
+                raise AssertionError('%s imaging: %s not finite and >= 0'
+                                     % (what, name))
+    row.update(ms_per_step=img.wall * 1e3 / img.n_steps,
+               host_reads_per_step=per_step,
+               occupancy=img.n_events / (img.n_steps * img.batch_size))
+    phase('%s imaging: %d photons in %.3f s, %d steps, %.3f ms per step, '
+          '%.3f host reads per step, occupancy %.4f, killed_int %d [%s]'
+          % (what, n_photons, img.wall, img.n_steps, row['ms_per_step'],
+             per_step, row['occupancy'], img.killed_int, card))
+    return row
+
+
+def band_fraction(temperature, wav_min, wav_max):
+    """The share of a blackbody's luminosity between two wavelengths
+    (micron), over the port's own spectrum range of a ``temperature``
+    source (numpy, trapezoids on a fine log grid)."""
+    from hyperion_tpu_torch.util.constants import c
+    from hyperion_tpu_torch.util.functions import B_nu, planck_nu_range
+    nu_src = planck_nu_range(temperature)
+    nu = np.geomspace(nu_src.min(), nu_src.max(), 200001)
+    b = B_nu(nu, temperature)
+
+    def integral(sel):
+        x, y = nu[sel], b[sel]
+        return float(np.sum(0.5 * (y[1:] + y[:-1]) * np.diff(x)))
+
+    band = (nu >= c / (wav_max * 1e-4)) & (nu <= c / (wav_min * 1e-4))
+    return integral(band) / integral(np.ones_like(band))
+
+
+def run_slice(dv, et, card):
     """Phase 4: the tutorial through run_lucy_model, the port's run_model
-    without its .rtout file. Returns (launches, per-iteration rows, wall)."""
+    without its .rtout file: 4 Lucy iterations, then imaging. Returns
+    (deposit_visit launches, escape_tau launches, per-iteration rows,
+    wall, imaging report)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.util.constants import lsun
 
     m = tutorial_model()
     dv.launches = 0
+    et.launches = 0
     t0 = time.time()
-    run = run_lucy_model(m, device='cuda')
+    with imaging_syncs() as syncs:
+        run = run_lucy_model(m, device='cuda')
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dv.launches
+    launches_et = et.launches
 
     temp = run.result.temperature[0]
     dusty = run.density0[0] > 0
     if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
         raise AssertionError('temperatures not finite and > 0 in dusty cells')
-    if run.result.iterations != 4 or len(run.perf.rows) != 4:
+    if run.result.iterations != 4 or len(run.perf.rows) != 5:
         raise AssertionError('ran %d iterations' % run.result.iterations)
     steps = 0
-    for i, row in enumerate(run.perf.rows, 1):
+    for i, row in enumerate(run.perf.rows[:4], 1):
         killed = (row['killed_geo'], row['killed_int'])
         if killed != (0, 0) or row['energy_current'] != 500_000:
             raise AssertionError('iteration %d: killed %s, energy_current %r'
@@ -712,10 +850,33 @@ def run_slice(dv, card):
     if not steps < launches <= 2 * steps:
         raise AssertionError('deposit_visit launches %d vs %d steps'
                              % (launches, steps))
-    phase('slice: 4 x 500000 photons in %.3f s wall (run_lucy_model), T %.1f '
-          '.. %.1f K, deposit_visit launches %d over %d steps [%s]'
+    img = check_imaging('slice', run, 1_000_000, syncs, card)
+    if img['killed_int'] or launches_et == 0:
+        raise AssertionError('slice imaging: killed %d, escape_tau launches '
+                             '%d' % (img['killed_int'], launches_et))
+    # the band-integrated peeled luminosity (isotropic equivalent): the box
+    # is optically thin, so the light that escapes is the light emitted
+    sed = run.imaging.peeled[0]['datasets']['seds'][0][0, 0, 0, 0]
+    dlnnu = np.log((1000.0 / 0.3)) / 60
+    band = float(sed.sum()) * dlnnu
+    expected = lsun * band_fraction(6000.0, 0.3, 1000.0)
+    image = run.imaging.peeled[0]['datasets']['images'][0]
+    if abs(band / expected - 1.0) > 0.02:
+        raise AssertionError('slice: peeled band luminosity %.6e against '
+                             '%.6e expected' % (band, expected))
+    img.update(band_luminosity=band, expected=expected,
+               ratio=band / expected, image_sum=float(image.sum()),
+               escape_tau_launches=launches_et)
+    phase('slice imaging: band luminosity %.6e erg/s = %.5f x expected '
+          '(%.6e), image sum %.6e, escape_tau launches %d [%s]'
+          % (band, band / expected, expected, image.sum(), launches_et,
+             card))
+    phase('slice: 4 x 500000 photons and 1000000 imaging photons in %.3f s '
+          'wall (run_lucy_model), T %.1f .. %.1f K, deposit_visit launches '
+          '%d over %d steps [%s]'
           % (wall, temp[dusty].min(), temp.max(), launches, steps, card))
-    return launches, [dict(row) for row in run.perf.rows], wall
+    return launches, launches_et, [dict(row) for row in run.perf.rows[:4]], \
+        wall, img
 
 
 # --------------------------------------------------------------- physics --
@@ -809,7 +970,60 @@ def physics_on_card(card):
     bench['host_syncs_per_step'] = syncs / n_steps
     phase('host synchronisations per step: %.2f (%d over %d steps)'
           % (syncs / n_steps, syncs, n_steps))
+    bench['binned'] = binned_check(card)
     return med, bench
+
+
+def binned_check(card):
+    """tests/test_binned_images.py:9-41 on the card in float32, with that
+    test's model (9^3 cells, forced first interaction off, 30,000 Lucy and
+    100,000 imaging photons, 4 x 2 direction bins): all the emitted energy
+    leaves the grid (within 5% of L_sun), and each theta bin's flux is in
+    proportion to its solid angle (within 10%)."""
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.model import Model, run_lucy_model
+    from hyperion_tpu_torch.util.constants import au, lsun
+
+    nu = np.logspace(5, 18, 30)
+    dust = IsotropicDust(nu, np.repeat(0.3, 30), np.repeat(2.0, 30))
+    m = Model()
+    lim = 3 * au
+    w = np.linspace(-lim, lim, 10)
+    m.set_cartesian_grid(w, w, w)
+    m.add_density_grid(np.full(m.grid.shape, 1e-17), dust)
+    s = m.add_point_source()
+    s.luminosity = lsun
+    s.temperature = 6000.0
+    m.set_forced_first_interaction(False)
+    m.set_n_photons(initial=30000, imaging=100000)
+    m.set_n_initial_iterations(1)
+    binned = m.add_binned_images(sed=True, image=False)
+    binned.set_viewing_bins(4, 2)
+    binned.set_wavelength_range(60, 0.1, 1500.0)
+    m.set_seed(12345)
+    run = run_lucy_model(m, device='cuda')
+    # seds: (n_stokes, n_orig, n_view, n_ap, n_nu); the one aperture
+    val = run.imaging.binned['datasets']['seds'][0][0, 0, :, 0, :]
+    dlognu = np.log(1500.0 / 0.1) / 60
+    total = float(val.sum()) * dlognu
+    per_bin = val.sum(axis=1).reshape(4, 2).sum(axis=1)
+    tw = np.linspace(0, np.pi, 5)
+    solid = np.cos(tw[:-1]) - np.cos(tw[1:])
+    expected = per_bin.sum() * solid / solid.sum()
+    dev = np.abs(per_bin / expected - 1.0)
+    if abs(total / lsun - 1.0) >= 0.05 or (dev >= 0.1).any() or \
+            run.imaging.killed_int:
+        raise AssertionError('binned: total %.4f L_sun, theta bins %s of '
+                             'their solid angle, killed %d'
+                             % (total / lsun, per_bin / expected,
+                                run.imaging.killed_int))
+    phase('binned (float32, 100000 photons): total %.5f L_sun, theta bins '
+          '%s of their solid-angle share, %d imaging steps [%s]'
+          % (total / lsun, np.round(per_bin / expected, 4).tolist(),
+             run.imaging.n_steps, card))
+    return dict(total_lsun=total / lsun,
+                theta_ratio=(per_bin / expected).tolist(),
+                steps=run.imaging.n_steps)
 
 
 # ------------------------------------------------------------------ yso --
@@ -970,13 +1184,14 @@ def mrw_phase(card, n_photons=20000):
                 steps_mrw=mrw.n_steps, steps_direct=direct.n_steps)
 
 
-def class2_model(n_photons=200_000, n_iterations=5):
-    """examples/class2_sed.py without its peeled SED, built with the port's
+def class2_model(n_photons=200_000, n_iterations=5, n_imaging=500_000):
+    """examples/class2_sed.py with its peeled SEDs, built with the port's
     AnalyticalYSOModel and evaluated to a Model (no file: the card's
     machine has no h5py): a flared disk around a 2 Rsun star, HG dust, the
     96 x 32 x 1 auto spherical-polar grid, MRW with gamma 2, Lucy
     iterations with convergence checking (the example: 5 of 200,000
-    photons)."""
+    photons), then ``n_imaging`` imaging photons (the example: 500,000)
+    into SEDs at 20, 45 and 80 degrees."""
     from hyperion_tpu_torch.dust import HenyeyGreensteinDust
     from hyperion_tpu_torch.model import AnalyticalYSOModel
     from hyperion_tpu_torch.util.constants import au, lsun, msun, rsun
@@ -998,36 +1213,61 @@ def class2_model(n_photons=200_000, n_iterations=5):
     disk.beta = 1.25
     disk.dust = dust
     m.set_spherical_polar_grid_auto(96, 32, 1)
+    sed = m.add_peeled_images(sed=True, image=False)
+    sed.set_viewing_angles([20.0, 45.0, 80.0], [0.0, 0.0, 0.0])
+    sed.set_wavelength_range(120, 0.3, 2000.0)
+    sed.set_aperture_radii(1, 400 * au, 400 * au)
     m.set_mrw(True, gamma=2.0)
     m.set_n_initial_iterations(n_iterations)
     m.set_convergence(True, percentile=99., absolute=2., relative=1.02)
-    m.set_n_photons(initial=n_photons, imaging=500_000)
+    m.set_n_photons(initial=n_photons, imaging=n_imaging)
     m.evaluate_optically_thin_radii()
     return m.to_model()
 
 
-def class2_phase(dv, card, n_photons, n_iterations, max_steps):
+def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
+                 n_imaging, imaging_max_steps):
     """Phase 8: the class2 YSO model through run_lucy_model on the card
-    (run.py's batch rule: B = n_photons / 4, at least 4,096), each
-    iteration capped at ``max_steps``. Returns (launches, report)."""
+    (run.py's batch rule: B = n_photons / 4, at least 4,096), each Lucy
+    iteration capped at ``max_steps``, then ``n_imaging`` imaging photons
+    capped at ``imaging_max_steps``. Returns (deposit_visit launches,
+    escape_tau launches, report)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
 
-    m = class2_model(n_photons, n_iterations)
+    m = class2_model(n_photons, n_iterations, n_imaging)
     dv.launches = 0
+    et.launches = 0
     t0 = time.time()
-    with transport_syncs() as syncs:
-        run = run_lucy_model(m, device='cuda', max_steps=max_steps)
+    with transport_syncs() as syncs, imaging_syncs() as img_syncs:
+        run = run_lucy_model(m, device='cuda', max_steps=max_steps,
+                             imaging_max_steps=imaging_max_steps)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dv.launches
+    launches_et = et.launches
     temp = run.result.temperature[0]
     dusty = run.density0[0] > 0
     if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
         raise AssertionError('class2: temperatures not finite and > 0 in '
                              'dusty cells')
-    rows = report_iterations('class2', run.perf.rows, syncs, n_photons, card)
+    rows = report_iterations('class2', run.perf.rows[:-1], syncs, n_photons,
+                             card)
     steps = sum(r['steps'] for r in rows)
+    img = check_imaging('class2', run, n_imaging, img_syncs, card)
+    # seds: (n_stokes, n_orig, n_view, n_ap, n_nu), frequency ascending
+    seds = run.imaging.peeled[0]['datasets']['seds'][0][0, 0, :, 0, :]
+    s20, s80 = float(seds[0, -1]), float(seds[2, -1])
+    if not s20 > 0 or not s80 < s20 or launches_et == 0:
+        raise AssertionError('class2: at 0.3 um the 80 degree SED %g, the 20 '
+                             'degree one %g; escape_tau launches %d'
+                             % (s80, s20, launches_et))
+    img.update(ratio_80_20=s80 / s20, nuLnu_max=seds.max(axis=1).tolist(),
+               escape_tau_launches=launches_et)
+    phase('class2 imaging: 80/20 degree ratio at 0.3 um %.4e, peak nu L_nu '
+          'per view %s erg/s, escape_tau launches %d [%s]'
+          % (s80 / s20, ['%.4e' % v for v in seds.max(axis=1)], launches_et,
+             card))
     if not steps < launches <= 2 * steps:
         raise AssertionError('class2: deposit_visit launches %d vs %d steps'
                              % (launches, steps))
@@ -1036,10 +1276,11 @@ def class2_phase(dv, card, n_photons, n_iterations, max_steps):
           % (run.result.iterations, run.result.converged, wall,
              temp[dusty].min(), temp.max(), run.result.killed_int, launches,
              steps, card))
-    return launches, dict(photons=n_photons, max_steps=max_steps,
-                          wall_s=wall, iterations=rows,
-                          converged=bool(run.result.converged),
-                          launches=launches, steps=steps)
+    return launches, launches_et, dict(
+        photons=n_photons, max_steps=max_steps, wall_s=wall,
+        iterations=rows, converged=bool(run.result.converged),
+        launches=launches, steps=steps, imaging=img,
+        imaging_cut=dict(photons=n_imaging, max_steps=imaging_max_steps))
 
 
 def yso_thick_phase(dv, card, n_photons, n_iterations):
@@ -1086,6 +1327,234 @@ def yso_thick_phase(dv, card, n_photons, n_iterations):
                           launches=launches, T_max=float(temp.max()))
 
 
+# ---------------------------------------------------------- escape_tau --
+
+def imaging_tables(model, dtype):
+    """The model's engine tables on the card in ``dtype``: (geometry, dust
+    tables, source tables, density)."""
+    import torch
+    from hyperion_tpu_torch.model.run import (_density_array,
+                                              build_geometry_tables)
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+    from hyperion_tpu_torch.transport.stable import build_source_tables
+
+    dev = torch.device('cuda')
+    geo = build_geometry_tables(model.grid, dev, dtype)
+    dt = build_dust_tables(model._dust_objects(), dev, dtype)
+    st = build_source_tables(model.sources, dev, dtype,
+                             length_scale=geo.length_scale,
+                             sample_evenly=model.sample_sources_evenly)
+    density = _density_array(model, geo.length_scale, dev, dtype)
+    return geo, dt, st, density
+
+
+def record_walks(model, batch, windows):
+    """The escape_tau calls of the imaging steps in each window (first,
+    last) of step indices, counted from 0, of ``model`` run on the card in
+    float32 by ``imaging_runner.run_imaging``, the entry point's own
+    imaging (the specific energy zero: the walks' inputs do not depend on
+    it), up to the last window's end. Each call is the list of its nine
+    lane tensors and t_max (cloned). Returns (density, {window: calls})."""
+    import torch
+    from hyperion_tpu_torch.model import imaging_runner
+    from hyperion_tpu_torch.transport import escape_tau as et
+    from hyperion_tpu_torch.transport import imaging
+
+    geo, dt, st, density = imaging_tables(model, torch.float32)
+    calls = {w: [] for w in windows}
+    at = [0]          # the index of the step that runs
+    inner_call, inner_make = et.EscapeTau.__call__, imaging.make_final_step
+
+    def recording(self, *args, t_max=None):
+        for (first, last), rec in calls.items():
+            if first <= at[0] < last:
+                rec.append([a.clone() for a in args] +
+                           [None if t_max is None else t_max.clone()])
+        return inner_call(self, *args, t_max=t_max)
+
+    def counting(*args, **kw):
+        step = inner_make(*args, **kw)
+
+        def counted(carry, generator):
+            at[0] = carry.n_steps
+            step(carry, generator)
+        return counted
+
+    et.EscapeTau.__call__ = recording
+    imaging.make_final_step = counting
+    try:
+        imaging_runner.run_imaging(model, geo, dt, st, density, None, batch,
+                                   max_steps=max(last for _, last in windows))
+    finally:
+        et.EscapeTau.__call__ = inner_call
+        imaging.make_final_step = inner_make
+    torch.cuda.synchronize()
+    return density, calls
+
+
+def _f64(call):
+    import torch
+    return [None if a is None else
+            a.double() if a.dtype == torch.float32 else a for a in call]
+
+
+def lane_bytes(call, n_dust):
+    """The bytes of one float32 walk call's lanes: each active lane reads
+    its position, direction, cell, flag, chi row (and t_max) once and
+    writes tau; an inactive lane reads its flag and writes tau."""
+    active = call[8]
+    n_act = int(active.sum())
+    lane = 6 * 4 + 8 + 1 + n_dust * 4 + 4 + (0 if call[9] is None else 4)
+    return n_act * lane + (active.shape[0] - n_act) * (1 + 4)
+
+
+def _rel_err(a, ref):
+    """The largest |a - ref| / ref over lanes (1 where ref is 0 and a not)."""
+    import torch
+    rel = (a - ref).abs() / ref.abs().clamp_min(1e-300)
+    return float(torch.where(ref == 0, (a != 0).double(), rel).max())
+
+
+def check_window(kind, window, calls, tables, batch, card):
+    """Phase 10 for the walk calls of one window of steps: hold the kernel
+    with float64 and with float32 lanes against the float64 plain version,
+    and time it on the float32 lanes. ``tables``: the grid's float64
+    geometry and the density transpose in float32 and float64."""
+    import torch
+    from hyperion_tpu_torch.transport import escape_tau as et
+
+    geo64, rt32, rt64 = tables
+    walk32, walk64 = et.EscapeTau(geo64, rt32), et.EscapeTau(geo64, rt64)
+    n_dust = rt32.shape[1]
+    worst64 = worst32 = 0.0
+    n_lanes = n_far = max_cross = n_cross_all = nbytes = 0
+    groups = {False: [], True: []}     # by whether a call limits the walk
+    for call in calls:
+        active = call[8]
+        c64 = _f64(call)
+        k64 = walk64(*c64[:9], t_max=c64[9])
+        k32 = walk32(*call[:9], t_max=call[9]).double()
+        # inactive lanes get 0
+        n_far += int((k64[~active] != 0).sum() + (k32[~active] != 0).sum())
+        groups[call[9] is not None].append((c64, active, k64[active],
+                                            k32[active]))
+        n_lanes += int(active.sum())
+        nbytes += lane_bytes(call, n_dust)
+    # the float64 plain version on the active lanes of all calls at once:
+    # it takes as many steps as the longest walk, not that many per call
+    for limited, group in groups.items():
+        lanes = [torch.cat([c[i][a] for c, a, _, _ in group])
+                 for i in range(8)] if group else []
+        if not group or lanes[1].numel() == 0:
+            continue
+        t_max = torch.cat([c[9][a] for c, a, _, _ in group]) \
+            if limited else None
+        ones = torch.ones_like(lanes[7], dtype=torch.bool)
+        ref, n_cross = et.escape_tau_reference(
+            geo64, rt64, *lanes, ones, t_max=t_max, crossings=True)
+        k64 = torch.cat([k for _, _, k, _ in group])
+        k32 = torch.cat([k for _, _, _, k in group])
+        worst64 = max(worst64, _rel_err(k64, ref))
+        worst32 = max(worst32, _rel_err(k32, ref))
+        n_far += int(((k32 - ref).abs() >
+                      ESCAPE_TAU_RTOL32 * ref + 1e-30).sum())
+        max_cross = max(max_cross, int(n_cross.max()))
+        n_cross_all += int(n_cross.sum())
+    # every crossing reads one density row and does the crossing's float64
+    # operations (FLOPS_PER_CROSSING)
+    nbytes += n_cross_all * n_dust * 4
+    flops = n_cross_all * FLOPS_PER_CROSSING[kind]
+    steps = '%d-%d' % (window[0] + 1, window[1])
+    if n_lanes == 0:
+        raise AssertionError('escape_tau %s: no active lane in the walks of '
+                             'steps %s' % (kind, steps))
+    # times: device (CUDA events, each call behind a sleep so that the
+    # launch is queued before its start event), host (eager calls before
+    # the synchronise), the plain version (synchronised)
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    for rep in range(2):
+        for a, b, call in zip(starts, ends, calls):
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            walk32(*call[:9], t_max=call[9])
+            b.record()
+        torch.cuda.synchronize()
+    device_us = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e3 \
+        / len(calls)
+    t0 = time.perf_counter()
+    for call in calls:
+        walk32(*call[:9], t_max=call[9])
+    host_us = (time.perf_counter() - t0) * 1e6 / len(calls)
+    torch.cuda.synchronize()
+    some = calls[:10]
+    t0 = time.perf_counter()
+    plain = [et.escape_tau_reference(geo64, rt32, *call[:9], t_max=call[9])
+             for call in some]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(some)
+    # the float32 kernel against its own plain version, on the timed calls
+    # (both round the same float64 walk once: equal but for a sum's order)
+    max_err = max(float((walk32(*call[:9], t_max=call[9]) - tau_p).abs()
+                        .max()) for call, tau_p in zip(some, plain))
+    n_far_plain = sum(int(((walk32(*call[:9], t_max=call[9]) - tau_p).abs()
+                           > ESCAPE_TAU_RTOL32 * tau_p + 1e-30).sum())
+                      for call, tau_p in zip(some, plain))
+    t_bytes = nbytes / len(calls) / HBM_BYTES_PER_S * 1e6
+    t_ops = flops / len(calls) / FP64_FLOPS * 1e6
+    out = dict(model=kind, steps=steps, calls=len(calls), B=batch,
+               f64_max_rel_err=worst64, f32_max_rel_err_vs_f64=worst32,
+               f32_lanes_outside=n_far, active_lanes=n_lanes,
+               f32_vs_plain32_max_abs_err=max_err, longest_walk=max_cross,
+               device_us=device_us, host_us=host_us, plain_ms=plain_ms,
+               bound_us=max(t_bytes, t_ops),
+               bound_by='bytes' if t_bytes >= t_ops else 'operations',
+               bytes_per_call=nbytes / len(calls),
+               flops_per_call=flops / len(calls))
+    phase('escape_tau %s (%d calls of steps %s, B=%d, %d active lanes): max '
+          'rel err against the float64 plain version %.3e (float64 lanes), '
+          '%.3e (float32 lanes; %d lanes beyond %.0e tau); float32 lanes '
+          'against their plain version on %d calls: max abs err %.3e; '
+          'longest walk %d crossings; device %.2f us, host %.2f us per call, '
+          'plain %.3f ms, bound %.3f us (%s: %.0f bytes, %.0f float64 flops '
+          'per call) [%s]'
+          % (kind, len(calls), steps, batch, n_lanes, worst64, worst32,
+             n_far, ESCAPE_TAU_RTOL32, len(some), max_err, max_cross,
+             device_us, host_us, plain_ms, out['bound_us'], out['bound_by'],
+             out['bytes_per_call'], out['flops_per_call'], card))
+    if worst64 > 1e-10 or n_far or n_far_plain:
+        raise AssertionError('escape_tau %s: the kernel against its plain '
+                             'version: %s' % (kind, out))
+    return out
+
+
+def check_walks(kind, model, batch, card, windows=WALK_WINDOWS):
+    """Phase 10 for one model: record its walks in each window of steps
+    and check each window (:func:`check_window`); returns their reports."""
+    import torch
+    from hyperion_tpu_torch.model.run import (_density_array,
+                                              build_geometry_tables)
+
+    rho32, calls = record_walks(model, batch, windows)
+    dev = torch.device('cuda')
+    geo64 = build_geometry_tables(model.grid, dev, torch.float64)
+    rho64 = _density_array(model, geo64.length_scale, dev, torch.float64)
+    tables = (geo64, rho32.T.contiguous(), rho64.T.contiguous())
+    return [check_window(kind, w, calls[w], tables, batch, card)
+            for w in windows]
+
+
+def escape_tau_phase(card):
+    """Phase 10: escape_tau on the very walk calls of the WALK_WINDOWS
+    imaging steps of the quickstart (cartesian, B = 125,000) and of class2
+    (spherical-polar, B = 50,000, run.py's batch for its 200,000 Lucy
+    photons)."""
+    return (check_walks('cartesian', tutorial_model(), 125_000, card) +
+            check_walks('spherical', class2_model(n_photons=200_000),
+                        50_000, card))
+
+
 def main():
     import argparse
     import torch
@@ -1102,6 +1571,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     from hyperion_tpu_torch.transport import _build
     from hyperion_tpu_torch.transport import deposit_visit as dv
+    from hyperion_tpu_torch.transport import escape_tau as et
 
     # 1. the card and the software
     card = card_line()
@@ -1117,10 +1587,11 @@ def main():
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}})
 
-    # 2. build
+    # 2. build both libraries, one nvcc each, at once
     t0 = time.time()
-    lib = _build.build('deposit_visit')
-    phase('built %s in %.2f s' % (lib.name, time.time() - t0))
+    libs = _build.build('deposit_visit', 'escape_tau')
+    phase('built %s in %.2f s' % (', '.join(lib.name for lib in libs),
+                                  time.time() - t0))
 
     if args.yso_thick_photons:
         # 9 alone, at the size asked for
@@ -1133,58 +1604,99 @@ def main():
         print(result_line, flush=True)
         return 0
 
-    # 3. kernel against the plain version, and its times
-    max_err, checks, timings, hot = kernel_phase(dv, device, card)
+    record = dict(card=card, torch=torch.__version__,
+                  cuda=torch.version.cuda)
+    launches = dict(deposit_visit={}, escape_tau={})
 
-    # 4. the slice, through the kernel
-    launches, iterations, wall = run_slice(dv, card)
+    def run_phase(n, fn, *a, **kw):
+        t0 = time.time()
+        out = fn(*a, **kw)
+        record.setdefault('phase_s', {})[n] = time.time() - t0
+        phase('phase %d in %.1f s' % (n, time.time() - t0))
+        return out
+
+    # 3. kernel against the plain version, and its times
+    max_err, checks, timings, hot = run_phase(3, kernel_phase, dv, device,
+                                              card)
+    record.update(kernel_checks=checks, kernel_timings=timings,
+                  tutorial_contention=hot)
+
+    # 4. the slice, through the kernels
+    launches['deposit_visit']['tutorial'], launches['escape_tau']['tutorial'], \
+        iterations, wall, img = run_phase(4, run_slice, dv, et, card)
+    record['slice'] = dict(wall_s=wall, iterations=iterations, imaging=img)
 
     # 5. physics on the card
-    median_ratio, bench = physics_on_card(card)
+    record['inverse_square_median_ratio'], record['bench_quickstart'] = \
+        run_phase(5, physics_on_card, card)
 
     # 6. deposit_visit on the YSO path's own calls
-    yso_err, yso_check, yso_t, yso_hot = yso_calls_phase(dv, device, card)
-    checks.append(yso_check)
-    timings.append(yso_t)
+    yso_err, yso_check, yso_t, yso_hot = run_phase(6, yso_calls_phase, dv,
+                                                   device, card)
+    record.update(yso_thick_check=yso_check, yso_thick_timing=yso_t,
+                  yso_thick_contention=yso_hot)
 
     # 7. MRW physics on the card
-    mrw = mrw_phase(card)
+    record['mrw'] = run_phase(7, mrw_phase, card)
 
     # 8. the class2 YSO model through the normal entry point
-    launches_c2, class2 = class2_phase(dv, card, **CLASS2_CUT)
+    launches['deposit_visit']['class2'], launches['escape_tau']['class2'], \
+        record['class2'] = run_phase(8, class2_phase, dv, et, card,
+                                     **CLASS2_CUT)
 
     # 9. bench.py's yso_thick configuration, cut
-    launches_yso, yso = yso_thick_phase(dv, card, **YSO_THICK_CUT)
-    phase('phases 1-9 in %.1f s' % (time.time() - t_start))
+    launches['deposit_visit']['yso_thick'], record['yso_thick'] = \
+        run_phase(9, yso_thick_phase, dv, card, **YSO_THICK_CUT)
 
+    # 10. escape_tau on the imaging path's own walk calls
+    walks = record['escape_tau_walks'] = run_phase(10, escape_tau_phase, card)
+    phase('phases 3-10 in %.1f s' % (time.time() - t_start))
+
+    record['launches'] = launches
+    record['wall_s'] = time.time() - t_start
+    (OUT / 'results.json').write_text(json.dumps(record, indent=1))
+    for name, counts in launches.items():
+        if not all(counts.values()):
+            raise AssertionError('%s was not launched on the main path: %s'
+                                 % (name, counts))
     t = next(r for r in timings if r['lanes'] == 'tutorial steps')
+    # the headline times: the quickstart's first window (the full-size
+    # slice); every window's beside them
+    q = walks[0]
     kernels = [dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
                     replaces=REPLACES,
-                    launches=launches + launches_c2 + launches_yso,
+                    launches=sum(launches['deposit_visit'].values()),
                     max_abs_err=max(max_err, yso_err),
                     ms=t['device_us'] / 1e3,
                     plain_ms=t['plain_ms'], bound_ms=t['bound_us'] / 1e3,
                     bound_by='bytes', library_ms=t['library_ms'],
                     device_us=t['device_us'], host_us=t['host_us'],
                     bound_us=t['bound_us'],
-                    launches_by_phase=dict(tutorial=launches,
-                                           class2=launches_c2,
-                                           yso_thick=launches_yso),
+                    launches_by_phase=launches['deposit_visit'],
                     yso_device_us=yso_t['device_us'],
                     yso_host_us=yso_t['host_us'],
                     yso_bound_us=yso_t['bound_us'],
                     yso_plain_ms=yso_t['plain_ms'],
                     yso_library_ms=yso_t['library_ms'],
-                    yso_contention=yso_hot)]
-    record = dict(card=card, torch=torch.__version__,
-                  cuda=torch.version.cuda, kernel_checks=checks,
-                  kernel_timings=timings, tutorial_contention=hot,
-                  yso_thick_contention=yso_hot,
-                  slice=dict(wall_s=wall, iterations=iterations),
-                  inverse_square_median_ratio=median_ratio,
-                  bench_quickstart=bench, mrw=mrw, class2=class2,
-                  yso_thick=yso, kernels=kernels,
-                  wall_s=time.time() - t_start)
+                    yso_contention=yso_hot),
+               dict(name='escape_tau', route='cuda', source=ESCAPE_TAU_SOURCE,
+                    replaces=ESCAPE_TAU_REPLACES,
+                    launches=sum(launches['escape_tau'].values()),
+                    max_abs_err=max(w['f32_vs_plain32_max_abs_err']
+                                    for w in walks),
+                    ms=q['device_us'] / 1e3, plain_ms=q['plain_ms'],
+                    bound_ms=q['bound_us'] / 1e3, bound_by=q['bound_by'],
+                    library_ms=None, device_us=q['device_us'],
+                    host_us=q['host_us'], bound_us=q['bound_us'],
+                    launches_by_phase=launches['escape_tau'],
+                    f64_max_rel_err=max(w['f64_max_rel_err'] for w in walks),
+                    f32_max_rel_err_vs_f64=max(w['f32_max_rel_err_vs_f64']
+                                               for w in walks),
+                    windows=[{k: w[k] for k in (
+                        'model', 'steps', 'calls', 'device_us', 'host_us',
+                        'plain_ms', 'bound_us', 'bound_by', 'longest_walk')}
+                        for w in walks])]
+    record['kernels'] = kernels
     (OUT / 'results.json').write_text(json.dumps(record, indent=1))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(result_line, flush=True)

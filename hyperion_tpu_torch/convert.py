@@ -2,8 +2,9 @@
 
 The JAX tables' fields, given as numpy arrays (for example
 ``{k: np.asarray(v) for k, v in jax_dt._asdict().items()}``), become the
-port's tables, so both engines can run on the very same tables. Fields the
-port does not use are ignored."""
+port's tables, so both engines can run on the very same tables (the dust
+tables with the scattering matrix the imaging step reads). Fields the port
+does not use are ignored."""
 
 import dataclasses
 
@@ -13,6 +14,7 @@ import torch
 from .transport.dtable import DustTables
 from .transport.gtable import CartesianGeometry
 from .transport.gtable_spherical import SphericalGeometry
+from .transport.imaging import PeelGroup
 from .transport.mrw import MRWTables
 from .transport.stable import SourceTables
 
@@ -53,3 +55,24 @@ def visit_state_from_numpy(last_uid_padded, n_cells):
     to 128 lanes) trimmed to the port's (n_cells + 1,) int32 table."""
     return torch.as_tensor(
         np.asarray(last_uid_padded)[:n_cells + 1].astype(np.int32))
+
+
+def peel_group_from_numpy(fields, device, dtype):
+    """The port's PeelGroup from a dict of numpy fields (and static values)
+    of the JAX PeelGroup: the frames stay float64 numpy, the limits become
+    floats, the filter tables tensors. The JAX monochromatic fields are
+    dropped (the port has no monochromatic imaging yet)."""
+    kw = {}
+    for f in dataclasses.fields(PeelGroup):
+        if f.name.startswith('_'):
+            continue
+        v = fields.get(f.name)
+        if f.name in ('view_dir', 'east', 'north', 'origin'):
+            v = np.asarray(v, float)
+        elif f.name in ('filter_lognu', 'filter_tn'):
+            v = None if v is None else torch.tensor(np.asarray(v),
+                                                    device=device, dtype=dtype)
+        elif isinstance(v, np.ndarray) or hasattr(v, 'dtype'):
+            v = float(np.asarray(v))
+        kw[f.name] = v
+    return PeelGroup(**kw)

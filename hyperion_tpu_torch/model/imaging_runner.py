@@ -1,0 +1,179 @@
+"""The imaging iteration of a model and its peeled and binned groups
+(counterpart of ``hyperion_tpu/model/imaging_runner.py``; ref image_write,
+src/images/image_type.f90:608-788).
+
+:func:`run_imaging` runs the iteration and returns each group as numpy
+arrays in the on-disk layout: 'seds' (n_stokes, n_orig, n_view, n_ap,
+n_nu) and 'images' (n_stokes, n_orig, n_view, n_y, n_x, n_nu), nu F_nu
+through dnunorm, cumulative apertures and sqrt(sum x^2) uncertainties.
+:func:`write_peel_group` writes one such group into an HDF5 group; the
+arrays need no h5py."""
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..transport import imaging
+from ..util.functions import bool2str
+
+
+class ImagingRun(NamedTuple):
+    """What :func:`run_imaging` computed: per peeled group, and for the
+    binned group (or None), the dict of :func:`peel_group_arrays`."""
+    peeled: list
+    binned: object
+    energy_current: float
+    killed_int: int
+    n_steps: int
+    n_events: int
+    batch_size: int
+    wall: float
+
+
+def imaging_options(model, geometry, dt, density):
+    """The model's peeled groups on the density's device and the keywords
+    of :func:`~..transport.imaging.start_final` that its settings give:
+    ``(groups, options)``."""
+    from .run import build_geometry_tables    # run.py imports this module
+    device, dtype = density.device, density.dtype
+    kw = dict(length_scale=geometry.length_scale,
+              n_sources=max(len(model.sources), 1), n_dust=dt.n_dust)
+    groups = [imaging.build_peel_group(conf, device, dtype, **kw)
+              for conf in model.peeled_output]
+    options = dict(
+        walk_geometry=build_geometry_tables(model.grid, device,
+                                            torch.float64),
+        n_inter_max=model.n_inter_max, kill_on_scatter=model.kill_on_scatter,
+        kill_on_absorb=model.kill_on_absorb,
+        forced_first_interaction=model.forced_first_interaction,
+        # (ref main.f90:272-302: do_final(peeloff_scattering_only=
+        # use_raytracing); run_model refuses raytracing for now)
+        peeloff_scattering_only=model.raytracing,
+        n_reabs_max=model.n_reabs_max,
+        ffi_algorithm=model.forced_first_interaction_algorithm,
+        ffi_baes16_xi=model.forced_first_interaction_baes16_xi,
+        use_mrw=model.mrw, mrw_gamma=getattr(model, 'mrw_gamma', 1.0),
+        n_mrw_max=getattr(model, 'n_inter_mrw_max', 1000))
+    if model.binned_output is not None:
+        options.update(
+            binned_group=imaging.build_binned_group(
+                model.binned_output, device, dtype, **kw),
+            binned_dims=(model.binned_output.n_theta,
+                         model.binned_output.n_phi))
+    return groups, options
+
+
+def run_imaging(model, geometry, dt, st, density, specific_energy,
+                batch_size, max_steps=100000000):
+    """Run the model's imaging iteration (no monochromatic imaging and no
+    raytracing: ``run_model`` refuses those) on the density's device.
+    ``density`` and ``specific_energy`` are (n_dust, n_cells) engine-unit
+    tensors (the specific energy None for zero)."""
+    n_phot = model.n_photons.get('last')
+    if n_phot is None:
+        raise Exception("imaging photon count has not been set "
+                        "(set_n_photons(imaging=...))")
+    groups, options = imaging_options(model, geometry, dt, density)
+    generator = torch.Generator(device=density.device)
+    generator.manual_seed((abs(model._seed) + 1) % (2 ** 31))
+    t0 = time.time()
+    res = imaging.run_final(
+        geometry, dt, st, density, specific_energy, groups, generator,
+        n_phot, batch_size=batch_size, max_steps=max_steps, **options)
+    wall = time.time() - t0
+    scale = float(st.energy_total) / max(res.energy_current, 1e-300)
+    peeled = [peel_group_arrays(conf, group, acc, scale)
+              for conf, group, acc in zip(model.peeled_output, groups,
+                                          res.accums)]
+    binned = None
+    if model.binned_output is not None:
+        binned = peel_group_arrays(model.binned_output,
+                                   options['binned_group'], res.binned_acc,
+                                   scale)
+    return ImagingRun(peeled, binned, res.energy_current, res.killed_int,
+                      res.n_steps, res.n_events, int(batch_size), wall)
+
+
+def _origin_attrs(group):
+    """The track_origin metadata the reader slices components by (ref
+    ModelOutput._get_origin_slice)."""
+    attrs = {'track_origin': np.bytes_(group.track_origin)}
+    if group.track_origin == 'detailed':
+        attrs.update(n_sources=group.n_sources, n_dust=group.n_dust)
+    elif group.track_origin == 'scatterings':
+        attrs['track_n_scat'] = group.track_n_scat
+    return attrs
+
+
+def peel_group_arrays(conf, group, acc, scale):
+    """One group normalized into the on-disk layout of
+    ``hyperion_tpu/model/imaging_runner.py:write_peel_group``: returns
+    ``{'attrs': {...}, 'datasets': {name: (array, attrs)}}`` in the order
+    the writer creates them."""
+    cubes = {k: v.detach().cpu().numpy().astype(np.float64)
+             for k, v in acc.cubes().items()}
+    n_nu = group.n_nu
+    nu_min = 10.0 ** float(group.log10_nu_min)
+    nu_max = 10.0 ** float(group.log10_nu_max)
+    if group.use_filters:
+        # the filter table already carries the normalization and the nu
+        # factor (ref image_type.f90:650-654, dnunorm = 1)
+        dnunorm = 1.0
+    else:
+        # F_nu dnu -> nu F_nu (ref image_type.f90:624-658)
+        dnunorm = (nu_max / nu_min) ** (+0.5 / n_nu) - \
+            (nu_max / nu_min) ** (-0.5 / n_nu)
+    d_min = getattr(conf, 'd_min', None)
+    d_max = getattr(conf, 'd_max', None)
+    attrs = {'inside_observer': bool2str(group.inside),
+             'd_min': -np.inf if d_min is None else d_min,
+             'd_max': +np.inf if d_max is None else d_max}
+    datasets = {}
+    if group.use_filters:
+        freq = np.zeros(n_nu, dtype=[('nu', float)])
+        freq['nu'] = [filt.central_nu for filt in conf._filters]
+        datasets['frequencies'] = (freq, {})
+    nu_attrs = {} if group.use_filters else {'numin': nu_min,
+                                             'numax': nu_max}
+    io_dtype = np.float32 if conf.io_bytes == 4 else np.float64
+
+    if group.compute_sed:
+        # (n_view, n_ap, n_nu, n_orig, n_stokes) ->
+        # (n_stokes, n_orig, n_view, n_ap, n_nu), apertures cumulated
+        sed = (cubes['sed'] * scale / dnunorm).transpose(4, 3, 0, 1, 2)
+        datasets['seds'] = (np.cumsum(sed, axis=3).astype(io_dtype), dict(
+            nu_attrs, apmin=conf.ap_min, apmax=conf.ap_max,
+            **_origin_attrs(group)))
+        if group.uncertainties:
+            unc = (np.sqrt(cubes['sed2']) * scale / dnunorm).transpose(
+                4, 3, 0, 1, 2)
+            datasets['seds_unc'] = (
+                np.sqrt(np.cumsum(unc ** 2, axis=3)).astype(io_dtype),
+                dict(nu_attrs))
+    if group.compute_image:
+        # (n_view, n_y, n_x, n_nu, n_orig, n_stokes) ->
+        # (n_stokes, n_orig, n_view, n_y, n_x, n_nu)
+        img = (cubes['img'] * scale / dnunorm).transpose(5, 4, 0, 1, 2, 3)
+        datasets['images'] = (img.astype(io_dtype), dict(
+            nu_attrs, xmin=conf.xmin, xmax=conf.xmax, ymin=conf.ymin,
+            ymax=conf.ymax, **_origin_attrs(group)))
+        if group.uncertainties:
+            unc = (np.sqrt(cubes['img2']) * scale / dnunorm).transpose(
+                5, 4, 0, 1, 2, 3)
+            datasets['images_unc'] = (unc.astype(io_dtype), dict(nu_attrs))
+    return dict(attrs=attrs, datasets=datasets)
+
+
+def write_peel_group(g, arrays):
+    """Write one group of :func:`peel_group_arrays` into the HDF5 group
+    ``g``."""
+    for k, v in arrays['attrs'].items():
+        g.attrs[k] = v
+    for name, (data, attrs) in arrays['datasets'].items():
+        dset = g.create_dataset(
+            name, data=data,
+            compression=None if name == 'frequencies' else 'gzip')
+        for k, v in attrs.items():
+            dset.attrs[k] = v

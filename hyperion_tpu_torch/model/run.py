@@ -8,9 +8,11 @@ Lucy iterations with or without convergence checking, the modified random
 walk, the partial diffusion approximation, frequency-resolved specific
 energy bins, an initial or additional specific energy read from the grid,
 the minimum-specific-energy floor, ``enforce_energy_range``, sublimation
-and the probabilistic geometry self-check. Anything else raises
-``NotImplementedError`` naming its ROADMAP.md item. The output layout is
-the JAX package's, read by either package's ``ModelOutput``;
+and the probabilistic geometry self-check; then the imaging iteration with
+peeled and binned SEDs and images (forced first interaction, polarization,
+every track_origin mode, filters, depth cuts, inside observers). Anything
+else raises ``NotImplementedError`` naming its ROADMAP.md item. The output
+layout is the JAX package's, read by either package's ``ModelOutput``;
 :func:`run_lucy_model` is the same run without the file, for machines
 without HDF5. Both run on the card unless the caller passes
 ``device='cpu'``."""
@@ -32,6 +34,7 @@ from ..transport.lucy import run_lucy
 from ..transport.pda import build_pda_tables
 from ..transport.stable import build_source_tables
 from ..util.perf import PerfTable
+from .imaging_runner import run_imaging, write_peel_group
 from .model import Model
 
 
@@ -113,10 +116,10 @@ def _check_slice(model):
         if not isinstance(s, (PointSource, PointSourceCollection,
                               SphericalSource)):
             refuse("%s" % type(s).__name__, 4)
-    if model.peeled_output:
-        refuse("peeled images and SEDs", 9)
-    if model.binned_output is not None:
-        refuse("binned images", 10)
+    if model._monochromatic:
+        refuse("monochromatic imaging", 10)
+    if model.raytracing:
+        refuse("raytracing", 10)
 
 
 def build_geometry_tables(grid, device, dtype):
@@ -178,18 +181,24 @@ class ModelRun(NamedTuple):
     # specific_energy_spectrum (None without spectrum bins)
     iterations: list
     density0: np.ndarray  # (n_dust, n_cells) physical density before the run
-    # one row per iteration: wall seconds, photons, steps, transport events,
-    # lanes, energy_current, killed_int, killed_geo
+    # one row per iteration, and one for imaging: wall seconds, photons,
+    # steps, transport events, lanes, energy_current, killed_int, killed_geo
     perf: PerfTable
+    # imaging_runner.ImagingRun of the peeled and binned groups, or None
+    # when the model asks for neither
+    imaging: object = None
 
 
 def run_lucy_model(model, device=None, batch_size=None, dtype=None,
-                   max_steps=100000000):
-    """Run the model's Lucy iterations on ``device`` ('cuda', the default,
-    or 'cpu') and return a :class:`ModelRun`. This is :func:`run_model`
-    without the file: it needs no HDF5. ``max_steps`` caps the steps of an
-    iteration (run_lucy's bounded-step safety net: lanes still alive at the
-    cap are killed and counted in killed_int)."""
+                   max_steps=100000000, imaging_max_steps=None):
+    """Run the model's Lucy iterations, then its imaging iteration when it
+    has peeled or binned output, on ``device`` ('cuda', the default, or
+    'cpu') and return a :class:`ModelRun`. This is :func:`run_model`
+    without the file: it needs no HDF5. ``max_steps`` caps the steps of a
+    Lucy iteration and ``imaging_max_steps`` (``max_steps`` when None) the
+    imaging iteration's (the bounded-step safety net: lanes still alive at
+    the cap are killed and counted in killed_int). The imaging batch is
+    the Lucy iterations' (``hyperion_tpu/model/run.py:229-232,365``)."""
     device = resolve_device(device)
     dtype = engine_dtype(device, dtype)
     _check_slice(model)
@@ -263,13 +272,38 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
             check_frequency=getattr(model, '_frequency', 0.0),
             spectrum_bins=model.specific_energy_spectrum_bins,
             max_steps=max_steps, verbose=True, iteration_callback=callback)
+
+    img = None
+    if model.peeled_output or model.binned_output is not None:
+        # the last iteration's specific energy drives the emission, or with
+        # no iterations the grid's own (ref: the engine reads the grid's
+        # specific_energy when n_initial_iter == 0)
+        se = iterations[-1]['specific_energy'] if iterations else init_se
+        if result is not None:
+            # the last iteration's (possibly sublimated) density
+            density = torch.as_tensor(result.density, dtype=dtype,
+                                      device=device)
+        img = run_imaging(
+            model, geometry, dt, st, density,
+            None if se is None else torch.as_tensor(
+                np.asarray(se, float), dtype=dtype, device=device),
+            batch_size,
+            max_steps=max_steps if imaging_max_steps is None
+            else imaging_max_steps)
+        n_img = model.n_photons.get('last') or 0
+        perf.add('imaging', img.wall, photons=n_img or None,
+                 events=img.n_events, steps=img.n_steps,
+                 lanes=img.batch_size, energy_current=img.energy_current,
+                 killed_int=img.killed_int, killed_geo=0)
+        print("[imaging] %d steps, killed=%d/0" % (img.n_steps,
+                                                   img.killed_int))
     perf.report()
-    return ModelRun(result, iterations, density0, perf)
+    return ModelRun(result, iterations, density0, perf, img)
 
 
 def run_model(model, filename, device=None, batch_size=None, dtype=None):
-    """Run the model's Lucy iterations (:func:`run_lucy_model`) and write
-    the .rtout file. Returns the :class:`ModelRun`."""
+    """Run the model (:func:`run_lucy_model`: the Lucy iterations, then
+    imaging) and write the .rtout file. Returns the :class:`ModelRun`."""
     t_start = time.time()
     run = run_lucy_model(model, device=device, batch_size=batch_size,
                          dtype=dtype)
@@ -278,7 +312,8 @@ def run_model(model, filename, device=None, batch_size=None, dtype=None):
 
 
 def _write_rtout(model, filename, run, t_start):
-    """The .rtout layout of hyperion_tpu/model/run.py:297-382."""
+    """The .rtout layout of hyperion_tpu/model/run.py:297-382, with the
+    /Peeled and /Binned groups of hyperion_tpu/model/imaging_runner.py."""
     import h5py
     result = run.result
     with h5py.File(filename, 'w') as out:
@@ -331,6 +366,18 @@ def _write_rtout(model, filename, run, t_start):
         else:
             out.attrs['converged'] = bool2bytes(False)
             out.attrs['iterations'] = 0
+
+        img = run.imaging
+        if img is not None:
+            g_peeled = out.create_group('Peeled')
+            for i, arrays in enumerate(img.peeled):
+                write_peel_group(g_peeled.create_group('group_%05i' % (i + 1)),
+                                 arrays)
+            if img.binned is not None:
+                # the binned datasets live directly under /Binned
+                write_peel_group(out.create_group('Binned'), img.binned)
+            out.attrs['killed_photons_int_final'] = img.killed_int
+            out.attrs['killed_photons_geo_final'] = 0
 
         out.attrs['cpu_time'] = time.time() - t_start
         out.attrs['date_ended'] = np.bytes_(

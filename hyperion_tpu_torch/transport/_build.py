@@ -18,6 +18,9 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
+# flags of one source on top of NVCC_FLAGS: escape_tau keeps a*b + c as two
+# roundings, as PyTorch's element-wise kernels do (see its source note)
+EXTRA_FLAGS = {'escape_tau': ['-fmad=false']}
 
 _loaded = {}
 
@@ -31,43 +34,59 @@ def _nvcc():
                        "kernels cannot be built" % cuda_home)
 
 
+def _flags(name):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def library_path(name):
     """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     src = (CSRC / ('%s.cu' % name)).read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + ' '.join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / ('lib%s_%s.so' % (name, digest[:16]))
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` unless its current build exists; returns
-    the library path. Raises with nvcc's output when the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc] + NVCC_FLAGS + ['-o', tmp, str(CSRC / ('%s.cu' % name))]
+def build(*names):
+    """Compile each ``csrc/<name>.cu`` whose current build does not exist,
+    one ``nvcc`` per source, all running at once; returns the library
+    paths. Raises with nvcc's output when a build fails."""
+    outs = [library_path(name) for name in names]
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (%d) building %s:\n%s\n%s"
-                               % (proc.returncode, name, ' '.join(cmd),
-                                  proc.stderr))
-        os.replace(tmp, out)
+        for name, out in zip(names, outs):
+            if out.exists():
+                continue
+            nvcc = _nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # compile to a private name, then rename: concurrent builders
+            # never see a half-written library
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc] + _flags(name) + [
+                '-o', tmp, str(CSRC / ('%s.cu' % name))]
+            jobs.append((name, out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for name, out, tmp, cmd, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed (%d) building %s:\n%s\n%s"
+                                   % (proc.returncode, name, ' '.join(cmd),
+                                      err))
+            os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for _, _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
 
 
 def load(name):
     """The loaded ctypes library of ``csrc/<name>.cu``, built at first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name)[0]))
         _loaded[name] = lib
     return lib

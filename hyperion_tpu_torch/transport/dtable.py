@@ -3,7 +3,8 @@
 
 The host code is the JAX package's numpy, copied because importing any
 ``hyperion_tpu.transport`` module imports JAX; only the tables the Lucy
-path reads are built (with MRW, PDA and spectrum bins). All CDFs are made
+and imaging paths read are built (with MRW, PDA, spectrum bins and the
+scattering matrix for peeling and polarization). All CDFs are made
 on the host in float64 and the tensors are cast to the engine dtype."""
 
 from dataclasses import dataclass
@@ -35,6 +36,18 @@ class DustTables:
     bnu_q: torch.Tensor
     # mu quantile tables of the P1 phase function, (n_dust * n_nu, n_q_mu)
     mu_q: torch.Tensor
+    # the scattering matrix for peeling and polarization: mu grid (n_dust,
+    # n_mu); P1..P4 scaled by one norm per (dust, nu) row so that P1's
+    # solid-angle mean is 1, (n_dust * n_nu, n_mu); the unnormalized
+    # cumulatives of P1 and P2 over mu (same scale) that the polarized mu
+    # sampler inverts (ref dust_scatter, dust_type_4elem.f90:504-545)
+    mu: torch.Tensor
+    P1_peel: torch.Tensor
+    P2_peel: torch.Tensor
+    P3_peel: torch.Tensor
+    P4_peel: torch.Tensor
+    P1_cum: torch.Tensor
+    P2_cum: torch.Tensor
     # mean opacities vs specific energy: (n_dust, n_e); kappa_planck and
     # chi_inv_planck feed the MRW tables and the PDA
     me_specific_energy: torch.Tensor
@@ -69,6 +82,37 @@ def _pad_rows(cdf, n_rows, n_cols):
     out = np.ones((n_rows, n_cols))
     out[:cdf.shape[0], :cdf.shape[1]] = cdf
     out[cdf.shape[0]:, :cdf.shape[1]] = cdf[-1]
+    return out
+
+
+def _peel_matrix(mu_d, op, n_nu, n_mu):
+    """The peel-normalized P1..P4 and the cumulatives of P1 and P2 over mu
+    of one dust, each padded to (n_nu, n_mu) by edge replication (a copy of
+    ``hyperion_tpu/transport/dtable.py:238-265``). A row with no P1 norm
+    peels isotropically and unpolarized."""
+    def pad2(a):
+        return np.pad(a, ((0, n_nu - a.shape[0]), (0, n_mu - a.shape[1])),
+                      mode='edge')
+
+    P1 = np.asarray(op.P1, float)
+    # 0.5 * np.trapezoid(P1, mu_d, axis=1), written out (np.trapezoid is
+    # numpy >= 2 only)
+    norm = 0.5 * (np.diff(mu_d)[None, :] * (P1[:, 1:] + P1[:, :-1])
+                  / 2.0).sum(axis=1)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        inv_norm = np.where(norm > 0, 1.0 / np.where(norm > 0, norm, 1.0),
+                            1.0)
+    pp = np.where(norm[:, None] > 0, P1 * inv_norm[:, None], 1.0)
+    out = dict(P1_peel=pad2(pp))
+    for k, empty in (('P2', 0.0), ('P3', 1.0), ('P4', 0.0)):
+        p = np.asarray(getattr(op, k), float) * inv_norm[:, None]
+        out[k + '_peel'] = pad2(np.where(norm[:, None] > 0, p, empty))
+    dmu = np.diff(mu_d)[None, :]
+    p2 = out['P2_peel'][:pp.shape[0], :len(mu_d)]
+    for k, p in (('P1_cum', pp), ('P2_cum', p2)):
+        seg = 0.5 * (p[:, :-1] + p[:, 1:]) * dmu
+        out[k] = pad2(np.concatenate([np.zeros((pp.shape[0], 1)),
+                                      np.cumsum(seg, axis=1)], axis=1))
     return out
 
 
@@ -114,6 +158,8 @@ def _cdf_linear(x, y_rows):
     return cdf
 
 
+_PEEL_FIELDS = ('P1_peel', 'P2_peel', 'P3_peel', 'P4_peel', 'P1_cum',
+                'P2_cum')
 _SUBLIMATION_CODES = {'no': 0, 'fast': 1, 'slow': 2, 'cap': 3}
 
 
@@ -130,6 +176,7 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
             d.emissivities.set_lte(d.optical_properties, d.mean_opacities)
 
     n_nu = max(len(d.optical_properties.nu) for d in dusts)
+    n_mu = max(len(d.optical_properties.mu) for d in dusts)
     n_enu = max(len(d.emissivities.nu) for d in dusts)
     n_var = max(len(d.emissivities.var) for d in dusts)
     n_e = max(len(d.mean_opacities.temperature) for d in dusts)
@@ -143,6 +190,8 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
     jnu_q = np.zeros((n_dust, n_var, n_quantiles))
     bnu_q = np.zeros((n_dust, n_var, n_quantiles))
     mu_q = np.zeros((n_dust, n_nu, n_quantiles_mu))
+    mu = np.zeros((n_dust, n_mu))
+    peel = {k: np.zeros((n_dust, n_nu, n_mu)) for k in _PEEL_FIELDS}
     me = {k: np.zeros((n_dust, n_e))
           for k in ('specific_energy', 'temperature', 'kappa_planck',
                     'chi_inv_planck', 'chi_rosseland')}
@@ -180,6 +229,9 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
         mq = quantile_table(mu_d, _cdf_linear(mu_d, np.asarray(op.P1, float)),
                             n_quantiles_mu, log2=False)
         mu_q[i] = np.pad(mq, ((0, n_nu - mq.shape[0]), (0, 0)), mode='edge')
+        mu[i] = _pad_to(mu_d, n_mu)
+        for k, v in _peel_matrix(mu_d, op, n_nu, n_mu).items():
+            peel[k][i] = v
 
         mo = d.mean_opacities
         for k in me:
@@ -200,6 +252,8 @@ def build_dust_tables(dusts, device, dtype, n_quantiles=257,
         jnu_q=f(jnu_q.reshape(n_dust * n_var, n_quantiles)),
         bnu_q=f(bnu_q.reshape(n_dust * n_var, n_quantiles)),
         mu_q=f(mu_q.reshape(n_dust * n_nu, n_quantiles_mu)),
+        mu=f(mu),
+        **{k: f(v.reshape(n_dust * n_nu, n_mu)) for k, v in peel.items()},
         me_specific_energy=f(me['specific_energy']),
         me_temperature=f(me['temperature']),
         me_kappa_planck=f(me['kappa_planck']),

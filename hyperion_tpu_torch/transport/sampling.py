@@ -46,6 +46,22 @@ def searchsorted_right(table, x):
     return torch.searchsorted(table, x.contiguous(), right=True)
 
 
+def searchsorted_rows(table, rows, x):
+    """For each lane i, the index j with table[rows[i], j-1] <= x[i] <
+    table[rows[i], j] (``side='right'``; each row ascending), in [0, n_cols].
+
+    The rows are searched in place, one ``torch.searchsorted`` of all lanes
+    per row, and each lane keeps its own row's answer: no (B, n_cols) copy
+    of the table is gathered. The tables searched this way have one row per
+    dust type, so the rows are few."""
+    x = x.contiguous()
+    out = torch.searchsorted(table[0], x, right=True)
+    for r in range(1, table.shape[0]):
+        out = torch.where(rows == r, torch.searchsorted(table[r], x,
+                                                        right=True), out)
+    return out
+
+
 def _bracket(x_table, x):
     n = x_table.shape[0]
     j = searchsorted_right(x_table, x).clamp(1, n - 1)

@@ -190,7 +190,10 @@ def emit_packets(st, u_src, u_nu, u_mu, u_phi, u_sphere=None, src=None):
     a point on the sphere (on the spot's cap for a spot row) and a
     direction about its outward normal, cosine-law or limb-darkened
     (ref emit_from_sphere, source_type.f90:630-639). Returns a dict of (n,)
-    tensors x, y, z, kx, ky, kz, nu, energy."""
+    tensors x, y, z, kx, ky, kz, nu, energy and the emitting rows,
+    ``source``; with ``u_sphere`` also the surface context of the peel's
+    cosine law (ref emit_from_sphere_peeloff): ``surf`` (emitted from a
+    sphere), the outward normal ``snx``, ``sny``, ``snz`` and ``limb``."""
     if src is None:
         src = pick_sources(st, u_src)
     nu = sample_quantile_rows(st.spec_logq, src, u_nu, exp2=True)
@@ -218,8 +221,12 @@ def emit_packets(st, u_src, u_nu, u_mu, u_phi, u_sphere=None, src=None):
         kx = torch.where(sphere, ox, kx)
         ky = torch.where(sphere, oy, ky)
         kz = torch.where(sphere, oz, kz)
+        surface = dict(surf=sphere, snx=sx, sny=sy, snz=sz,
+                       limb=st.limb[src])
+    else:
+        surface = {}
     return dict(x=x, y=y, z=z, kx=kx, ky=ky, kz=kz, nu=nu,
-                energy=st.energy_weight[src])
+                energy=st.energy_weight[src], source=src, **surface)
 
 
 def nearest_source_intersection(st, x, y, z, kx, ky, kz):

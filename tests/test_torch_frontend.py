@@ -17,7 +17,6 @@ import textwrap
 from pathlib import Path
 from types import SimpleNamespace
 
-import h5py
 import numpy as np
 import pytest
 import torch
@@ -55,9 +54,12 @@ def frontend(package):
 
 
 def tutorial_model(package, n=32, n_photons=500_000, iterations=4,
-                   seed=20261016, density=1e-19):
-    """examples/quickstart.py without its peeled image: n^3 cells of +-50
-    au, one isotropic dust, a 1 Lsun 6000 K point source."""
+                   seed=20261016, density=1e-19, peeled=False,
+                   n_imaging=1_000_000, image_size=128):
+    """examples/quickstart.py: n^3 cells of +-50 au, one isotropic dust, a
+    1 Lsun 6000 K point source; with ``peeled`` its peeled group (one view
+    at 45 degrees, an image_size^2 image, 60 wavelengths from 0.3 to 1000
+    um, one aperture) and ``n_imaging`` imaging photons."""
     F = frontend(package)
     nu = np.logspace(8, 17, 32)
     dust = F.IsotropicDust(nu, np.repeat(0.4, 32), np.repeat(100.0, 32))
@@ -70,7 +72,14 @@ def tutorial_model(package, n=32, n_photons=500_000, iterations=4,
     src.luminosity = F.lsun
     src.temperature = 6000.0
     m.set_n_initial_iterations(iterations)
-    m.set_n_photons(initial=n_photons, imaging=0)
+    m.set_n_photons(initial=n_photons, imaging=n_imaging if peeled else 0)
+    if peeled:
+        sed = m.add_peeled_images(sed=True, image=True)
+        sed.set_viewing_angles([45.0], [0.0])
+        sed.set_image_size(image_size, image_size)
+        sed.set_image_limits(-lim, lim, -lim, lim)
+        sed.set_wavelength_range(60, 0.3, 1000.0)
+        sed.set_aperture_radii(1, 2 * lim, 2 * lim)
     m.set_seed(seed)
     return m
 
@@ -128,10 +137,12 @@ def two_dust_model(package, n=6, n_photons=4000):
 
 
 def class2_model(package, n_r=24, n_t=8, n_photons=200, iterations=1,
-                 seed=-1234):
-    """examples/class2_sed.py without its peeled SED: an AnalyticalYSOModel
-    of a flared disk around a 2 Rsun star, HG dust, an auto spherical-polar
-    grid (96 x 32 x 1 in the example), MRW with gamma 2."""
+                 seed=-1234, peeled=False, n_imaging=500_000):
+    """examples/class2_sed.py: an AnalyticalYSOModel of a flared disk
+    around a 2 Rsun star, HG dust, an auto spherical-polar grid (96 x 32 x 1
+    in the example), MRW with gamma 2; with ``peeled`` its peeled SEDs (20,
+    45 and 80 degrees, 120 wavelengths from 0.3 to 2000 um, one 400 au
+    aperture) and ``n_imaging`` imaging photons."""
     F = frontend(package)
     nu = np.logspace(8, 17, 64)
     dust = F.HenyeyGreensteinDust(nu, np.repeat(0.5, 64),
@@ -151,9 +162,14 @@ def class2_model(package, n_r=24, n_t=8, n_photons=200, iterations=1,
     disk.beta = 1.25
     disk.dust = dust
     m.set_spherical_polar_grid_auto(n_r, n_t, 1)
+    if peeled:
+        sed = m.add_peeled_images(sed=True, image=False)
+        sed.set_viewing_angles([20.0, 45.0, 80.0], [0.0, 0.0, 0.0])
+        sed.set_wavelength_range(120, 0.3, 2000.0)
+        sed.set_aperture_radii(1, 400 * F.au, 400 * F.au)
     m.set_mrw(True, gamma=2.0)
     m.set_n_initial_iterations(iterations)
-    m.set_n_photons(initial=n_photons, imaging=0)
+    m.set_n_photons(initial=n_photons, imaging=n_imaging if peeled else 0)
     m.set_seed(seed)
     return m
 
@@ -172,6 +188,7 @@ def _contents(path):
     def attrs(obj):
         return {k: v for k, v in obj.attrs.items() if k not in _UNCOMPARED}
 
+    import h5py
     with h5py.File(path, 'r') as f:
         out = {'/': ('group', None, attrs(f))}
 
@@ -234,6 +251,7 @@ def test_yso_model_runs_on_the_cpu(tmp_path):
     m = class2_model('port', iterations=2)
     model = m.write(str(tmp_path / 'c2.rtin'))
     out = m.run(str(tmp_path / 'c2.rtout'), device='cpu', batch_size=256)
+    import h5py
     with h5py.File(tmp_path / 'c2.rtout', 'r') as f:
         for g in ('iteration_00001', 'iteration_00002'):
             assert f[g].attrs['killed_photons_geo'] == 0
@@ -308,7 +326,8 @@ def test_model_run_refuses_multi_device(tmp_path):
 def test_port_imports_neither_jax_nor_hyperion_tpu():
     """Every module of the port imports, in a fresh interpreter without
     h5py (as on the card's machine), and leaves jax and hyperion_tpu out of
-    sys.modules; a model is then built and run without HDF5."""
+    sys.modules; a model with a peeled SED is then built and run, Lucy and
+    imaging, without HDF5."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules['h5py'] = None      # no HDF5, as on the card's machine
@@ -333,9 +352,13 @@ def test_port_imports_neither_jax_nor_hyperion_tpu():
         s.luminosity = 3.8e33
         s.temperature = 6000.0
         m.set_n_initial_iterations(1)
-        m.set_n_photons(initial=500, imaging=0)
+        m.set_n_photons(initial=500, imaging=500)
+        sed = m.add_peeled_images(sed=True, image=False)
+        sed.set_viewing_angles([45.0], [0.0])
+        sed.set_wavelength_range(10, 0.3, 1000.0)
         run = run_lucy_model(m, device='cpu', batch_size=256)
         assert run.result.energy_current == 500.0
+        assert run.imaging.energy_current == 500.0
         bad = sorted(k for k in sys.modules
                      if k.split('.')[0] in ('jax', 'hyperion_tpu'))
         assert not bad, bad

@@ -160,12 +160,14 @@ def test_entry_points_need_the_card_unless_asked(entry, monkeypatch,
     assert not (tmp_path / 'x.rtout').exists()
 
 
-def _peeled(m):
+def _monochromatic(m):
+    m.set_monochromatic(True, wavelengths=[1.0, 10.0])
     m.add_peeled_images(sed=True, image=False)
 
 
-def _binned(m):
-    m.add_binned_images(sed=True, image=False)
+def _raytracing(m):
+    m.set_raytracing(True)
+    m.add_peeled_images(sed=True, image=False)
 
 
 def _cylindrical(m):
@@ -190,7 +192,7 @@ def test_jax_model_is_refused(tmp_path):
                   device='cpu')
 
 
-@pytest.mark.parametrize('change', [_peeled, _binned, _cylindrical,
+@pytest.mark.parametrize('change', [_monochromatic, _raytracing, _cylindrical,
                                     _external_spherical_source])
 def test_outside_the_slice_raises(change, tmp_path):
     m = tutorial_model()
