@@ -61,7 +61,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the photon count, the SEDs finite and >= 0 and the 80 degree view
    fainter than the 20 degree one at the shortest wavelength; per
    iteration wall, photons/s, steps, ms per step, occupancy, killed_int and
-   host syncs per step (at most 1.05);
+   host syncs per step (at most 1.05); escape_tau launches per imaging
+   step, at most the peel events per step (one launch per event);
 9. bench.py's yso_thick configuration through transport.lucy.run_lucy as
    bench.py calls it, cut to 1 iteration of 20,000 photons (bench.py: 2
    of 2,000,000; ``--yso-thick-photons N`` runs phases 1, 2 and 9 alone
@@ -70,12 +71,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
 10. escape_tau against its plain version on the very walk calls of
    imaging steps 1-20 and 41-60 (WALK_WINDOWS) of the quickstart
    (cartesian, B = 125,000) and of class2 (spherical-polar, B = 50,000),
-   recorded from imaging_runner.run_imaging: in each window, the kernel
-   (which walks in float64) with float64 lanes within 1e-10 relative of
-   the float64 plain version on every lane, with float32 lanes within 1e-6
-   relative of it on every lane (ESCAPE_TAU_RTOL32 says why) and equal to
-   its own plain version; the longest walk's crossings, and the times:
-   device us per call (CUDA events), host us per call, the plain
+   recorded from imaging_runner.run_imaging: one call per peel event with
+   the event's V views as (V, B) directions (and one per forced first
+   interaction). In each window, the kernel (which walks in float64) with
+   float64 lanes within 1e-10 relative of the float64 plain version on
+   every ray, with float32 lanes within 1e-6 relative of it on every ray
+   (ESCAPE_TAU_RTOL32 says why) and equal to its own plain version; the
+   longest walk's crossings, and the times: device us per call (each call
+   one event, CUDA events) and per view, host us per call, the plain
    version's, and the bound.
 
 Each kernel's launch count is reset just before and read just after each
@@ -148,9 +151,11 @@ ESCAPE_TAU_RTOL32 = 1e-6
 # and steps 41-60, past the first refills, where class2's walks are the long
 # ones of its steady state (deep in the disk, grazing the cones)
 WALK_WINDOWS = ((0, 20), (40, 60))
-# the float64 operations of one crossing, counted from csrc/escape_tau.cu:
+# the float64 operations of one crossing of the walk itself, counted from
+# the plain walk's find_wall (transport/gtable.py, gtable_spherical.py):
 # three plane distances and the move (cartesian); two spheres, two cones,
-# the nudged find_cell at the landing point (spherical-polar)
+# the nudged find_cell at the landing point (spherical-polar). The bound
+# counts this work, whatever the kernel does around it.
 FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120}
 
 
@@ -761,6 +766,27 @@ def imaging_syncs():
         imaging.run_final = inner
 
 
+@contextlib.contextmanager
+def peel_events():
+    """Count the imaging step's peel events that walk (a call of
+    ``imaging.peel_and_bin`` with a group that does not ignore the optical
+    depth); yields a one-item list."""
+    from hyperion_tpu_torch.transport import imaging
+
+    count = [0]
+    inner = imaging.peel_and_bin
+
+    def counted(walk, dt, groups, *args, **kw):
+        count[0] += any(not g.ignore_optical_depth for g in groups)
+        return inner(walk, dt, groups, *args, **kw)
+
+    imaging.peel_and_bin = counted
+    try:
+        yield count
+    finally:
+        imaging.peel_and_bin = inner
+
+
 def check_imaging(what, run, n_photons, syncs, card):
     """The imaging row of a run: energy_current the photon count, no
     geometry kills, at most 1.05 host reads per step, the peeled arrays
@@ -822,7 +848,7 @@ def run_slice(dv, et, card):
     dv.launches = 0
     et.launches = 0
     t0 = time.time()
-    with imaging_syncs() as syncs:
+    with imaging_syncs() as syncs, peel_events() as events:
         run = run_lucy_model(m, device='cuda')
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -864,13 +890,22 @@ def run_slice(dv, et, card):
     if abs(band / expected - 1.0) > 0.02:
         raise AssertionError('slice: peeled band luminosity %.6e against '
                              '%.6e expected' % (band, expected))
+    n_img = run.imaging.n_steps
     img.update(band_luminosity=band, expected=expected,
                ratio=band / expected, image_sum=float(image.sum()),
-               escape_tau_launches=launches_et)
+               escape_tau_launches=launches_et, peel_events=events[0],
+               escape_tau_launches_per_step=launches_et / n_img)
+    # one launch per peel event, and one per forced first interaction
+    # (a refill: at most one per step)
     phase('slice imaging: band luminosity %.6e erg/s = %.5f x expected '
-          '(%.6e), image sum %.6e, escape_tau launches %d [%s]'
+          '(%.6e), image sum %.6e, escape_tau launches %d (%.3f per imaging '
+          'step) for %d peel events [%s]'
           % (band, band / expected, expected, image.sum(), launches_et,
-             card))
+             launches_et / n_img, events[0], card))
+    if not events[0] <= launches_et <= events[0] + n_img:
+        raise AssertionError('slice imaging: %d escape_tau launches for %d '
+                             'peel events over %d steps'
+                             % (launches_et, events[0], n_img))
     phase('slice: 4 x 500000 photons and 1000000 imaging photons in %.3f s '
           'wall (run_lucy_model), T %.1f .. %.1f K, deposit_visit launches '
           '%d over %d steps [%s]'
@@ -1239,7 +1274,8 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
     dv.launches = 0
     et.launches = 0
     t0 = time.time()
-    with transport_syncs() as syncs, imaging_syncs() as img_syncs:
+    with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
+            peel_events() as events:
         run = run_lucy_model(m, device='cuda', max_steps=max_steps,
                              imaging_max_steps=imaging_max_steps)
     torch.cuda.synchronize()
@@ -1262,12 +1298,20 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
         raise AssertionError('class2: at 0.3 um the 80 degree SED %g, the 20 '
                              'degree one %g; escape_tau launches %d'
                              % (s80, s20, launches_et))
+    n_img = run.imaging.n_steps
     img.update(ratio_80_20=s80 / s20, nuLnu_max=seds.max(axis=1).tolist(),
-               escape_tau_launches=launches_et)
+               escape_tau_launches=launches_et, peel_events=events[0],
+               escape_tau_launches_per_step=launches_et / n_img,
+               peel_events_per_step=events[0] / n_img)
     phase('class2 imaging: 80/20 degree ratio at 0.3 um %.4e, peak nu L_nu '
-          'per view %s erg/s, escape_tau launches %d [%s]'
+          'per view %s erg/s, escape_tau launches %d over %d imaging steps: '
+          '%.3f per step for %.3f peel events per step [%s]'
           % (s80 / s20, ['%.4e' % v for v in seds.max(axis=1)], launches_et,
-             card))
+             n_img, launches_et / n_img, events[0] / n_img, card))
+    # one launch per peel event (class2 has no forced first interaction)
+    if launches_et > events[0]:
+        raise AssertionError('class2 imaging: %d escape_tau launches for %d '
+                             'peel events' % (launches_et, events[0]))
     if not steps < launches <= 2 * steps:
         raise AssertionError('class2: deposit_visit launches %d vs %d steps'
                              % (launches, steps))
@@ -1399,13 +1443,15 @@ def _f64(call):
 
 
 def lane_bytes(call, n_dust):
-    """The bytes of one float32 walk call's lanes: each active lane reads
-    its position, direction, cell, flag, chi row (and t_max) once and
-    writes tau; an inactive lane reads its flag and writes tau."""
-    active = call[8]
-    n_act = int(active.sum())
-    lane = 6 * 4 + 8 + 1 + n_dust * 4 + 4 + (0 if call[9] is None else 4)
-    return n_act * lane + (active.shape[0] - n_act) * (1 + 4)
+    """The bytes of one float32 walk call of V views: each active lane
+    reads its position, cell, flag and chi row once, each of its rays its
+    direction (and t_max), and every ray's tau is written; an inactive
+    lane reads its flag."""
+    active, V = call[8], call[4].shape[0]
+    n_act, B = int(active.sum()), active.shape[0]
+    lane = 3 * 4 + 8 + 1 + n_dust * 4
+    ray = 3 * 4 + (0 if call[9] is None else 4)
+    return n_act * (lane + V * ray) + (B - n_act) * 1 + V * B * 4
 
 
 def _rel_err(a, ref):
@@ -1415,11 +1461,23 @@ def _rel_err(a, ref):
     return float(torch.where(ref == 0, (a != 0).double(), rel).max())
 
 
+def _active_rays(call, active):
+    """The rays of a call's active lanes as one view of n lanes: (chi,
+    x, y, z, kx, ky, kz, cell) and t_max, views one after another."""
+    import torch
+    V = call[4].shape[0]
+    lanes = [torch.cat([a[active]] * V) for a in (call[0],) + tuple(call[1:4])]
+    dirs = [k[:, active].reshape(1, -1) for k in call[4:7]]
+    cell = torch.cat([call[7][active]] * V)
+    t_max = None if call[9] is None else call[9][:, active].reshape(1, -1)
+    return lanes + dirs + [cell], t_max
+
+
 def check_window(kind, window, calls, tables, batch, card):
     """Phase 10 for the walk calls of one window of steps: hold the kernel
-    with float64 and with float32 lanes against the float64 plain version,
-    and time it on the float32 lanes. ``tables``: the grid's float64
-    geometry and the density transpose in float32 and float64."""
+    with float64 and with float32 lanes against the float64 plain version
+    on every ray, and time it on the float32 lanes. ``tables``: the grid's
+    float64 geometry and the density transpose in float32 and float64."""
     import torch
     from hyperion_tpu_torch.transport import escape_tau as et
 
@@ -1427,31 +1485,37 @@ def check_window(kind, window, calls, tables, batch, card):
     walk32, walk64 = et.EscapeTau(geo64, rt32), et.EscapeTau(geo64, rt64)
     n_dust = rt32.shape[1]
     worst64 = worst32 = 0.0
-    n_lanes = n_far = max_cross = n_cross_all = nbytes = 0
+    n_lanes = n_rays = n_views = n_far = max_cross = n_cross_all = 0
+    nbytes = 0
     groups = {False: [], True: []}     # by whether a call limits the walk
     for call in calls:
         active = call[8]
         c64 = _f64(call)
         k64 = walk64(*c64[:9], t_max=c64[9])
         k32 = walk32(*call[:9], t_max=call[9]).double()
-        # inactive lanes get 0
-        n_far += int((k64[~active] != 0).sum() + (k32[~active] != 0).sum())
-        groups[call[9] is not None].append((c64, active, k64[active],
-                                            k32[active]))
+        # the rays of inactive lanes get 0
+        n_far += int((k64[:, ~active] != 0).sum() +
+                     (k32[:, ~active] != 0).sum())
+        groups[call[9] is not None].append(
+            (c64, active, k64[:, active].reshape(-1),
+             k32[:, active].reshape(-1)))
         n_lanes += int(active.sum())
+        n_views += call[4].shape[0]
+        n_rays += int(active.sum()) * call[4].shape[0]
         nbytes += lane_bytes(call, n_dust)
-    # the float64 plain version on the active lanes of all calls at once:
-    # it takes as many steps as the longest walk, not that many per call
+    # the float64 plain version on the rays of all calls at once: it takes
+    # as many steps as the longest walk, not that many per call and view
     for limited, group in groups.items():
-        lanes = [torch.cat([c[i][a] for c, a, _, _ in group])
-                 for i in range(8)] if group else []
-        if not group or lanes[1].numel() == 0:
+        rays = [_active_rays(c, a) for c, a, _, _ in group]
+        if not rays or sum(r[0][1].numel() for r in rays) == 0:
             continue
-        t_max = torch.cat([c[9][a] for c, a, _, _ in group]) \
-            if limited else None
+        lanes = [torch.cat([r[0][i] for r in rays], dim=1 if 4 <= i < 7
+                           else 0) for i in range(8)]
+        t_max = torch.cat([r[1] for r in rays], dim=1) if limited else None
         ones = torch.ones_like(lanes[7], dtype=torch.bool)
         ref, n_cross = et.escape_tau_reference(
             geo64, rt64, *lanes, ones, t_max=t_max, crossings=True)
+        ref = ref[0]
         k64 = torch.cat([k for _, _, k, _ in group])
         k32 = torch.cat([k for _, _, _, k in group])
         worst64 = max(worst64, _rel_err(k64, ref))
@@ -1481,8 +1545,7 @@ def check_window(kind, window, calls, tables, batch, card):
             walk32(*call[:9], t_max=call[9])
             b.record()
         torch.cuda.synchronize()
-    device_us = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e3 \
-        / len(calls)
+    device_us = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e3
     t0 = time.perf_counter()
     for call in calls:
         walk32(*call[:9], t_max=call[9])
@@ -1503,25 +1566,29 @@ def check_window(kind, window, calls, tables, batch, card):
                       for call, tau_p in zip(some, plain))
     t_bytes = nbytes / len(calls) / HBM_BYTES_PER_S * 1e6
     t_ops = flops / len(calls) / FP64_FLOPS * 1e6
-    out = dict(model=kind, steps=steps, calls=len(calls), B=batch,
-               f64_max_rel_err=worst64, f32_max_rel_err_vs_f64=worst32,
-               f32_lanes_outside=n_far, active_lanes=n_lanes,
+    out = dict(model=kind, steps=steps, calls=len(calls), views=n_views,
+               B=batch, f64_max_rel_err=worst64,
+               f32_max_rel_err_vs_f64=worst32, f32_rays_outside=n_far,
+               active_lanes=n_lanes, active_rays=n_rays,
                f32_vs_plain32_max_abs_err=max_err, longest_walk=max_cross,
-               device_us=device_us, host_us=host_us, plain_ms=plain_ms,
-               bound_us=max(t_bytes, t_ops),
+               device_us=device_us / len(calls),
+               device_us_per_view=device_us / n_views, host_us=host_us,
+               plain_ms=plain_ms, bound_us=max(t_bytes, t_ops),
                bound_by='bytes' if t_bytes >= t_ops else 'operations',
                bytes_per_call=nbytes / len(calls),
                flops_per_call=flops / len(calls))
-    phase('escape_tau %s (%d calls of steps %s, B=%d, %d active lanes): max '
-          'rel err against the float64 plain version %.3e (float64 lanes), '
-          '%.3e (float32 lanes; %d lanes beyond %.0e tau); float32 lanes '
-          'against their plain version on %d calls: max abs err %.3e; '
-          'longest walk %d crossings; device %.2f us, host %.2f us per call, '
-          'plain %.3f ms, bound %.3f us (%s: %.0f bytes, %.0f float64 flops '
-          'per call) [%s]'
-          % (kind, len(calls), steps, batch, n_lanes, worst64, worst32,
-             n_far, ESCAPE_TAU_RTOL32, len(some), max_err, max_cross,
-             device_us, host_us, plain_ms, out['bound_us'], out['bound_by'],
+    phase('escape_tau %s (%d calls, %d views, of steps %s, B=%d, %d active '
+          'lanes, %d rays): max rel err against the float64 plain version '
+          '%.3e (float64 lanes), %.3e (float32 lanes; %d rays beyond %.0e '
+          'tau); float32 lanes against their plain version on %d calls: max '
+          'abs err %.3e; longest walk %d crossings; device %.2f us per call '
+          '(one event), %.2f us per view, host %.2f us per call, plain %.3f '
+          'ms, bound %.3f us (%s: %.0f bytes, %.0f float64 flops per call) '
+          '[%s]'
+          % (kind, len(calls), n_views, steps, batch, n_lanes, n_rays,
+             worst64, worst32, n_far, ESCAPE_TAU_RTOL32, len(some), max_err,
+             max_cross, out['device_us'], out['device_us_per_view'], host_us,
+             plain_ms, out['bound_us'], out['bound_by'],
              out['bytes_per_call'], out['flops_per_call'], card))
     if worst64 > 1e-10 or n_far or n_far_plain:
         raise AssertionError('escape_tau %s: the kernel against its plain '
@@ -1693,8 +1760,9 @@ def main():
                     f32_max_rel_err_vs_f64=max(w['f32_max_rel_err_vs_f64']
                                                for w in walks),
                     windows=[{k: w[k] for k in (
-                        'model', 'steps', 'calls', 'device_us', 'host_us',
-                        'plain_ms', 'bound_us', 'bound_by', 'longest_walk')}
+                        'model', 'steps', 'calls', 'views', 'device_us',
+                        'device_us_per_view', 'host_us', 'plain_ms',
+                        'bound_us', 'bound_by', 'longest_walk')}
                         for w in walks])]
     record['kernels'] = kernels
     (OUT / 'results.json').write_text(json.dumps(record, indent=1))

@@ -2,17 +2,21 @@
 ``hyperion_tpu/transport/imaging.py:escape_tau_walk``, an XLA while loop;
 ref grid_escape_tau, src/grid/grid_propagate_3d.f90:377-480).
 
-:class:`EscapeTau` holds one grid's walls and density. On CUDA tensors a
-call launches the hand-written kernel in ``csrc/escape_tau.cu``, one thread
-per lane walking its ray to the edge on the device; on CPU tensors it runs
-the plain PyTorch version :func:`escape_tau_reference`. Nothing falls back
-from one to the other.
+:class:`EscapeTau` holds one grid's walls and density. A call walks the
+lanes of one event along V directions at once (a peel event's lines of
+sight): positions, cells, chi rows and the active mask are (B,), the
+directions and the distance limits (V, B), tau comes out (V, B). On CUDA
+tensors it launches the hand-written kernel in ``csrc/escape_tau.cu`` once,
+whose threads fetch the live rays on the device; on CPU tensors it runs the
+plain PyTorch version :func:`escape_tau_reference`. Nothing falls back from
+one to the other.
 
-For each active lane, from its cell: the wall ahead, tau += (Σ_d chi[i, d]
-rho[d, cell]) × the segment (limited by the distance left when ``t_max``
-is given: an inside observer), the move (snapped onto a crossed cartesian
-wall), until the ray escapes, the distance is used up, or ``max_steps``
-crossings. Lanes that are not active get 0.
+For each ray of an active lane, from the lane's cell: the wall ahead, tau
++= (Σ_d chi[i, d] rho[d, cell]) × the segment (limited by the distance left
+when ``t_max`` is given: an inside observer; +inf walks to the edge), the
+move (snapped onto a crossed cartesian wall), until the ray escapes, the
+distance is used up, or ``max_steps`` crossings. Rays of lanes that are
+not active get 0.
 
 The walk runs in float64 on the grid's float64 walls whatever the type of
 the lanes: float32 lanes, chi rows and density (the engine's type on the
@@ -33,26 +37,24 @@ from .gtable_spherical import SphericalGeometry
 # the main path ran the kernel
 launches = 0
 
+# the kernel's argument block, int64 words in the order of csrc/escape_tau.cu's
+# enum Arg: the grid's part (filled once, the plan by escape_tau_plan), then
+# the lanes' part (filled at every call)
+_ARGS = ('is_double', 'kind', 'w0', 'w1', 'w2', 'w3', 'w4', 'w5', 'w6', 'w7',
+         'theta_kind', 'n1', 'n2', 'n3', 'rho', 'n_dust', 'smem',
+         'walls_shared', 'rho_shared', 'max_blocks', 'counter', 'max_steps',
+         'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'cell', 'active', 't_max',
+         'tau', 'B', 'V')
+_LANES = _ARGS.index('chi')
 
-def escape_tau_reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz,
-                         cell, active, max_steps=100000, t_max=None,
-                         crossings=False):
-    """The plain PyTorch walk, the JAX loop with the port's geometry (its
-    float64 tables): ``rho_t`` (n_cells, n_dust), ``chi_rows`` (B, n_dust),
-    ``cell`` (B,) int64, ``active`` (B,) bool, ``t_max`` (B,) or None.
-    Float32 inputs are widened to float64 for the walk. Returns tau (B,) in
-    the lanes' type, and with ``crossings`` also the (B,) int64 count of
-    cells each lane walked through. Reads ``any(active)`` on the host once
-    per crossing."""
-    dtype = x.dtype
-    rho_t, chi_rows, x, y, z, kx, ky, kz = (
-        a.to(torch.float64) for a in (rho_t, chi_rows, x, y, z, kx, ky, kz))
+
+def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
+          max_steps, t_max):
+    """One view of the plain walk, on float64 tensors: (tau, crossings)."""
     limited = t_max is not None
-    if limited:
-        t_max = t_max.to(torch.float64)
     tau = torch.zeros_like(x)
     n_cross = torch.zeros_like(cell)
-    remaining = t_max if limited else None
+    remaining = t_max
     i = 0
     while i < max_steps and bool(active.any()):
         n_cross += active
@@ -75,8 +77,34 @@ def escape_tau_reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz,
         if limited:
             active = active & (remaining > 0.0)
         i += 1
-    tau = tau.to(dtype)
-    return (tau, n_cross) if crossings else tau
+    return tau, n_cross
+
+
+def escape_tau_reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz,
+                         cell, active, max_steps=100000, t_max=None,
+                         crossings=False):
+    """The plain PyTorch walk, the JAX loop with the port's geometry (its
+    float64 tables), one view after another: ``rho_t`` (n_cells, n_dust),
+    ``chi_rows`` (B, n_dust), ``x``, ``y``, ``z``, ``cell`` (B,) int64,
+    ``active`` (B,) bool, ``kx``, ``ky``, ``kz`` (V, B), ``t_max`` (V, B)
+    or None. Float32 inputs are widened to float64 for the walk. Returns
+    tau (V, B) in the lanes' type, and with ``crossings`` also the (V, B)
+    int64 count of cells each ray walked through. Reads ``any(active)`` on
+    the host once per crossing."""
+    dtype = x.dtype
+    rho_t, chi_rows, x, y, z, kx, ky, kz = (
+        a.to(torch.float64) for a in (rho_t, chi_rows, x, y, z, kx, ky, kz))
+    if t_max is not None:
+        t_max = t_max.to(torch.float64)
+    walks = [_walk(geometry, rho_t, chi_rows, x, y, z, kx[v], ky[v], kz[v],
+                   cell, active, max_steps,
+                   None if t_max is None else t_max[v])
+             for v in range(kx.shape[0])]
+    if not walks:
+        empty = torch.empty((0, x.shape[0]), dtype=dtype, device=x.device)
+        return (empty, empty.long()) if crossings else empty
+    tau = torch.stack([w[0] for w in walks]).to(dtype)
+    return (tau, torch.stack([w[1] for w in walks])) if crossings else tau
 
 
 def _lane_error(name, t, dtype, shape, device):
@@ -89,15 +117,21 @@ def _lane_error(name, t, dtype, shape, device):
 
 class EscapeTau:
     """One grid's escape-tau walk: ``walk(chi_rows, x, y, z, kx, ky, kz,
-    cell, active, t_max=None)`` returns tau (B,).
+    cell, active, t_max=None)`` returns tau (V, B) for directions and
+    ``t_max`` of shape (V, B) (an unlimited view in a limited call takes
+    +inf).
 
     ``geometry`` is a CartesianGeometry or SphericalGeometry of float64
     tables (``build_geometry_tables(grid, device, torch.float64)``) and
     ``rho_t`` the (n_cells, n_dust) density the step keeps, float32 or
     float64, on one device; the lanes take the density's type. On CUDA the
-    tables are checked and their pointers cached here, once; a call checks
-    its lane tensors, allocates tau and launches once on the current
-    stream, without synchronising."""
+    tables are checked, the kernel's plan made (shared memory, resident
+    blocks) and its argument block filled here, once, beside a two-word
+    device counter that the kernel resets itself: a call checks each lane
+    tensor once, allocates tau, fills the block's lane words and launches
+    once on the current stream, without synchronising, so it can be
+    captured in a CUDA graph. Calls of one object run in stream order (they
+    share the counter)."""
 
     def __init__(self, geometry, rho_t, max_steps=100000):
         self.geometry, self.rho_t = geometry, rho_t
@@ -106,9 +140,13 @@ class EscapeTau:
         self.dtype = rho_t.dtype
         self.n_dust = rho_t.shape[1]
         self._cuda = self.device.type == 'cuda'
+        self._device_index = -1
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError("escape_tau takes float32 or float64, not %s"
                              % self.dtype)
+        if self.max_steps < 1:
+            raise ValueError("escape_tau: max_steps must be >= 1, not %d"
+                             % self.max_steps)
         first_wall = geometry.rw if isinstance(geometry, SphericalGeometry) \
             else geometry.xw if isinstance(geometry, CartesianGeometry) \
             else None
@@ -120,17 +158,28 @@ class EscapeTau:
                 raise ValueError("escape_tau runs on CPU or CUDA tensors, "
                                  "not %s" % self.device)
             return
+        index = self.device.index
+        self._index = torch.cuda.current_device() if index is None else index
+        self._device_index = self._index
+        self._stream = torch._C._cuda_getCurrentRawStream
+        with torch.cuda.device(self._index):
+            self._bind(_build.load('escape_tau'))
+
+    def _bind(self, lib):
+        """Check the grid's tables, keep them alive, fill the grid's part of
+        the argument block and make the kernel's plan with ``lib``."""
+        geometry, rho_t = self.geometry, self.rho_t
         if isinstance(geometry, SphericalGeometry):
             kind = 1
             walls = [geometry.rw, geometry.rw2, geometry.cos_tw,
                      -geometry.cos_tw, geometry.cos2_tw, geometry.sin_pw,
                      geometry.cos_pw, geometry.phi_w]
-            theta_kind = geometry.theta_kind.to(torch.int64).contiguous()
-            t_eps = float(geometry.t_eps)
+            theta_kind = geometry.theta_kind.to(torch.int32).contiguous()
+            t_eps, rw1 = float(geometry.t_eps), float(geometry.rw[1])
         elif isinstance(geometry, CartesianGeometry):
             kind = 0
             walls = [geometry.xw, geometry.yw, geometry.zw]
-            theta_kind, t_eps = None, 0.0
+            theta_kind, t_eps, rw1 = None, 0.0, 0.0
         else:
             raise NotImplementedError(
                 "escape_tau walks cartesian and spherical-polar grids, not "
@@ -142,29 +191,58 @@ class EscapeTau:
                                  "density on %s" % (w.device, self.device))
         if not rho_t.is_contiguous():
             raise ValueError("escape_tau: rho_t must be contiguous")
+        if geometry.n_cells * self.n_dust >= 2 ** 31:
+            raise ValueError("escape_tau: the density must have fewer than "
+                             "2^31 entries")
+        self._counter = torch.zeros(2, dtype=torch.int32, device=self.device)
         # keep the tables alive while the kernel may read them
         self._tables = walls + [theta_kind]
+        fn = lib.escape_tau
+        if fn.argtypes is None:
+            lib.escape_tau_plan.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+            lib.escape_tau_plan.restype = ctypes.c_int
+            lib.escape_tau_n_args.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_double,
+                           ctypes.c_double, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        if lib.escape_tau_n_args() != len(_ARGS):
+            raise RuntimeError("escape_tau: the library's argument block has "
+                               "%d words, the wrapper's %d"
+                               % (lib.escape_tau_n_args(), len(_ARGS)))
         ptrs = [w.data_ptr() for w in walls] + [0] * (8 - len(walls))
-        self._walls = (ctypes.c_void_p * 8)(*ptrs)
-        self._args = (int(self.dtype == torch.float64), kind,
-                      self._walls,
-                      0 if theta_kind is None else theta_kind.data_ptr(),
-                      t_eps, geometry.n1, geometry.n2, geometry.n3,
-                      rho_t.data_ptr(), self.n_dust)
-        self._fn = _kernel()
-        self._stream = torch._C._cuda_getCurrentRawStream
-        index = self.device.index
-        self._index = torch.cuda.current_device() if index is None else index
+        grid = dict(is_double=int(self.dtype == torch.float64), kind=kind,
+                    theta_kind=0 if theta_kind is None else
+                    theta_kind.data_ptr(), n1=geometry.n1, n2=geometry.n2,
+                    n3=geometry.n3, rho=rho_t.data_ptr(), n_dust=self.n_dust,
+                    counter=self._counter.data_ptr(),
+                    max_steps=self.max_steps,
+                    **{'w%d' % k: p for k, p in enumerate(ptrs)})
+        self._args = (ctypes.c_longlong * len(_ARGS))(
+            *[grid.get(name, 0) for name in _ARGS])
+        err = lib.escape_tau_plan(self._args)
+        if err != 0 or self._args[_ARGS.index('max_blocks')] <= 0:
+            raise RuntimeError("escape_tau: no plan for the kernel (cudaError "
+                               "%d, %d resident blocks)"
+                               % (err, self._args[_ARGS.index('max_blocks')]))
+        self._t_eps, self._rw1, self._fn = t_eps, rw1, fn
 
     def __call__(self, chi_rows, x, y, z, kx, ky, kz, cell, active,
                  t_max=None):
         # the same checks on either device, so that the CPU tests hold the
         # callers to what the kernel takes
-        B = x.shape[0]
-        lanes = [x, y, z, kx, ky, kz] + ([] if t_max is None else [t_max])
-        for name, t in zip(('x', 'y', 'z', 'kx', 'ky', 'kz', 't_max'), lanes):
-            self._check(name, t, self.dtype, (B,))
-        self._check('chi_rows', chi_rows, self.dtype, (B, self.n_dust))
+        if kx.dim() != 2:
+            raise _lane_error('kx', kx, self.dtype, '(V, B)', self.device)
+        V, B = kx.shape
+        if V * B >= 2 ** 31 - 2 ** 20:
+            raise ValueError("escape_tau: %d x %d rays is too many for one "
+                             "call" % (V, B))
+        for name, t, shape in (('x', x, (B,)), ('y', y, (B,)), ('z', z, (B,)),
+                               ('kx', kx, (V, B)), ('ky', ky, (V, B)),
+                               ('kz', kz, (V, B)),
+                               ('chi_rows', chi_rows, (B, self.n_dust))):
+            self._check(name, t, self.dtype, shape)
+        if t_max is not None:
+            self._check('t_max', t_max, self.dtype, (V, B))
         self._check('cell', cell, torch.int64, (B,))
         self._check('active', active, torch.bool, (B,))
         if not self._cuda:
@@ -172,12 +250,15 @@ class EscapeTau:
                                         x, y, z, kx, ky, kz, cell, active,
                                         self.max_steps, t_max)
         global launches
-        tau = torch.empty(B, dtype=self.dtype, device=self.device)
-        lane_ptrs = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in lanes[:6]])
-        err = self._fn(*self._args, chi_rows.data_ptr(), lane_ptrs,
-                       cell.data_ptr(), active.data_ptr(),
-                       0 if t_max is None else t_max.data_ptr(),
-                       self.max_steps, tau.data_ptr(), B,
+        tau = torch.empty((V, B), dtype=self.dtype, device=self.device)
+        if V * B == 0:
+            return tau
+        self._args[_LANES:] = [
+            chi_rows.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            kx.data_ptr(), ky.data_ptr(), kz.data_ptr(), cell.data_ptr(),
+            active.data_ptr(), 0 if t_max is None else t_max.data_ptr(),
+            tau.data_ptr(), B, V]
+        err = self._fn(self._args, self._t_eps, self._rw1,
                        self._stream(self._index))
         if err != 0:
             raise RuntimeError("escape_tau kernel launch failed: cudaError %d"
@@ -186,25 +267,7 @@ class EscapeTau:
         return tau
 
     def _check(self, name, t, dtype, shape):
-        if self._cuda:
-            wrong_device = t.device.type != 'cuda' or \
-                t.device.index not in (None, self._index)
-        else:
-            wrong_device = t.device.type != 'cpu'
-        if t.dtype != dtype or wrong_device or t.shape != shape or \
-                not t.is_contiguous():
+        # get_device() is the card's index, or -1 on the CPU
+        if t.dtype != dtype or t.get_device() != self._device_index or \
+                t.shape != shape or not t.is_contiguous():
             raise _lane_error(name, t, dtype, shape, self.device)
-
-
-def _kernel():
-    fn = _build.load('escape_tau').escape_tau
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_double, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn

@@ -7,13 +7,13 @@ deposits. At every emission, MRW jump and interaction each view of each
 peeled group takes the event's peel weight (isotropic, the stellar
 surface's cosine law, or the scattering matrix toward the observer, with
 the Stokes vector when a group asks for it), attenuates it by the optical
-depth to the grid's edge along the line of sight (one ``escape_tau`` walk
-per view, a hand-written kernel on the card) and adds it into the
-(view, aperture or pixel, frequency, origin, Stokes) cubes with one
-``index_add_`` per cube. Photons that leave the grid are binned by their
-exit direction into the binned group. With forced first interaction the
-escape optical depth along the emission ray reweights the packet (WR99 or
-Baes16).
+depth to the grid's edge along the line of sight (one ``escape_tau`` call
+per event for all the views, a hand-written kernel on the card) and adds
+it into the (view, aperture or pixel, frequency, origin, Stokes) cubes
+with one ``index_add_`` per cube. Photons that leave the grid are binned
+by their exit direction into the binned group. With forced first
+interaction the escape optical depth along the emission ray, walked in
+the emission peel's call, reweights the packet (WR99 or Baes16).
 
 One ``(n_rows, B)`` block of uniforms per step, a refill only when a
 quarter of the lanes are dead or a re-absorbed photon waits, and one host
@@ -100,19 +100,24 @@ class PeelGroup:
     filter_lognu: Optional[torch.Tensor] = None   # (n_samp,)
     filter_tn: Optional[torch.Tensor] = None      # (n_nu, n_samp)
     inv_area: Optional[float] = None              # 1/L^2, inside observers
-    # the (B,) direction lanes of each outside view, made once per batch
+    # the (n_view, B) direction lanes of the outside views, made once per
+    # batch
     _lanes: dict = field(default_factory=dict, repr=False, compare=False)
 
-    def view_lanes(self, iv, like):
-        """(vdx, vdy, vdz) of view ``iv`` as full (B,) tensors like
-        ``like``, made at the first call for a batch and kept."""
-        key = (iv, like.shape[0], like.device, like.dtype)
-        lanes = self._lanes.get(key)
-        if lanes is None:
-            lanes = tuple(torch.full_like(like, float(v))
-                          for v in self.view_dir[iv])
-            self._lanes[key] = lanes
-        return lanes
+    def view_block(self, like):
+        """(vdx, vdy, vdz) of every view, each a contiguous (n_view, B)
+        tensor like ``like`` (B,), made at the first call for a batch and
+        kept; row ``iv`` is view ``iv``."""
+        key = (like.shape[0], like.device, like.dtype)
+        block = self._lanes.get(key)
+        if block is None:
+            block = tuple(
+                torch.as_tensor(self.view_dir[:, c], dtype=like.dtype,
+                                device=like.device)[:, None]
+                .expand(self.n_view, like.shape[0]).contiguous()
+                for c in range(3))
+            self._lanes[key] = block
+        return block
 
 
 def _viewing_frames(angles):
@@ -445,12 +450,55 @@ def bin_escaped(group, n_theta, n_phi, acc, x, y, z, kx, ky, kz, nu, energy,
                  nu_ok, tr, io, flux_s)
 
 
+def _walk_sights(walk, groups, sights, chi_rows, p_x, p_y, p_z, cell,
+                 active, extra=None):
+    """The escape optical depth along the lines of sight of every group
+    that attenuates, and along ``extra``'s rays (see :func:`peel_and_bin`),
+    in one call of ``walk``; an outside view or an extra ray in a call with
+    inside observers walks unlimited (t_max = +inf). Returns (per group
+    tau of shape (n, B), or None for an ``ignore_optical_depth`` group;
+    the extra rays' tau (B,) or None)."""
+    rows = [s for g, s in zip(groups, sights) if not g.ignore_optical_depth]
+    limited = [g.inside for g in groups if not g.ignore_optical_depth]
+    if extra is not None:
+        rows.append(tuple(k[None] for k in extra[:3]) + (None,))
+        limited.append(False)
+        active = active | extra[3]
+    if not rows:
+        return [None] * len(groups), None
+    if len(rows) == 1:
+        kx, ky, kz = rows[0][:3]
+    else:
+        kx, ky, kz = (torch.cat([r[c] for r in rows]) for c in range(3))
+    t_max = None
+    if any(limited):
+        t_max = torch.cat([r[3][None] if lim else
+                           torch.full_like(r[0], math.inf)
+                           for r, lim in zip(rows, limited)])
+    tau = walk(chi_rows, p_x, p_y, p_z, kx, ky, kz, cell, active,
+               t_max=t_max)
+    taus, row = [], 0
+    for group, sight in zip(groups, sights):
+        if group.ignore_optical_depth:
+            taus.append(None)
+            continue
+        n = sight[0].shape[0]
+        taus.append(tau[row:row + n])
+        row += n
+    return taus, None if extra is None else \
+        torch.where(extra[3], tau[-1], 0.0)
+
+
 def peel_and_bin(walk, dt, groups, accums, p_x, p_y, p_z, chi_rows, cell, nu,
                  energy, weight_iso, is_scatter, dust_id, k_in_x, k_in_y,
-                 k_in_z, prov, active, stokes_in=None, surface=None):
+                 k_in_z, prov, active, stokes_in=None, surface=None,
+                 extra=None):
     """For every group and view: the peel weight, the escape optical depth
-    (``walk``, an :class:`~.escape_tau.EscapeTau`), and the binning into
-    ``accums`` (in place).
+    and the binning into ``accums`` (in place). ``walk``, an
+    :class:`~.escape_tau.EscapeTau`, is called once for the event: the
+    lines of sight of every group that attenuates (each view of an outside
+    observer, and the one direction toward an inside observer, limited to
+    its distance, which all its views share) walk together.
 
     ``weight_iso``: the weight of isotropic events (1); scatterings take the
     scattering matrix at the angle between the incoming direction and the
@@ -458,31 +506,43 @@ def peel_and_bin(walk, dt, groups, accums, p_x, p_y, p_z, chi_rows, cell, nu,
     ``surface``: (mask, nx, ny, nz, limb) of lanes emitted from a stellar
     surface, which peel with 4 mu or the limb-darkened 2 (1.5 mu^2 + mu)
     (ref emit_from_sphere_peeloff, source_type.f90:692-707).
-    ``stokes_in``: the photons' (q, u, v), None for unpolarized."""
+    ``stokes_in``: the photons' (q, u, v), None for unpolarized.
+    ``extra``: (kx, ky, kz, mask), one more ray per lane, (B,) each, walked
+    to the edge in the same call for the lanes of ``mask`` (the emission
+    rays of a forced first interaction). Returns their tau (B,), 0 outside
+    ``mask``, or None without ``extra``."""
     if stokes_in is None:
         zq = torch.zeros_like(p_x)
         stokes_in = (zq, zq, zq)
     q_in, u_in, v_in = stokes_in
     want_stokes = any(g.n_stokes > 1 for g in groups)
     rows = phase_rows(dt, dust_id, nu)
-    for group, acc in zip(groups, accums):
+    # the lines of sight of each group: (vdx, vdy, vdz) of shape (n, B) and
+    # the distance to an inside observer (ref images_peeled.f90:158-161)
+    sights = []
+    for group in groups:
+        if group.inside:
+            ddx = float(group.origin[0]) - p_x
+            ddy = float(group.origin[1]) - p_y
+            ddz = float(group.origin[2]) - p_z
+            d_obs = torch.sqrt(ddx ** 2 + ddy ** 2 + ddz ** 2)
+            d_safe = d_obs.clamp_min(1e-30)
+            sights.append(((ddx / d_safe)[None], (ddy / d_safe)[None],
+                           (ddz / d_safe)[None], d_obs))
+        else:
+            sights.append((*group.view_block(p_x), None))
+    taus, tau_extra = _walk_sights(walk, groups, sights, chi_rows, p_x, p_y,
+                                   p_z, cell, active, extra)
+    for group, acc, sight, tau_g in zip(groups, accums, sights, taus):
         io = origin_index(group, prov).clamp(0, group.n_orig - 1)
         inu, nu_ok, tr = _spectral_bin(group, nu)
+        d_obs = sight[3]
         for iv in range(group.n_view):
+            j = 0 if group.inside else iv
+            vdx, vdy, vdz = sight[0][j], sight[1][j], sight[2][j]
             if group.inside:
-                # per-photon directions toward the observer, the walk
-                # limited to its distance (ref images_peeled.f90:158-161)
-                ddx = float(group.origin[0]) - p_x
-                ddy = float(group.origin[1]) - p_y
-                ddz = float(group.origin[2]) - p_z
-                d_obs = torch.sqrt(ddx ** 2 + ddy ** 2 + ddz ** 2)
-                d_safe = d_obs.clamp_min(1e-30)
-                vdx, vdy, vdz = ddx / d_safe, ddy / d_safe, ddz / d_safe
-                t_max = d_obs
                 depth = d_obs
             else:
-                vdx, vdy, vdz = group.view_lanes(iv, p_x)
-                t_max = None
                 # the event's depth along the line of sight
                 # (ref images_peeled.f90:162-167)
                 depth = -(vdx * p_x + vdy * p_y + vdz * p_z)
@@ -509,12 +569,10 @@ def peel_and_bin(walk, dt, groups, accums, p_x, p_y, p_z, chi_rows, cell, nu,
                                      4.0 * mu_s)
                 w = torch.where(s_mask & ~is_scatter, w_surf, w)
 
-            if group.ignore_optical_depth:
+            if tau_g is None:
                 atten = energy
             else:
-                tau = walk(chi_rows, p_x, p_y, p_z, vdx, vdy, vdz, cell,
-                           active, t_max=t_max)
-                atten = energy * torch.exp(-tau)
+                atten = energy * torch.exp(-tau_g[j])
             if group.inside:
                 atten = atten * (group.inv_area / (
                     4.0 * math.pi * d_obs.clamp_min(1e-30) ** 2))
@@ -565,6 +623,7 @@ def peel_and_bin(walk, dt, groups, accums, p_x, p_y, p_z, chi_rows, cell, nu,
                 _deposit(group, acc.img, acc.img2, acc.imgn,
                          iv * (group.n_y * group.n_x) + pix,
                          ok_base & in_img, inu, nu_ok, tr, io, flux_s)
+    return tau_extra
 
 
 @dataclass
@@ -685,13 +744,40 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
         emitted = can & (cell_new != ESCAPED)
         energy_new = new['energy'] if reemit_ok is None else \
             torch.where(reemit_ok, p.energy, new['energy'])
-        energy_peel = energy_new
+        # forced first interaction (ref iter_final.f90:178-210) needs the
+        # escape optical depth along the emission ray
+        forced = None
         if ffi:
-            # forced first interaction (ref iter_final.f90:178-210): the
-            # escape optical depth along the emission ray
             forced = emitted if reemit_ok is None else emitted & ~reemit_ok
-            tau_esc = walk(chi_n, new['x'], new['y'], new['z'], new['kx'],
-                           new['ky'], new['kz'], cell_new, forced)
+        # the emission peel, with the energy before the FFI reweight (ref
+        # iter_final.f90:120), on the emitted lanes' own state (the packets
+        # below take it); re-emitted photons peel even when only
+        # scatterings do, "because this is a kind of scattering" (ref
+        # iter_final.f90:225-228). Its walk also walks the emission rays.
+        tau_esc = None
+        if not scat_only or reabs_on:
+            peel = emitted
+            if scat_only:
+                peel = emitted & reemit_ok
+            no = torch.zeros_like(peel)
+            zero_id = torch.zeros_like(p.dust_id)
+            prov = Provenance(scattered=no, reprocessed=no,
+                              source_id=new['source'], dust_id=zero_id,
+                              n_scat=torch.zeros_like(p.n_scat))
+            surface = (new['surf'], new['snx'], new['sny'], new['snz'],
+                       new['limb']) if sphere else None
+            tau_esc = peel_and_bin(
+                walk, dt, groups, carry.accums, new['x'], new['y'],
+                new['z'], chi_n, cell_new, new['nu'],
+                torch.where(peel, energy_new, 0.0), 1.0, no, zero_id,
+                new['kx'], new['ky'], new['kz'], prov, peel, surface=surface,
+                extra=None if forced is None else
+                (new['kx'], new['ky'], new['kz'], forced))
+        if ffi:
+            if tau_esc is None:
+                tau_esc = walk(chi_n, new['x'], new['y'], new['z'],
+                               new['kx'][None], new['ky'][None],
+                               new['kz'][None], cell_new, forced)[0]
             applies = tau_esc > 1e-10
             if reemit_ok is not None:
                 applies = applies & ~reemit_ok
@@ -730,26 +816,6 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
             albedo=m(p.albedo, alb_n),
             q=m(p.q, zero), u=m(p.u, zero), v=m(p.v, zero))
         carry.packets = packets
-        # the emission peel; re-emitted photons peel even when only
-        # scatterings do, "because this is a kind of scattering" (ref
-        # iter_final.f90:225-228)
-        if not scat_only or reabs_on:
-            peel = emitted
-            if scat_only:
-                peel = emitted & reemit_ok
-            no = torch.zeros_like(peel)
-            prov = Provenance(scattered=no, reprocessed=no,
-                              source_id=packets.source_id,
-                              dust_id=packets.dust_id,
-                              n_scat=torch.zeros_like(packets.n_scat))
-            surface = (new['surf'], new['snx'], new['sny'], new['snz'],
-                       new['limb']) if sphere else None
-            peel_and_bin(walk, dt, groups, carry.accums, packets.x,
-                         packets.y, packets.z, packets.chi, packets.cell,
-                         packets.nu, torch.where(peel, energy_peel, 0.0),
-                         1.0, no, torch.zeros_like(packets.dust_id),
-                         packets.kx, packets.ky, packets.kz, prov, peel,
-                         surface=surface)
         if reabs_on:
             carry.killed_int += reabs_kill.sum()
         carry.energy_current += torch.where(can_fresh, new['energy'],

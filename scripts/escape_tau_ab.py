@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Time an earlier escape_tau design beside the current one on one card, on
+the walks the imaging step makes.
+
+    git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
+    python3 scripts/escape_tau_ab.py --old _checkout/old [--models class2]
+
+``--old`` is a directory that holds an earlier ``hyperion_tpu_torch/``
+whose ``EscapeTau`` walks one view per call ((B,) directions: the design of
+commit 2817c65). It is loaded under another package name and builds its own
+library inside its directory. The current package records the walk calls
+of imaging steps 1-20 and 41-60 (chip_smoke's record_walks and
+WALK_WINDOWS) of class2 (examples/class2_sed.py, B = 50,000) and of the
+quickstart (B = 125,000); each call is one event of V views. For each
+window, in turns (old, new, new, old), it times every event behind a
+``torch.cuda._sleep`` between CUDA events: the old design as V launches,
+one per view, the new one as one launch. Both must give the same tau.
+Then the latency of one crossing: the window's longest ray alone (its lane
+the only active one, its view the only one, at the window's B), less the
+same call with no active lane, over the ray's crossings, for both designs.
+Prints the card and one JSON object per window, and writes
+chip_smoke_out/escape_tau_ab.json unless --out names another file.
+"""
+
+import argparse
+import importlib
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+MODELS = {'class2': (lambda: cs.class2_model(n_photons=200_000), 50_000),
+          'quickstart': (cs.tutorial_model, 125_000)}
+ORDER = ['old', 'new', 'new', 'old']
+
+
+def load_old(directory):
+    """The escape_tau module of the hyperion_tpu_torch/ in ``directory``,
+    imported as package ``old_port``."""
+    pkg = Path(directory).resolve() / 'hyperion_tpu_torch'
+    spec = importlib.util.spec_from_file_location(
+        'old_port', pkg / '__init__.py', submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules['old_port'] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module('old_port.transport.escape_tau')
+
+
+def event_us(run, calls, reps=2):
+    """Device microseconds of ``run(call)`` for each call: behind a sleep,
+    between CUDA events; the mean over calls of the last of ``reps``
+    passes."""
+    import torch
+    starts = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    for _ in range(reps):
+        for a, b, call in zip(starts, ends, calls):
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            run(call)
+            b.record()
+        torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e3 \
+        / len(calls)
+
+
+def views(call):
+    """The old design's calls of one event: one per view."""
+    t_max = call[9]
+    return [(call[:4] + [k[v] for k in call[4:7]] + call[7:9],
+             None if t_max is None else t_max[v])
+            for v in range(call[4].shape[0])]
+
+
+def longest_ray(geo64, rt64, calls, et):
+    """(call index, view, lane, crossings) of the window's longest ray: one
+    plain walk over the rays of every call (chip_smoke._active_rays), the
+    calls with a distance limit apart from the others."""
+    import torch
+    best = (0, 0, 0, -1)
+    for limited in (False, True):
+        group = [(c, call) for c, call in enumerate(calls)
+                 if (call[9] is not None) == limited and bool(call[8].any())]
+        if not group:
+            continue
+        rays = [cs._active_rays(cs._f64(call), call[8]) for _, call in group]
+        lanes = [torch.cat([r[0][i] for r in rays], dim=1 if 4 <= i < 7
+                           else 0) for i in range(8)]
+        t_max = torch.cat([r[1] for r in rays], dim=1) if limited else None
+        ones = torch.ones_like(lanes[7], dtype=torch.bool)
+        _, n_cross = et.escape_tau_reference(geo64, rt64, *lanes, ones,
+                                             t_max=t_max, crossings=True)
+        # (call, view, lane) of each ray, in _active_rays' order
+        where = torch.cat([torch.stack([
+            torch.full_like(lane, c), torch.full_like(lane, v), lane])
+            for c, call in group for lane in [call[8].nonzero()[:, 0]]
+            for v in range(call[4].shape[0])], dim=1)
+        r = int(n_cross[0].argmax())
+        if int(n_cross[0, r]) > best[3]:
+            best = tuple(int(x) for x in where[:, r]) + (int(n_cross[0, r]),)
+    return best
+
+
+def as_old(geometry, old):
+    """The same geometry tables as an instance of the old package's class
+    (its EscapeTau checks the class)."""
+    import dataclasses
+    name = type(geometry).__name__
+    module = importlib.import_module(
+        'old_port.transport.' + ('gtable_spherical' if name ==
+                                 'SphericalGeometry' else 'gtable'))
+    return getattr(module, name)(**{f.name: getattr(geometry, f.name)
+                                    for f in dataclasses.fields(geometry)})
+
+
+def window(old, new, kind, steps, calls, geo64, rt32, rt64, card):
+    import torch
+    w_old = old.EscapeTau(as_old(geo64, old), rt32)
+    w_new = new.EscapeTau(geo64, rt32)
+    # the same tau from both
+    for call in calls:
+        tau = w_new(*call[:9], t_max=call[9])
+        ref = torch.stack([w_old(*lanes, t_max=tm) for lanes, tm in
+                           views(call)])
+        if not torch.equal(tau, ref):
+            raise AssertionError('%s %s: the designs disagree by %g'
+                                 % (kind, steps, float((tau - ref).abs()
+                                                       .max())))
+    runs = {'old': lambda call: [w_old(*lanes, t_max=tm)
+                                 for lanes, tm in views(call)],
+            'new': lambda call: w_new(*call[:9], t_max=call[9])}
+    turns = [dict(design=d, device_us_per_event=event_us(runs[d], calls))
+             for d in ORDER]
+    # one crossing's latency: the longest ray alone, less an empty call
+    c, v, i, n_cross = longest_ray(geo64, rt64, calls, new)
+    call = calls[c]
+    one = torch.zeros_like(call[8])
+    one[i] = True
+    none = torch.zeros_like(call[8])
+    lone = [call[:4] + [k[v:v + 1].contiguous() for k in call[4:7]] +
+            [call[7], act, None if call[9] is None else
+             call[9][v:v + 1].contiguous()] for act in (one, none)]
+    latency = {}
+    for design in ('old', 'new'):
+        us = [event_us(runs[design], [x], reps=5) for x in lone]
+        latency[design] = dict(alone_us=us[0], empty_us=us[1],
+                               us_per_crossing=(us[0] - us[1]) / n_cross)
+    out = dict(model=kind, steps=steps, calls=len(calls),
+               views=sum(x[4].shape[0] for x in calls), turns=turns,
+               longest_ray_crossings=n_cross, latency=latency, card=card)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main():
+    import torch
+    from hyperion_tpu_torch.model.run import (_density_array,
+                                              build_geometry_tables)
+    from hyperion_tpu_torch.transport import escape_tau as new
+
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--old', required=True,
+                    help='a directory holding an earlier hyperion_tpu_torch/')
+    ap.add_argument('--models', default='class2,quickstart')
+    ap.add_argument('--out', default=str(cs.OUT / 'escape_tau_ab.json'))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('escape_tau_ab: needs an NVIDIA card', file=sys.stderr)
+        return 1
+    old = load_old(args.old)
+    card = cs.card_line()
+    print(card, flush=True)
+    dev = torch.device('cuda')
+    rows = []
+    for name in args.models.split(','):
+        make, batch = MODELS[name]
+        model = make()
+        rho32, calls = cs.record_walks(model, batch, cs.WALK_WINDOWS)
+        geo64 = build_geometry_tables(model.grid, dev, torch.float64)
+        rho64 = _density_array(model, geo64.length_scale, dev, torch.float64)
+        for first, last in cs.WALK_WINDOWS:
+            rows.append(window(old, new, name, '%d-%d' % (first + 1, last),
+                               calls[(first, last)], geo64,
+                               rho32.T.contiguous(), rho64.T.contiguous(),
+                               card))
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

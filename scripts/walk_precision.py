@@ -10,8 +10,9 @@ record_walks and WALK_WINDOWS) of class2 (examples/class2_sed.py, B =
 lanes twice: in float32 arithmetic on the port's float32 geometry tables
 (the find_wall of the float32 Lucy and imaging steps), and with the
 escape_tau kernel, which walks in float64 on the grid's float64 walls.
-Prints the card and one JSON object per window: the active lanes, how many
-of them the float32 walk puts beyond 1e-4 tau + 1e-6 of the float64 one,
+Prints the card and one JSON object per window: the rays of active lanes
+(each view of each active lane), how many of them the float32 walk puts
+beyond 1e-4 tau + 1e-6 of the float64 one,
 quantiles (0.5, 0.9, 0.99, 0.999, 1) of the relative difference, and the
 summed transmission exp(-tau) of each walk and of their difference.
 """
@@ -84,15 +85,21 @@ def main():
     for first, last in cs.WALK_WINDOWS:
         t32, t64 = [], []
         for call in calls[(first, last)]:
-            a = call[8]
-            t32.append(float32_walk(geo32, rt32, *call).double()[a])
-            t64.append(walk(*call[:9], t_max=call[9]).double()[a])
+            a, t_max = call[8], call[9]
+            # one event's views, in the order of the kernel's rows
+            for v in range(call[4].shape[0]):
+                t32.append(float32_walk(
+                    geo32, rt32, *call[:4], *[k[v] for k in call[4:7]],
+                    *call[7:9], None if t_max is None else t_max[v])
+                    .double()[a])
+            t64.append(walk(*call[:9], t_max=t_max).double()[:, a]
+                       .reshape(-1))
         t32, t64 = torch.cat(t32), torch.cat(t64)
         diff = (t32 - t64).abs()
         rel = diff / t64.clamp_min(1e-300)
         print(json.dumps(dict(
             model=args.model, steps='%d-%d' % (first + 1, last),
-            calls=len(calls[(first, last)]), active_lanes=int(t64.numel()),
+            calls=len(calls[(first, last)]), active_rays=int(t64.numel()),
             beyond_1e4=int((diff > 1e-4 * t64 + 1e-6).sum()),
             rel_diff_quantiles=torch.quantile(rel, q).tolist(),
             transmission_f64=float((-t64).exp().sum()),

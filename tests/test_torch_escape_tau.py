@@ -1,11 +1,16 @@
 """The escape-tau walk: the port's plain version against the JAX package's
-``escape_tau_walk`` on the same ~10^4 rays (JAX x64, torch float64), on a
-cartesian grid and on a spherical-polar grid with theta and phi walls,
-with and without a distance limit (an inside observer's ``t_max``), two
+``escape_tau_walk``, one view at a time, on the same seeded rays (JAX x64,
+torch float64): a cartesian grid, a spherical-polar grid with theta and phi
+walls, and a spherical grid whose innermost shells are thinner than the
+float64 on-wall nudge; with and without a distance limit (an inside
+observer's ``t_max``), a limited call with +inf for its unlimited views, two
 dust types and a tenth of the lanes inactive. The walks take the same
 crossings, so tau matches to rtol 1e-10. float32 lanes walk in float64.
-On the card, the CUDA kernel against the plain version (marked ``cuda``:
-the kernel has no CPU mode)."""
+On the card (marked ``cuda``: the kernel has no CPU mode), the kernel
+against the plain version: both lane types and grids, the thin shells, a
+call with no live ray and one with a single live ray among 50,000, rays
+whose lengths differ 100-fold, and a CUDA graph of the call replayed on
+new lanes."""
 
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ from hyperion_tpu_torch.transport import escape_tau as et
 from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
 from hyperion_tpu_torch.transport.gtable_spherical import \
     build_spherical_geometry
+from test_torch_frontend import frontend
 from test_torch_geometry import _grid as _cartesian_grid
 from test_torch_geometry import _rays as _cartesian_rays
 from test_torch_spherical import _grid as _spherical_grid
@@ -28,40 +34,89 @@ from test_torch_spherical import _rays as _spherical_rays
 torch.set_num_threads(1)
 CPU = torch.device('cpu')
 RTOL = 1e-10
+# the views of a call: the grid's own test rays, then seeded directions
+N_VIEWS = 3
+
+
+def _thin_grid(package):
+    """A spherical-polar grid (n3 = 2) whose 11 innermost shells are 2e-15
+    wide at r = 0.01: the float64 on-wall nudge t_eps (r + rw[1]) is 2e-14
+    there and jumps about ten of them at once, as class2's innermost shells
+    (~1e-7 of the radius) are jumped by the float32 nudge."""
+    rw = np.hstack([0.01 + 2e-15 * np.arange(12),
+                    np.geomspace(0.0102, 1.0, 10)])
+    t = np.linspace(0.0, np.pi, 9)
+    return frontend(package).SphericalPolarGrid(
+        rw, t + np.sin(2.0 * t) / 6.0, np.linspace(0.0, 2.0 * np.pi, 2))
+
+
+def _thin_rays(g, n, seed=53):
+    """Rays around the thin shells: a third start in them, a third just
+    outside aimed at or past them, a third anywhere in the grid."""
+    rng = np.random.default_rng(seed)
+    part = rng.integers(0, 3, n)
+    r = np.where(part == 0, 0.01 + 2.2e-14 * rng.random(n),
+                 np.where(part == 1, 0.01 * (1.0 + 0.05 * rng.random(n)),
+                          rng.uniform(0.0102, 1.0, n)))
+    mu = rng.uniform(-1, 1, n)
+    phi = rng.uniform(0, 2 * np.pi, n)
+    st = np.sqrt(1 - mu ** 2)
+    pos = r * np.stack([st * np.cos(phi), st * np.sin(phi), mu])
+    k = rng.normal(size=(3, n))
+    # half of those just outside head straight in
+    inward = (part == 1) & (rng.random(n) < 0.5)
+    k[:, inward] = -pos[:, inward]
+    k /= np.linalg.norm(k, axis=0)
+    return pos, k
+
+
+GRIDS = {
+    'cartesian': (lambda pkg: _cartesian_grid(pkg), build_cartesian_geometry,
+                  _cartesian_rays, j_cartesian),
+    'spherical': (lambda pkg: _spherical_grid(pkg, 4, 0.0),
+                  build_spherical_geometry, _spherical_rays, j_spherical),
+    'thin_shells': (_thin_grid, build_spherical_geometry, _thin_rays,
+                    j_spherical),
+}
 
 
 def _jax_geometry(kind):
-    if kind == 'cartesian':
-        return j_cartesian(_cartesian_grid('jax'), dtype=jnp.float64)
-    return j_spherical(_spherical_grid('jax', 4, 0.0), dtype=jnp.float64)
+    make, _, _, build = GRIDS[kind]
+    return build(make('jax'), dtype=jnp.float64)
 
 
-def _setup(kind, device=CPU, n=10000):
-    """(port geometry on ``device``, float64 as the walk takes it, rays
-    (3, n) and (3, n), cells, active mask, density (2, n_cells), chi rows
-    (n, 2), t_max (n,)). Made with the port alone (the card's machine has
-    no h5py, which the JAX package's grids need): the rays from the float64
-    walls, the cells by the float64 find_cell."""
-    if kind == 'cartesian':
-        grid, build = _cartesian_grid('port'), build_cartesian_geometry
-        rays = _cartesian_rays
-    else:
-        grid, build = _spherical_grid('port', 4, 0.0), build_spherical_geometry
-        rays = _spherical_rays
+def _setup(kind, device=CPU, n=10000, n_views=N_VIEWS, seed=41,
+           contrast=1e12):
+    """(port geometry on ``device``, float64 as the walk takes it, positions
+    (3, n), directions (3, V, n), cells, active mask, density (2, n_cells),
+    chi rows (n, 2), t_max (V, n)). Made with the port alone (the card's
+    machine has no h5py, which the JAX package's grids need): the rays from
+    the float64 walls, the cells by the float64 find_cell of view 0's
+    direction. The thin shells are ``contrast`` times denser than the
+    rest, as a disk's inner rim is."""
+    make, build, rays, _ = GRIDS[kind]
+    grid = make('port')
     g64 = build(grid, CPU, torch.float64)
-    pos, k = rays(g64, n=n)
+    pos, k0 = rays(g64, n=n)
     cell = g64.find_cell(*[torch.as_tensor(a) for a in pos],
-                         *[torch.as_tensor(a) for a in k]).numpy()
+                         *[torch.as_tensor(a) for a in k0]).numpy()
     pg = build(grid, device, torch.float64)
-    rng = np.random.default_rng(41)
+    rng = np.random.default_rng(seed)
+    ks = [k0]
+    for _ in range(n_views - 1):
+        k = rng.normal(size=(3, n))
+        ks.append(k / np.linalg.norm(k, axis=0))
+    k = np.stack(ks, axis=1)
     # a ray aimed at its own position has no direction: it never escapes
     active = (cell >= 0) & (rng.random(n) < 0.9) & \
-        (np.linalg.norm(k, axis=0) > 0.5)
+        (np.linalg.norm(k0, axis=0) > 0.5)
     n_cells = pg.n_cells
     density = rng.uniform(0.0, 3.0, (2, n_cells))
     density[1, rng.random(n_cells) < 0.3] = 0.0
+    if kind == 'thin_shells':
+        density[:, (np.arange(n_cells) % pg.n1) < 11] *= contrast
     chi = rng.uniform(0.1, 2.0, (n, 2))
-    t_max = rng.uniform(0.0, 1.5, n)
+    t_max = rng.uniform(0.0, 1.5, (n_views, n))
     return pg, pos, k, cell, active, density, chi, t_max
 
 
@@ -76,41 +131,111 @@ def _through_axis(pos, k):
     return np.where(kxy > 1e-9, b < 1e-7, np.hypot(pos[0], pos[1]) < 1e-7)
 
 
+def _port_args(pos, k, cell, active, chi, dtype=torch.float64, device=CPU):
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+    return [t(chi)] + [t(a) for a in pos] + [t(k[c]) for c in range(3)] + \
+        [t(cell, torch.int64), t(active, torch.bool)]
+
+
+def _jax_views(kind, pos, k, cell, active, density, chi, t_max):
+    """The JAX walk of each view, stacked (V, n); ``t_max`` (V, n) or
+    None."""
+    J = jnp.asarray
+    geo = _jax_geometry(kind)
+    return np.stack([np.asarray(escape_tau_walk(
+        geo, J(density), J(chi), *[J(a) for a in pos],
+        *[J(k[c, v]) for c in range(3)], J(cell), J(active),
+        t_max=None if t_max is None else J(t_max[v])))
+        for v in range(k.shape[1])])
+
+
+def _shared_setup(kind, n, **kw):
+    """The CPU inputs of a parity test: on the spherical grids the lanes
+    whose ray in any view runs through the z axis are left out
+    (:func:`_through_axis`)."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup(kind, n=n, **kw)
+    if kind != 'cartesian':
+        for v in range(k.shape[1]):
+            active = active & ~_through_axis(pos, k[:, v])
+    return pg, pos, k, cell, active, density, chi, t_max
+
+
 @pytest.mark.parametrize('limited', [False, True], ids=['edge', 't_max'])
 @pytest.mark.parametrize('kind', ['cartesian', 'spherical'])
 def test_reference_matches_jax(kind, limited):
-    """On the spherical grid the rays through the z axis are left out
-    (:func:`_through_axis`, ~45% of the random rays), so twice as many
-    rays are drawn; the kernel test on the card keeps them all."""
-    n = 10000 if kind == 'cartesian' else 20000
-    pg, pos, k, cell, active, density, chi, t_max = _setup(kind, n=n)
-    if kind == 'spherical':
-        active = active & ~_through_axis(pos, k)
-        assert active.sum() > 8000
-    ref = np.asarray(escape_tau_walk(
-        _jax_geometry(kind), jnp.asarray(density), jnp.asarray(chi),
-        *[jnp.asarray(a) for a in pos], *[jnp.asarray(a) for a in k],
-        jnp.asarray(cell), jnp.asarray(active),
-        t_max=jnp.asarray(t_max) if limited else None))
-    t = torch.as_tensor
-    walk = et.EscapeTau(pg, t(density.T.copy()))
+    """Three views in one call against three JAX walks. On the spherical
+    grid ~45% of the random rays run through the z axis and are left out,
+    so more lanes are drawn; the kernel test on the card keeps them all."""
+    n = 4000 if kind == 'cartesian' else 8000
+    pg, pos, k, cell, active, density, chi, t_max = _shared_setup(kind, n)
+    assert active.sum() > 0.35 * n
+    ref = _jax_views(kind, pos, k, cell, active, density, chi,
+                     t_max if limited else None)
+    walk = et.EscapeTau(pg, torch.as_tensor(density.T.copy()))
     launches = et.launches
-    port = walk(t(chi), *[t(a) for a in pos], *[t(a) for a in k], t(cell),
-                t(active), t_max=t(t_max) if limited else None).numpy()
+    port = walk(*_port_args(pos, k, cell, active, chi),
+                t_max=torch.as_tensor(t_max) if limited else None).numpy()
     assert et.launches == launches        # the CPU runs the plain version
+    assert port.shape == (N_VIEWS, n)
     np.testing.assert_allclose(port, ref, rtol=RTOL, atol=1e-300)
-    assert (port[~active] == 0).all()
-    assert (port[active] > 0).sum() > 0.8 * active.sum()
+    assert (port[:, ~active] == 0).all()
+    assert (port[:, active] > 0).sum() > 0.8 * N_VIEWS * active.sum()
+
+
+@pytest.mark.parametrize('kind', ['cartesian', 'spherical'])
+def test_unlimited_view_in_a_limited_call(kind):
+    """t_max = +inf for view 1 of a limited call: that view is the
+    unlimited walk (min(t, inf) = t, remaining stays inf > 0), and the
+    limited views are JAX's limited walks."""
+    pg, pos, k, cell, active, density, chi, t_max = _shared_setup(kind, 3000)
+    t_max[1] = np.inf
+    walk = et.EscapeTau(pg, torch.as_tensor(density.T.copy()))
+    args = _port_args(pos, k, cell, active, chi)
+    mixed = walk(*args, t_max=torch.as_tensor(t_max)).numpy()
+    free = walk(*args).numpy()
+    np.testing.assert_array_equal(mixed[1], free[1])
+    ref = _jax_views(kind, pos, k[:, [0, 2]], cell, active, density, chi,
+                     t_max[[0, 2]])
+    np.testing.assert_allclose(mixed[[0, 2]], ref, rtol=RTOL, atol=1e-300)
+    assert (mixed[[0, 2]] < free[[0, 2]]).sum() > 0.2 * active.sum()
+
+
+@pytest.mark.parametrize('limited', [False, True], ids=['edge', 't_max'])
+def test_thin_shells_match_jax(limited):
+    """Shells thinner than the on-wall nudge, walked by rays that start in
+    them, dive through them or graze them. torch's float64 sqrt on the CPU
+    is one ulp off on ~0.7% of its inputs (XLA's, like CUDA's, rounds
+    correctly), and a landing point one ulp off can fall in the
+    neighbouring thin shell, or out through the inner wall. So the thin
+    shells are 1e3 times denser than the rest here, and tau may differ by
+    one thin-shell segment's worth (at most 4e-14 long, chi x rho <= 1.2e4:
+    atol 5e-10), far below any segment in the wrong ordinary cell; the
+    card test, where both walks round sqrt correctly, gives them 1e12 and
+    no atol."""
+    pg, pos, k, cell, active, density, chi, t_max = \
+        _shared_setup('thin_shells', 3000, contrast=1e3)
+    ref = _jax_views('thin_shells', pos, k, cell, active, density, chi,
+                     t_max if limited else None)
+    port, n_cross = et.escape_tau_reference(
+        pg, torch.as_tensor(density.T.copy()),
+        *_port_args(pos, k, cell, active, chi),
+        t_max=torch.as_tensor(t_max) if limited else None, crossings=True)
+    np.testing.assert_allclose(port.numpy(), ref, rtol=RTOL, atol=5e-10)
+    # rays that walked through the thin shells
+    assert int(n_cross.max()) > 10
 
 
 def test_max_steps_stops_the_walk():
     pg, pos, k, cell, active, density, chi, _ = _setup('cartesian', n=500)
-    t = torch.as_tensor
-    args = [t(chi)] + [t(a) for a in pos] + [t(a) for a in k] + \
-        [t(cell), t(active)]
-    one = et.EscapeTau(pg, t(density.T.copy()), max_steps=1)(*args)
-    full = et.EscapeTau(pg, t(density.T.copy()))(*args)
+    args = _port_args(pos, k, cell, active, chi)
+    rho = torch.as_tensor(density.T.copy())
+    one = et.EscapeTau(pg, rho, max_steps=1)(*args)
+    full = et.EscapeTau(pg, rho)(*args)
     assert (one <= full * (1 + 1e-12)).all() and (one < full).any()
+    with pytest.raises(ValueError, match='max_steps'):
+        et.EscapeTau(pg, rho, max_steps=0)
 
 
 def test_float32_lanes_walk_in_float64():
@@ -119,23 +244,45 @@ def test_float32_lanes_walk_in_float64():
     geometry is refused."""
     pg, pos, k, cell, active, density, chi, t_max = _setup('spherical',
                                                            n=2000)
-    t = torch.as_tensor
-    args = [t(chi).float()] + [t(a).float() for a in pos] + \
-        [t(a).float() for a in k] + [t(cell), t(active)]
-    rho32 = t(density.T.copy()).float()
-    for tm in (None, t(t_max).float()):
+    args = _port_args(pos, k, cell, active, chi, torch.float32)
+    rho32 = torch.as_tensor(density.T.copy()).float()
+    for tm in (None, torch.as_tensor(t_max).float()):
         tau = et.EscapeTau(pg, rho32)(*args, t_max=tm)
         assert tau.dtype == torch.float32
         wide = [a.double() if a.is_floating_point() else a for a in args]
         ref = et.EscapeTau(pg, rho32.double())(
             *wide, t_max=None if tm is None else tm.double())
         assert torch.equal(tau, ref.float())
-        assert (tau[t(active)] > 0).sum() > 0.8 * active.sum()
+        assert (tau[:, torch.as_tensor(active)] > 0).sum() > \
+            0.8 * N_VIEWS * active.sum()
     g32 = build_spherical_geometry(_spherical_grid('port', 4, 0.0), CPU,
                                    torch.float32)
     with pytest.raises(ValueError, match='float64'):
         et.EscapeTau(g32, rho32)
 
+
+@pytest.mark.parametrize('wrong', ['1d_directions', 'short_view', 't_max_1d',
+                                   'strided_x'])
+def test_call_checks_its_lanes(wrong):
+    """The CPU call refuses what the kernel would not take: directions of
+    shape (B,), a view row of another length, a (B,) t_max, a strided
+    position column."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup('cartesian', n=64)
+    args = _port_args(pos, k, cell, active, chi)
+    tm = None
+    if wrong == '1d_directions':
+        args[4] = args[4][0]
+    elif wrong == 'short_view':
+        args[5] = args[5][:, :-1].contiguous()
+    elif wrong == 't_max_1d':
+        tm = torch.as_tensor(t_max[0])
+    else:
+        args[1] = torch.stack(args[1:4], dim=1)[:, 0]
+    with pytest.raises(ValueError, match='escape_tau'):
+        et.EscapeTau(pg, torch.as_tensor(density.T.copy()))(*args, t_max=tm)
+
+
+# ------------------------------------------------------------- on the card --
 
 @pytest.fixture
 def cuda_device():
@@ -144,34 +291,170 @@ def cuda_device():
     return torch.device('cuda')
 
 
+def _card_pair(pg, density, args, t_max, cuda_device):
+    """(kernel, plain version) of one call on the card; the kernel's call
+    launches once."""
+    rho_t = torch.as_tensor(density.T.copy(), dtype=args[1].dtype,
+                            device=cuda_device)
+    launches = et.launches
+    tau = et.EscapeTau(pg, rho_t)(*args, t_max=t_max)
+    torch.cuda.synchronize()
+    assert et.launches == launches + 1
+    return tau, et.escape_tau_reference(pg, rho_t, *args, t_max=t_max)
+
+
+def _close(kernel, plain, dtype):
+    """float64 lanes to rtol 1e-10; float32 lanes to 1e-6 (both walk in
+    float64 and round tau once)."""
+    rtol, atol = (RTOL, 1e-300) if dtype == torch.float64 else (1e-6, 1e-30)
+    np.testing.assert_allclose(kernel.cpu().double().numpy(),
+                               plain.cpu().double().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_fast_arithmetic_is_the_operators_on_card(cuda_device):
+    """The kernel's branch-free float64 division and square root give the
+    operators' bits wherever their range check passes, on 2^24 pairs
+    spread over the whole exponent range and on zeros, denormals,
+    infinities and NaNs (for which the check sends the crossing to the
+    operators)."""
+    import ctypes
+    from hyperion_tpu_torch.transport import _build
+    rng = np.random.default_rng(17)
+    n = 1 << 24
+    a = rng.uniform(-2.0, 2.0, n) * 2.0 ** rng.integers(-1074, 1024, n)
+    b = rng.uniform(-2.0, 2.0, n) * 2.0 ** rng.integers(-1074, 1024, n)
+    near = rng.random(n) < 0.5         # quotients and roots of ordinary size
+    a[near] = rng.uniform(-4.0, 4.0, near.sum())
+    b[near] = rng.uniform(-4.0, 4.0, near.sum())
+    special = [0.0, -0.0, 5e-324, -5e-324, 2.2250738585072014e-308,
+               1.0, -1.0, 1.7976931348623157e308, np.inf, -np.inf, np.nan]
+    a[:len(special) ** 2] = np.repeat(special, len(special))
+    b[:len(special) ** 2] = np.tile(special, len(special))
+    da = torch.as_tensor(a, device=cuda_device)
+    db = torch.as_tensor(b, device=cuda_device)
+    counts = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    fn = _build.load('escape_tau').escape_tau_arith_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    err = fn(da.data_ptr(), db.data_ptr(), n, counts.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    bad_div, slow_div, bad_sqrt, slow_sqrt = counts.tolist()
+    assert bad_div == 0 and bad_sqrt == 0
+    # the ordinary half takes the fast paths
+    assert slow_div < n // 2 and slow_sqrt < n // 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('limited', [False, True], ids=['edge', 't_max'])
 @pytest.mark.parametrize('kind', ['cartesian', 'spherical'])
 def test_kernel_matches_plain_version_on_card(kind, limited, cuda_device):
-    """The kernel against the plain version on the card, with float64 lanes
-    (rtol 1e-10) and with float32 lanes (rtol 1e-6: both walk in float64
-    and round tau once)."""
+    """Three views in one call, float64 and float32 lanes, an unlimited
+    view (+inf) in the limited call."""
     pg, pos, k, cell, active, density, chi, t_max = _setup(kind, cuda_device)
+    t_max[2] = np.inf
+    for dtype in (torch.float64, torch.float32):
+        args = _port_args(pos, k, cell, active, chi, dtype, cuda_device)
+        tm = torch.as_tensor(t_max, dtype=dtype, device=cuda_device) \
+            if limited else None
+        tau, plain = _card_pair(pg, density, args, tm, cuda_device)
+        assert tau.shape == (N_VIEWS, len(cell))
+        _close(tau, plain, dtype)
 
-    def run(dtype, reference):
-        def t(a, dt=dtype):
-            return torch.as_tensor(a, device=cuda_device, dtype=dt)
 
-        args = [t(chi)] + [t(a) for a in pos] + [t(a) for a in k] + \
-            [t(cell, torch.int64), t(active, torch.bool)]
-        tm = t(t_max) if limited else None
-        rho_t = t(density.T.copy())
-        if reference:
-            return et.escape_tau_reference(pg, rho_t, *args, t_max=tm)
-        launches = et.launches
-        tau = et.EscapeTau(pg, rho_t)(*args, t_max=tm)
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['f64', 'f32'])
+def test_kernel_thin_shells_on_card(dtype, cuda_device):
+    pg, pos, k, cell, active, density, chi, t_max = _setup(
+        'thin_shells', cuda_device, n=20000)
+    args = _port_args(pos, k, cell, active, chi, dtype, cuda_device)
+    tau, plain = _card_pair(pg, density, args, None, cuda_device)
+    _close(tau, plain, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('live', [0, 1], ids=['none', 'one'])
+def test_kernel_sparse_calls_on_card(live, cuda_device):
+    """50,000 lanes of which none, or one, is active: dead rays get 0, the
+    live one its walk, and the next call starts from a reset counter."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup(
+        'spherical', cuda_device, n=50000)
+    only = np.zeros_like(active)
+    if live:
+        only[np.flatnonzero(active)[live * 7919 % active.sum()]] = True
+    for _ in range(2):
+        args = _port_args(pos, k, cell, only, chi, torch.float64, cuda_device)
+        tau, plain = _card_pair(pg, density, args, None, cuda_device)
+        _close(tau, plain, torch.float64)
+        assert int((tau != 0).sum()) == (N_VIEWS if live else 0)
+
+
+@pytest.mark.cuda
+def test_kernel_rays_of_unequal_length_on_card(cuda_device):
+    """A 200-cell row: rays from one end walk 200 cells, rays near the far
+    end one or two, in the same call and the same warps."""
+    grid = frontend('port').CartesianGrid(np.linspace(-1.0, 1.0, 201),
+                                          np.linspace(-0.1, 0.1, 3),
+                                          np.linspace(-0.1, 0.1, 3))
+    pg = build_cartesian_geometry(grid, cuda_device, torch.float64)
+    n = 4096
+    rng = np.random.default_rng(7)
+    far = rng.random(n) < 0.5
+    x = np.where(far, -0.9995, 0.9965) + rng.uniform(0, 5e-4, n)
+    pos = np.stack([x, rng.uniform(-0.09, 0.09, n),
+                    rng.uniform(-0.09, 0.09, n)])
+    k = np.zeros((3, 1, n))
+    k[0] = 1.0
+    cell = build_cartesian_geometry(grid, CPU, torch.float64).find_cell(
+        *[torch.as_tensor(a) for a in pos],
+        *[torch.as_tensor(a) for a in k[:, 0]]).numpy()
+    density = rng.uniform(0.5, 2.0, (2, pg.n_cells))
+    chi = rng.uniform(0.1, 2.0, (n, 2))
+    args = _port_args(pos, k, cell, cell >= 0, chi, torch.float64,
+                      cuda_device)
+    tau, plain = _card_pair(pg, density, args, None, cuda_device)
+    _close(tau, plain, torch.float64)
+    _, n_cross = et.escape_tau_reference(
+        pg, torch.as_tensor(density.T.copy(), device=cuda_device), *args,
+        crossings=True)
+    assert int(n_cross.max()) >= 100 * int(n_cross[n_cross > 0].min())
+
+
+@pytest.mark.cuda
+def test_kernel_in_a_cuda_graph_on_card(cuda_device):
+    """One fused call captured in a CUDA graph, replayed on new lanes
+    copied into its inputs: each replay equals the plain version."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup(
+        'spherical', cuda_device, n=20000)
+    rho_t = torch.as_tensor(density.T.copy(), device=cuda_device)
+    walk = et.EscapeTau(pg, rho_t)
+    static = _port_args(pos, k, cell, active, chi, torch.float64,
+                        cuda_device)
+    tm = torch.as_tensor(t_max, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        walk(*static, t_max=tm)                 # warm up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = walk(*static, t_max=tm)
+    rng = np.random.default_rng(5)
+    for seed in range(3):
+        # other directions, flags, chi rows and limits, on shuffled lanes
+        _, pos2, k2, cell2, active2, _, chi2, t_max2 = _setup(
+            'spherical', cuda_device, n=20000, seed=100 + seed)
+        p = rng.permutation(20000)
+        new = _port_args(pos2[:, p], k2[:, :, p], cell2[p], active2[p],
+                         chi2[p], torch.float64, cuda_device)
+        t_max2 = t_max2[:, p]
+        for s, a in zip(static, new):
+            s.copy_(a)
+        tm.copy_(torch.as_tensor(t_max2, device=cuda_device))
+        graph.replay()
         torch.cuda.synchronize()
-        assert et.launches == launches + 1
-        return tau
-
-    ref = run(torch.float64, True).cpu().numpy()
-    np.testing.assert_allclose(run(torch.float64, False).cpu().numpy(), ref,
-                               rtol=RTOL, atol=1e-300)
-    plain32 = run(torch.float32, True).cpu().numpy().astype(float)
-    k32 = run(torch.float32, False).cpu().numpy().astype(float)
-    np.testing.assert_allclose(k32, plain32, rtol=1e-6, atol=1e-30)
+        _close(out, et.escape_tau_reference(pg, rho_t, *new, t_max=tm),
+               torch.float64)

@@ -4,9 +4,10 @@ scattering-matrix dust tables (exactly), the per-lane row search, the
 polarized scattering and peel of ``stokes.py``, the forced first
 interaction, ``bin_escaped`` and ``peel_and_bin`` on groups covering SEDs
 and images, three apertures, each track_origin mode, Stokes, filters, depth
-cuts, an inside observer, ``ignore_optical_depth`` and a stellar surface's
-cosine law. The groups come from each package's own front end, and the
-port's builders give the group the JAX one carries over
+cuts, an inside observer, ``ignore_optical_depth``, a stellar surface's
+cosine law, and all three kinds of group in one event (one walk call). The
+groups come from each package's own front end, and the port's builders
+give the group the JAX one carries over
 (``convert.peel_group_from_numpy``)."""
 
 import dataclasses
@@ -285,6 +286,14 @@ def _peeled_confs(package, case):
         group().set_ignore_optical_depth(True)
     elif case == 'surface':
         group().set_track_origin('basic')
+    elif case == 'one_event':
+        # one event's three kinds of sight in one walk: three outside
+        # views, an inside observer, and a group that ignores the depth
+        group(angles=((30.0, 10.0), (120.0, 200.0), (80.0, 45.0)))
+        c = group(image=False, angles=((90.0, 0.0), (60.0, 45.0)))
+        c.set_inside_observer((0.3 * L, -0.1 * L, 0.2 * L))
+        c.set_aperture_radii(1, 0.0, np.inf)
+        group(image=False).set_ignore_optical_depth(True)
     return m.peeled_output
 
 
@@ -341,7 +350,7 @@ def _assert_accums_equal(j_acc, p_acc, rtol=1e-9):
 
 
 CASES = ['sed_image_3ap', 'basic_stokes', 'detailed', 'scatterings',
-         'filters', 'depth', 'inside', 'ignore_tau', 'surface']
+         'filters', 'depth', 'inside', 'ignore_tau', 'surface', 'one_event']
 
 
 @pytest.mark.parametrize('case', CASES)
@@ -378,8 +387,15 @@ def test_peel_and_bin_matches_jax(tables, case):
     p_sur = (t(st['surf']), *[t(a) for a in st['surf_n']], t(st['limb'])) \
         if surface else None
     p_acc = [img.PeelAccum(g, CPU, F64) for g in pg]
+    walk = EscapeTau(pgeo, t(density.T.copy()))
+    views = []        # the lines of sight of each walk call
+
+    def walk_once(*args, **kw):
+        views.append(args[4].shape[0])
+        return walk(*args, **kw)
+
     img.peel_and_bin(
-        EscapeTau(pgeo, t(density.T.copy())), pt, pg, p_acc,
+        walk_once, pt, pg, p_acc,
         *[t(a) for a in pos], t(st['chi']), t(cell), t(st['nu']),
         t(st['energy']), 1.0, t(st['is_scatter']), t(st['dust']),
         *[t(a) for a in st['k']], pprov, t(st['active']),
@@ -387,6 +403,64 @@ def test_peel_and_bin_matches_jax(tables, case):
     for ja, pa in zip(j_acc, p_acc):
         _assert_accums_equal(ja, pa)
         assert pa.cubes()['sed'].sum() > 0 or not jg[0].compute_sed
+    # one walk for the event: a line of sight per outside view, one per
+    # inside observer
+    walked = [g for g in pg if not g.ignore_optical_depth]
+    assert views == ([sum(1 if g.inside else g.n_view for g in walked)]
+                     if walked else [])
+
+
+@pytest.mark.parametrize('case', ['sed_image_3ap', 'one_event',
+                                  'ignore_tau'])
+def test_peel_and_bin_walks_the_emission_rays(tables, case):
+    """``extra``: the emission rays of a forced first interaction walk in
+    the peel's own call. Their tau is a walk of its own (0 outside the
+    mask), and the peel's cubes are those of a call without them."""
+    _, pt = tables
+    pgeo = build_cartesian_geometry(_grid('port'), CPU, F64)
+    n = 1200
+    st = _state(n, seed=41)
+    pos = [t(a) for a in st['pos']]
+    k = [t(a) for a in st['k']]
+    cell = pgeo.find_cell(*pos, *k)
+    density = t(np.random.default_rng(9).uniform(0.0, 2.0,
+                                                 (pgeo.n_cells, 2)))
+    walk = EscapeTau(pgeo, density)
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[4].shape[0])
+        return walk(*args, **kw)
+
+    active = t(st['active'])
+    # the forced lanes: most of the peeled ones, and some that do not peel
+    forced = (active & t(np.arange(n) % 7 != 0)) | t(np.arange(n) % 11 == 0)
+    accs = []
+    for extra in (None, tuple(k) + (forced,)):
+        groups = [img.build_peel_group(c, CPU, F64,
+                                       length_scale=pgeo.length_scale,
+                                       n_sources=3, n_dust=2)
+                  for c in _peeled_confs('port', case)]
+        accs.append([img.PeelAccum(g, CPU, F64) for g in groups])
+        tau = img.peel_and_bin(
+            counted, pt, groups, accs[-1], *pos, t(st['chi']), cell,
+            t(st['nu']), t(st['energy']), 1.0, t(st['is_scatter']),
+            t(st['dust']), *k,
+            img.Provenance(**{a: t(v) for a, v in st['prov'].items()}),
+            active, stokes_in=tuple(t(a) for a in st['s']), extra=extra)
+    # one call each: the event's lines of sight, then those and the
+    # emission rays
+    n_rows = sum(1 if g.inside else g.n_view for g in groups
+                 if not g.ignore_optical_depth)
+    assert calls == ([n_rows] if n_rows else []) + [n_rows + 1]
+    alone = walk(t(st['chi']), *pos, *[a[None] for a in k], cell,
+                 forced)[0]
+    np.testing.assert_array_equal(tau.numpy(), alone.numpy())
+    assert (tau[forced] > 0).all() and (tau[~(forced | active)] == 0).all()
+    for a, b in zip(*accs):
+        for name, cube in a.cubes().items():
+            np.testing.assert_array_equal(cube.numpy(),
+                                          b.cubes()[name].numpy(), name)
 
 
 @pytest.mark.parametrize('case', ['sed_basic', 'image_stokes'])
