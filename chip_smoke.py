@@ -79,10 +79,43 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (ESCAPE_TAU_RTOL32 says why) and equal to its own plain version; the
    longest walk's crossings, and the times: device us per call (each call
    one event, CUDA events) and per view, host us per call, the plain
-   version's, and the bound.
+   version's, and the bound;
+11. raytracing at full width: examples/class2_sed.py's model (phase 8's)
+   with set_raytracing(True), 10,000 source and 1,000,000 dust raytracing
+   photons (Hyperion's class 2 tutorial's), phase 8's specific energy
+   given to the grid (no Lucy iteration) and the imaging iteration at
+   CLASS2_CUT's budget peeling scattered light only, through
+   run_lucy_model: no raytraced photon outside the grid or its cell (the
+   imaging steps, as the JAX package's, make no geometry self-check), the
+   SEDs finite and >= 0; their band
+   at >= 100 um beside phase 8's Monte-Carlo SED's per view, and the 80/20
+   degree ratio at 0.3 um beside phase 8's (reported); the raytracing
+   wall, batches and column launches. Then class2 in monochromatic mode at
+   100, 300 and 1000 um without and with raytracing (the same emission
+   model): the two within RAYTRACE_N_SIGMA at every view and wavelength
+   (RAYTRACE_N_SIGMA says why this and not phase 8 is the check);
+12. monochromatic imaging at full width: the quickstart's model (phase 4's,
+   its 128 x 128 image and SED at 45 degrees) at 0.5, 1, 10, 100 and 1000
+   um, 500,000 source and 500,000 dust photons per wavelength, phase 4's
+   specific energy given to the grid, (a) without and (b) with raytracing
+   (phase 11's photons): (a) at 0.5 and 1 um within 2% of the point
+   source's nu L pi B_nu / (sigma T^4) (the box's tau is ~0.01), (b) -
+   (a) within MONO_N_SIGMA of the offset that raytracing's resampled var
+   rows predict (raytrace_table_offset; MONO_N_SIGMA says why) at every
+   wavelength, nothing killed, no
+   raytraced photon outside the grid or its cell, escape_tau launched in
+   both;
+13. the column mode of escape_tau against its plain version on the very
+   column calls of phases 11 (spherical-polar, B = 50,000, 3 views) and 12
+   (b) (cartesian, B = 125,000, 1 view), recorded from run_lucy_model:
+   float64 lanes within 1e-10 relative on every ray and dust, float32
+   lanes within ESCAPE_TAU_RTOL32; the longest walk and the times (device
+   us per call, host us per call, the plain version's, the bound).
+
+``--raytracing`` runs phases 1, 2, 4, 8 and 11-13 alone.
 
 Each kernel's launch count is reset just before and read just after each
-main-path run (phases 4, 8 and 9); the kernels line sums them.
+main-path run (phases 4, 8, 9, 11 and 12); the kernels line sums them.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
 It needs no network and imports nothing of JAX or of hyperion_tpu.
@@ -157,6 +190,63 @@ WALK_WINDOWS = ((0, 20), (40, 60))
 # the nudged find_cell at the landing point (spherical-polar). The bound
 # counts this work, whatever the kernel does around it.
 FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120}
+# escape_tau.cu's column mode (an XLA while_loop too, not a Pallas kernel)
+ESCAPE_COLUMN_REPLACES = 'hyperion_tpu/transport/raytrace.py:25'
+# phases 11 and 12: the raytracing photons of Hyperion's class 2 YSO
+# tutorial (set_raytracing(True), raytracing_sources=1e4,
+# raytracing_dust=1e6)
+RAYTRACING = dict(raytracing_sources=10_000, raytracing_dust=1_000_000)
+# phase 11: the raytraced SED within this many sigma of a Monte-Carlo SED
+# (sigma both runs' Monte-Carlo uncertainties in quadrature; the raytraced
+# light's own sampling noise is not in it: few of 1,000,000 dust photons
+# come from the cool cells that make class2's far infrared, so from run to
+# run it spreads by 3-9% there, the same photons for every view and
+# wavelength, scripts/raytrace_spread.py; the check's run takes ten times
+# as many). First set for the band at >= 100 um against phase 8's imaging
+# iteration, where a run measured 0.913, 0.901 and 0.916 of phase 8's
+# (9.44, 9.65 and 4.99 sigma, NVIDIA H100 80GB HBM3, 700 W). The cause is
+# raytracing's emission from uniform points in each cell, where the imaging
+# iteration re-emits at its absorption points: on optically thick cells
+# the two are attenuated differently. The JAX package's own raytracing and
+# imaging iteration show the same, from the same specific energy on the
+# CPU in float64 (scripts/raytrace_vs_mc.py --package jax and port):
+# raytracing / Monte Carlo at 20-100 um on class2's 24 x 8 grid with MRW
+# off 0.922 and 0.900 at 20 and 45 degrees (5.9 and 6.8 sigma; the port
+# 0.915 and 0.894), and 1.151 on a cube of cells of optical depth 1.7 lit
+# from inside (the port 1.130). With MRW on, the JAX package's imaging
+# iteration is no witness: its light at >= 100 um falls to 0.69-0.71 of
+# its own with MRW off (9-11 sigma), where the port's stays within 3%. So
+# phase 8's band is reported beside phase 11's, and the check holds the
+# raytracing to the Monte-Carlo light of its own emission model: class2 in
+# monochromatic mode, dust photons from uniform points in the cells
+# (class2_mono_check)
+RAYTRACE_N_SIGMA = 5.0
+CLASS2_MONO_WAVELENGTHS = [100.0, 300.0, 1000.0]
+# phase 12: the quickstart in monochromatic mode at these wavelengths
+# (micron), MONO_PHOTONS source and dust photons each per wavelength; (a)
+# at 0.5 and 1 um within MONO_ANALYTIC_RTOL of the point source's SED,
+# (b) (with raytracing) within MONO_N_SIGMA of (a). (b)'s thermal light
+# comes from the raytracing tables, which keep 60 of the dust's 1,200 var
+# rows (the JAX package's tables), and (a)'s from the whole table, so
+# (b) - (a) is held to the offset that the two interpolations predict on
+# this optically thin box (raytrace_table_offset): without it, a run
+# measured (b) 1.26% below (a) at 100 um, 8.93 sigma (NVIDIA H100 80GB
+# HBM3, 700 W; the old check). The JAX package's tables and
+# emission probabilities are the port's to 1e-12
+# (tests/test_torch_raytrace.py, tests/test_torch_mono.py), and its own
+# runs show the same offset: on the quickstart's box on 9^3 cells, from
+# one specific energy on the CPU in float64 (scripts/raytrace_vs_mc.py
+# --model cube --density 1e-19 --mono 0.5 1 10 100 1000 --photons
+# 200000), raytracing / Monte Carlo at 100 um 0.9887 (5.06 sigma) in the
+# JAX package and 0.9882 (5.29 sigma) in the port, where the offset is
+# -1.17%.
+MONO_WAVELENGTHS = [0.5, 1.0, 10.0, 100.0, 1000.0]
+MONO_PHOTONS = 500_000
+MONO_ANALYTIC_RTOL = 0.02
+MONO_N_SIGMA = 5.0
+# phase 11's monochromatic check: source and dust photons per wavelength
+# (half CLASS2_CUT's imaging budget, for the time limit)
+CLASS2_MONO_PHOTONS = 50_000
 
 
 def phase(msg):
@@ -839,7 +929,7 @@ def run_slice(dv, et, card):
     """Phase 4: the tutorial through run_lucy_model, the port's run_model
     without its .rtout file: 4 Lucy iterations, then imaging. Returns
     (deposit_visit launches, escape_tau launches, per-iteration rows,
-    wall, imaging report)."""
+    wall, imaging report, the last iteration's specific energy)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
     from hyperion_tpu_torch.util.constants import lsun
@@ -911,7 +1001,7 @@ def run_slice(dv, et, card):
           '%d over %d steps [%s]'
           % (wall, temp[dusty].min(), temp.max(), launches, steps, card))
     return launches, launches_et, [dict(row) for row in run.perf.rows[:4]], \
-        wall, img
+        wall, img, run.iterations[-1]['specific_energy']
 
 
 # --------------------------------------------------------------- physics --
@@ -1226,7 +1316,7 @@ def class2_model(n_photons=200_000, n_iterations=5, n_imaging=500_000):
     96 x 32 x 1 auto spherical-polar grid, MRW with gamma 2, Lucy
     iterations with convergence checking (the example: 5 of 200,000
     photons), then ``n_imaging`` imaging photons (the example: 500,000)
-    into SEDs at 20, 45 and 80 degrees."""
+    into SEDs at 20, 45 and 80 degrees, with their uncertainties."""
     from hyperion_tpu_torch.dust import HenyeyGreensteinDust
     from hyperion_tpu_torch.model import AnalyticalYSOModel
     from hyperion_tpu_torch.util.constants import au, lsun, msun, rsun
@@ -1252,6 +1342,8 @@ def class2_model(n_photons=200_000, n_iterations=5, n_imaging=500_000):
     sed.set_viewing_angles([20.0, 45.0, 80.0], [0.0, 0.0, 0.0])
     sed.set_wavelength_range(120, 0.3, 2000.0)
     sed.set_aperture_radii(1, 400 * au, 400 * au)
+    # the uncertainties give phase 11 its sigma
+    sed.set_uncertainties(True)
     m.set_mrw(True, gamma=2.0)
     m.set_n_initial_iterations(n_iterations)
     m.set_convergence(True, percentile=99., absolute=2., relative=1.02)
@@ -1266,7 +1358,8 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
     (run.py's batch rule: B = n_photons / 4, at least 4,096), each Lucy
     iteration capped at ``max_steps``, then ``n_imaging`` imaging photons
     capped at ``imaging_max_steps``. Returns (deposit_visit launches,
-    escape_tau launches, report)."""
+    escape_tau launches, report, {specific_energy, seds, seds_unc} for
+    phase 11)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
 
@@ -1320,11 +1413,14 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
           % (run.result.iterations, run.result.converged, wall,
              temp[dusty].min(), temp.max(), run.result.killed_int, launches,
              steps, card))
+    data = run.imaging.peeled[0]['datasets']
     return launches, launches_et, dict(
         photons=n_photons, max_steps=max_steps, wall_s=wall,
         iterations=rows, converged=bool(run.result.converged),
         launches=launches, steps=steps, imaging=img,
-        imaging_cut=dict(photons=n_imaging, max_steps=imaging_max_steps))
+        imaging_cut=dict(photons=n_imaging, max_steps=imaging_max_steps)), \
+        dict(specific_energy=run.iterations[-1]['specific_energy'],
+             seds=data['seds'][0], seds_unc=data['seds_unc'][0])
 
 
 def yso_thick_phase(dv, card, n_photons, n_iterations):
@@ -1622,6 +1718,483 @@ def escape_tau_phase(card):
                         50_000, card))
 
 
+# ------------------------------------------- raytracing and monochromatic --
+
+@contextlib.contextmanager
+def column_calls():
+    """Record the column walks (``EscapeTau.columns``) made inside the
+    block: yields a list that gets, per call, the kind of grid and its
+    eight lane tensors and t_max (cloned)."""
+    from hyperion_tpu_torch.transport import escape_tau as et
+    from hyperion_tpu_torch.transport.gtable import CartesianGeometry
+
+    calls = []
+    inner = et.EscapeTau.columns
+
+    def recording(self, *args, t_max=None):
+        kind = 'cartesian' if isinstance(self.geometry, CartesianGeometry) \
+            else 'spherical'
+        calls.append((kind, [a.clone() for a in args] +
+                      [None if t_max is None else t_max.clone()]))
+        return inner(self, *args, t_max=t_max)
+
+    et.EscapeTau.columns = recording
+    try:
+        yield calls
+    finally:
+        et.EscapeTau.columns = inner
+
+
+def _given_specific_energy(model, se):
+    """Give ``model`` the (n_dust, n_cells) specific energy ``se`` as its
+    grid's, to start from with no Lucy iteration."""
+    grid = model.grid
+    grid.quantities['specific_energy'] = [
+        np.asarray(row, float).reshape(grid.shape) for row in se]
+    model.set_n_initial_iterations(0)
+
+
+def class2_raytrace_phase(et, card, phase8):
+    """Phase 11: examples/class2_sed.py's model with raytracing (its
+    10,000 source and 1,000,000 dust photons) through run_lucy_model,
+    phase 8's specific energy given to the grid (no Lucy iteration), the
+    imaging iteration at CLASS2_CUT's budget peeling scattered light only;
+    its band at >= 100 um beside phase 8's (reported: see
+    RAYTRACE_N_SIGMA), then :func:`class2_mono_check`. Returns
+    (escape_tau launches, escape_column launches, report, the recorded
+    column calls)."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+
+    cut = CLASS2_CUT
+    m = class2_model(cut['n_photons'], 0, cut['n_imaging'])
+    m.set_raytracing(True)
+    m.set_n_photons(initial=cut['n_photons'], imaging=cut['n_imaging'],
+                    **RAYTRACING)
+    _given_specific_energy(m, phase8['specific_energy'])
+    et.launches = 0
+    et.column_launches = 0
+    t0 = time.time()
+    with column_calls() as calls:
+        run = run_lucy_model(m, device='cuda',
+                             imaging_max_steps=cut['imaging_max_steps'])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches_et, launches_col = et.launches, et.column_launches
+    img, ray = run.imaging, run.imaging.raytrace
+    # no geometry faults: no raytraced photon started outside the grid or
+    # outside its cell (the imaging steps, as the JAX package's, make no
+    # geometry self-check, and phase 11 runs no Lucy iteration)
+    if ray['outside']:
+        raise AssertionError('class2 raytracing: %d photons outside the grid '
+                             'or their cell' % ray['outside'])
+    data = img.peeled[0]['datasets']
+    for name, (a, _) in data.items():
+        if not np.isfinite(a).all() or (a < 0).any():
+            raise AssertionError('class2 raytracing: %s not finite and >= 0'
+                                 % name)
+    # (n_view, n_nu), frequency ascending; phase 8's the same
+    sed = data['seds'][0][0, 0, :, 0, :]
+    unc = data['seds_unc'][0][0, 0, :, 0, :]
+    sed8 = phase8['seds'][0, 0, :, 0, :]
+    unc8 = phase8['seds_unc'][0, 0, :, 0, :]
+    from hyperion_tpu_torch.util.constants import c
+    nu = np.logspace(np.log10(c / 2000e-4), np.log10(c / 0.3e-4), 121)
+    wav = c / np.sqrt(nu[1:] * nu[:-1]) * 1e4
+    # per view, the band of the bins at >= 100 um: its sum and the two
+    # runs' uncertainties added in quadrature over the bins
+    far = wav >= 100.0
+    band, band8 = sed[:, far].sum(axis=1), sed8[:, far].sum(axis=1)
+    sigma = np.sqrt((unc[:, far] ** 2 + unc8[:, far] ** 2).sum(axis=1))
+    n_sig = np.abs(band - band8) / np.maximum(sigma, 1e-300)
+    ratio = float(sed[2, -1] / sed[0, -1])
+    out = dict(wall_s=wall, imaging_wall_s=img.wall, imaging_steps=img.n_steps,
+               killed_int=img.killed_int, raytracing_wall_s=ray['wall'],
+               batches=ray['batches'], raytracing_photons=ray['photons'],
+               raytracing_outside=ray['outside'],
+               escape_tau_launches=launches_et,
+               escape_column_launches=launches_col,
+               far_ir_band_sigma=n_sig.tolist(),
+               far_ir_band_ratio_to_phase8=(band / band8).tolist(),
+               far_ir_bins=int(far.sum()), ratio_80_20=ratio)
+    phase('class2 raytracing: %d imaging steps (scattered light only) in '
+          '%.3f s, killed_int %d; raytracing %d photons in %d batches, '
+          '%.3f s wall, %d column launches, %d escape_tau launches; the '
+          'SEDs\' band at >= 100 um (%d bins) per view %s x phase 8\'s, %s '
+          'sigma (reported, not checked); 80/20 degree ratio at 0.3 um '
+          '%.4e (phase 8: %.4e) [%s]'
+          % (img.n_steps, img.wall, img.killed_int, ray['photons'],
+             ray['batches'], ray['wall'], launches_col, launches_et,
+             far.sum(), ['%.4f' % v for v in band / band8],
+             ['%.2f' % v for v in n_sig], ratio, sed8[2, -1] / sed8[0, -1],
+             card))
+    if launches_col == 0 or not ratio > 0:
+        raise AssertionError('class2 raytracing: %s' % out)
+    out['mono_check'] = class2_mono_check(et, card, phase8)
+    return launches_et, launches_col, out, calls
+
+
+def class2_mono_check(et, card, phase8):
+    """Phase 11's check of the raytracing against the Monte-Carlo light of
+    the same emission model: class2 in monochromatic mode at
+    CLASS2_MONO_WAVELENGTHS, phase 8's specific energy given to the grid,
+    CLASS2_MONO_PHOTONS from the sources and from the dust per
+    wavelength, (a) without and (b) with raytracing (RAYTRACING's source
+    photons, ten times its dust photons, see RAYTRACE_N_SIGMA);
+    (b) within RAYTRACE_N_SIGMA of (a) at every view and wavelength (sigma
+    both runs' Monte-Carlo uncertainties). Both emit the dust's light from
+    uniform points in the cells, by their specific energy: raytracing's model,
+    which on class2's optically thick cells differs from the imaging
+    iteration's emission at its absorption points (see RAYTRACE_N_SIGMA).
+    Returns the report."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+
+    n = CLASS2_MONO_PHOTONS
+    seds, out = [], {}
+    for name, ray in (('a', False), ('b', True)):
+        m = class2_model(CLASS2_CUT['n_photons'], 0, n)
+        m.set_monochromatic(True, wavelengths=CLASS2_MONO_WAVELENGTHS)
+        m.peeled_output[0].set_wavelength_index_range(
+            0, len(CLASS2_MONO_WAVELENGTHS) - 1)
+        m.set_raytracing(ray)
+        m.set_n_photons(initial=CLASS2_CUT['n_photons'], imaging_sources=n,
+                        imaging_dust=n, **(dict(
+                            RAYTRACING, raytracing_dust=10 * RAYTRACING[
+                                'raytracing_dust']) if ray else {}))
+        _given_specific_energy(m, phase8['specific_energy'])
+        et.launches = 0
+        t0 = time.time()
+        run = run_lucy_model(m, device='cuda')
+        torch.cuda.synchronize()
+        img = run.imaging
+        data = img.peeled[0]['datasets']
+        seds.append((data['seds'][0][0, 0, :, 0], data['seds_unc'][0][0, 0,
+                                                                     :, 0]))
+        out[name] = dict(wall_s=time.time() - t0, steps=img.n_steps,
+                         killed_int=img.killed_int,
+                         escape_tau_launches=et.launches)
+        if img.killed_int or et.launches == 0 or \
+                not np.isfinite(seds[-1][0]).all():
+            raise AssertionError('class2 mono (%s): %s' % (name, out[name]))
+    (a, ua), (b, ub) = seds
+    n_sig = np.abs(b - a) / np.maximum(np.hypot(ua, ub), 1e-300)
+    out.update(wavelengths=CLASS2_MONO_WAVELENGTHS,
+               ratio_b_a=(b / a).tolist(), sigma=n_sig.tolist())
+    phase('class2 mono at %s um: (a) %d steps in %.3f s, (b) with '
+          'raytracing %d steps in %.3f s; (b) / (a) per view %s, %s sigma '
+          '(the bound %.1f) [%s]'
+          % (CLASS2_MONO_WAVELENGTHS, out['a']['steps'], out['a']['wall_s'],
+             out['b']['steps'], out['b']['wall_s'],
+             [['%.4f' % v for v in row] for row in b / a],
+             [['%.2f' % v for v in row] for row in n_sig], RAYTRACE_N_SIGMA,
+             card))
+    if n_sig.max() > RAYTRACE_N_SIGMA:
+        raise AssertionError('class2 mono: %s' % out)
+    return out
+
+
+def raytrace_table_offset(model, se):
+    """Per exact frequency of the monochromatic ``model``, what the
+    raytracing pass's thermal light should exceed the monochromatic
+    iteration's by on an optically thin grid, as nu L_nu (erg/s, the SEDs'
+    unit), from the (n_dust, n_cells) specific energy ``se``: nu times the
+    sum over cells of L j_nu as the pass estimates it, less the same as
+    the iteration does. The pass interpolates a cell's emissivity between
+    the N_VAR_EFF var rows that the JAX package's tables keep of the
+    dust's table, the iteration between the two rows of the whole table
+    around the cell's state (dust_mono_cell_pdfs); where the two agree the
+    offset is 0."""
+    import torch
+    from hyperion_tpu_torch.model import run as prun
+    from hyperion_tpu_torch.transport import raytrace as rt
+    from hyperion_tpu_torch.transport.mono import dust_mono_cell_pdfs
+
+    cpu, f64 = torch.device('cpu'), torch.float64
+    geo = prun.build_geometry_tables(model.grid, cpu, f64)
+    rho = prun._density_array(model, geo.length_scale, cpu, f64)
+    dusts = model._dust_objects()
+    for d in dusts:
+        # the LTE emissivities, as the run's build_dust_tables sets them
+        d._compute_mean_opacities()
+        if not d.emissivities.all_set():
+            d.emissivities.set_lte(d.optical_properties, d.mean_opacities)
+    freqs = np.asarray(model._frequencies, float)
+    se = np.asarray(se, float)
+    _, mean_prob, e_tot = dust_mono_cell_pdfs(
+        dusts, rho.numpy(), geo.volumes.numpy(), se, freqs)
+    tab, var_grids = rt.build_raytrace_tables_mono(
+        dusts, model.sources, freqs, se, rho, geo.volumes, cpu, f64)
+    n_dust, n_cells = se.shape
+    spec = rt.dust_emission_spectra(
+        tab, torch.log10(torch.as_tensor(np.array(var_grids))),
+        torch.as_tensor(se), torch.arange(n_dust).repeat_interleave(n_cells),
+        torch.arange(n_cells).repeat(n_dust))
+    ray = (tab.cell_lum[:, None] * spec).sum(dim=0).numpy()
+    mc = (mean_prob * e_tot[None, :]).sum(axis=1)
+    # the engine's density and volumes carry the length scale: L rho V / L^3
+    return freqs * (ray - mc) * geo.length_scale ** 2
+
+
+def mono_model(se, raytracing):
+    """examples/quickstart.py (tutorial_model) in monochromatic mode at
+    MONO_WAVELENGTHS, its peeled group taking all of them (index range 0 to
+    4) with uncertainties, ``se`` (phase 4's specific energy) given to the
+    grid, MONO_PHOTONS source and dust photons per wavelength, with or
+    without raytracing (RAYTRACING's photons)."""
+    m = tutorial_model()
+    m.set_monochromatic(True, wavelengths=MONO_WAVELENGTHS)
+    group = m.peeled_output[0]
+    group.set_wavelength_index_range(0, len(MONO_WAVELENGTHS) - 1)
+    group.set_uncertainties(True)
+    m.set_raytracing(raytracing)
+    m.set_n_photons(initial=500_000, imaging_sources=MONO_PHOTONS,
+                    imaging_dust=MONO_PHOTONS,
+                    **(RAYTRACING if raytracing else {}))
+    _given_specific_energy(m, se)
+    return m
+
+
+def mono_phase(et, card, se):
+    """Phase 12: the quickstart's model in monochromatic mode through
+    run_lucy_model, (a) without and (b) with raytracing, phase 4's specific
+    energy given to the grid. (a) at 0.5 and 1 um within
+    MONO_ANALYTIC_RTOL of the point source's nu L pi B_nu / (sigma T^4)
+    (the box's tau along the line of sight is ~0.01); (b)'s SED less
+    (a)'s within MONO_N_SIGMA of raytrace_table_offset at every
+    wavelength; nothing killed, escape_tau launched. Returns (escape_tau launches per run, escape_column launches
+    of (b), report, (b)'s recorded column calls)."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.util.constants import lsun, pi, sigma
+    from hyperion_tpu_torch.util.functions import B_nu
+
+    runs, out, launches = {}, {}, {}
+    for name, ray in (('a', False), ('b', True)):
+        m = mono_model(se, ray)
+        et.launches = 0
+        et.column_launches = 0
+        t0 = time.time()
+        with column_calls() as calls:
+            run = run_lucy_model(m, device='cuda')
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        img = run.imaging
+        launches[name] = (et.launches, et.column_launches)
+        data = img.peeled[0]['datasets']
+        for key, (a, _) in data.items():
+            if key != 'frequencies' and (not np.isfinite(a).all() or
+                                         (a < 0).any()):
+                raise AssertionError('mono (%s): %s not finite and >= 0'
+                                     % (name, key))
+        runs[name] = (data['seds'][0][0, 0, 0, 0],
+                      data['seds_unc'][0][0, 0, 0, 0],
+                      data['frequencies'][0]['nu'], calls)
+        out[name] = dict(wall_s=wall, imaging_wall_s=img.wall,
+                         steps=img.n_steps, killed_int=img.killed_int,
+                         batch=img.batch_size,
+                         ms_per_step=img.wall * 1e3 / img.n_steps,
+                         occupancy=img.n_events / (img.n_steps *
+                                                   img.batch_size),
+                         escape_tau_launches=et.launches,
+                         escape_column_launches=et.column_launches,
+                         raytrace=img.raytrace)
+        phase('mono (%s, %s raytracing): %d steps in %.3f s (%.3f ms per '
+              'step, B=%d, occupancy %.4f), killed_int %d, escape_tau '
+              'launches %d, escape_column launches %d%s [%s]'
+              % (name, 'with' if ray else 'without', img.n_steps, img.wall,
+                 out[name]['ms_per_step'], img.batch_size,
+                 out[name]['occupancy'], img.killed_int, et.launches,
+                 et.column_launches,
+                 '' if not ray else ', raytracing %d batches in %.3f s'
+                 % (img.raytrace['batches'], img.raytrace['wall']), card))
+        if img.killed_int or et.launches == 0 or \
+                (ray and (et.column_launches == 0 or
+                          img.raytrace['outside'])):
+            raise AssertionError('mono (%s): %s' % (name, out[name]))
+    sed_a, unc_a, nu, _ = runs['a']
+    sed_b, unc_b, _, calls = runs['b']
+    expected = nu * lsun * pi * B_nu(nu, 6000.0) / (sigma * 6000.0 ** 4)
+    ratio = sed_a / expected
+    # (b) - (a) against the offset of raytracing's resampled var rows
+    # (MONO_N_SIGMA says why)
+    offset = raytrace_table_offset(mono_model(se, True), se)
+    n_sig = np.abs(sed_b - sed_a - offset) / \
+        np.maximum(np.hypot(unc_a, unc_b), 1e-300)
+    out.update(wavelengths=MONO_WAVELENGTHS, sed_a=sed_a.tolist(),
+               sed_b=sed_b.tolist(), analytic_ratio_a=ratio.tolist(),
+               table_offset=offset.tolist(),
+               b_vs_a_raw_sigma=(np.abs(sed_b - sed_a) / np.maximum(
+                   np.hypot(unc_a, unc_b), 1e-300)).tolist(),
+               b_vs_a_sigma=n_sig.tolist())
+    phase('mono: (a) against the analytic SED at %s um: %s; (b) / (a) %s, '
+          'the tables\' offset / (a) %s; (b) - (a) against the offset: %s '
+          'sigma (the bound %.1f) [%s]'
+          % (MONO_WAVELENGTHS, ['%.5f' % r for r in ratio],
+             ['%.5f' % r for r in sed_b / sed_a],
+             ['%.2e' % r for r in offset / sed_a],
+             ['%.2f' % v for v in n_sig], MONO_N_SIGMA, card))
+    if (np.abs(ratio[:2] - 1.0) > MONO_ANALYTIC_RTOL).any() or \
+            n_sig.max() > MONO_N_SIGMA:
+        raise AssertionError('mono: %s' % out)
+    return (launches['a'][0], launches['b'][0]), launches['b'][1], out, calls
+
+
+def column_bytes(call, n_dust):
+    """The bytes of one float32 column call of V views: each active lane
+    reads its position, cell and flag once, each of its rays its direction
+    (and t_max) and writes its n_dust columns; an inactive lane reads its
+    flag and writes zeros."""
+    active, V = call[7], call[3].shape[0]
+    n_act, B = int(active.sum()), active.shape[0]
+    lane = 3 * 4 + 8 + 1
+    ray = 3 * 4 + (0 if call[8] is None else 4)
+    return n_act * (lane + V * ray) + (B - n_act) * 1 + V * B * n_dust * 4
+
+
+def check_columns(what, kind, calls, tables, card):
+    """Phase 13 for the column calls of one run: the kernel with float64
+    lanes within 1e-10 relative of the float64 plain version on every ray
+    and dust, with float32 lanes within ESCAPE_TAU_RTOL32 of it, and equal
+    to its own float32 plain version; then its times on the float32 lanes.
+    ``tables``: the grid's float64 geometry and the density transpose in
+    float32 and float64."""
+    import torch
+    from hyperion_tpu_torch.transport import escape_tau as et
+
+    geo64, rt32, rt64 = tables
+    walk32, walk64 = et.EscapeTau(geo64, rt32), et.EscapeTau(geo64, rt64)
+    n_dust = rt32.shape[1]
+    nbytes = n_far = 0
+    groups = {False: [], True: []}     # by whether a call limits the walk
+    for call in calls:
+        c64, active = _f64(call), call[7]
+        k64 = walk64.columns(*c64[:8], t_max=c64[8])
+        k32 = walk32.columns(*call[:8], t_max=call[8]).double()
+        # the columns of inactive lanes' rays are 0
+        n_far += int((k64[:, ~active] != 0).sum() +
+                     (k32[:, ~active] != 0).sum())
+        groups[call[8] is not None].append(
+            (c64, active, k64[:, active].reshape(-1, n_dust),
+             k32[:, active].reshape(-1, n_dust)))
+        nbytes += column_bytes(call, n_dust)
+    # the float64 plain version on the live rays of all calls at once, as
+    # one view: as many steps as the longest walk, not that many per call
+    # and view
+    worst64 = worst32 = 0.0
+    max_cross = n_cross_all = n_rays = 0
+    for limited, group in groups.items():
+        if not group:
+            continue
+        lanes, t_max = [], []
+        for c64, active, _, _ in group:
+            V = c64[3].shape[0]
+            lanes.append([torch.cat([a[active]] * V) for a in c64[:3]] +
+                         [k[:, active].reshape(1, -1) for k in c64[3:6]] +
+                         [torch.cat([c64[6][active]] * V)])
+            if limited:
+                t_max.append(c64[8][:, active].reshape(1, -1))
+        lanes = [torch.cat([r[i] for r in lanes], dim=1 if 3 <= i < 6
+                           else 0) for i in range(7)]
+        ref, n_cross = et.escape_column_reference(
+            geo64, rt64, *lanes, torch.ones_like(lanes[6], dtype=torch.bool),
+            t_max=torch.cat(t_max, dim=1) if limited else None,
+            crossings=True)
+        ref = ref[0]
+        k64 = torch.cat([k for _, _, k, _ in group])
+        k32 = torch.cat([k for _, _, _, k in group])
+        worst64 = max(worst64, _rel_err(k64, ref))
+        worst32 = max(worst32, _rel_err(k32, ref))
+        n_far += int(((k32 - ref).abs() >
+                      ESCAPE_TAU_RTOL32 * ref.abs() + 1e-30).sum())
+        max_cross = max(max_cross, int(n_cross.max()))
+        n_cross_all += int(n_cross.sum())
+        n_rays += int((n_cross > 0).sum())
+    # every crossing reads one density row and does the crossing's float64
+    # operations and a multiply-add per dust
+    nbytes += n_cross_all * n_dust * 4
+    flops = n_cross_all * (FLOPS_PER_CROSSING[kind] + 2 * n_dust)
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    for rep in range(2):
+        for a, b, call in zip(starts, ends, calls):
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            walk32.columns(*call[:8], t_max=call[8])
+            b.record()
+        torch.cuda.synchronize()
+    device_us = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e3
+    t0 = time.perf_counter()
+    for call in calls:
+        walk32.columns(*call[:8], t_max=call[8])
+    host_us = (time.perf_counter() - t0) * 1e6 / len(calls)
+    torch.cuda.synchronize()
+    some = calls[:5]
+    t0 = time.perf_counter()
+    plain = [et.escape_column_reference(geo64, rt32, *call[:8],
+                                        t_max=call[8]) for call in some]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(some)
+    max_err = max(float((walk32.columns(*call[:8], t_max=call[8]) - p)
+                        .abs().max()) for call, p in zip(some, plain))
+    n_far_plain = sum(int(((walk32.columns(*call[:8], t_max=call[8]) - p)
+                           .abs() > ESCAPE_TAU_RTOL32 * p.abs() + 1e-30)
+                          .sum()) for call, p in zip(some, plain))
+    t_bytes = nbytes / len(calls) / HBM_BYTES_PER_S * 1e6
+    t_ops = flops / len(calls) / FP64_FLOPS * 1e6
+    out = dict(run=what, model=kind, calls=len(calls),
+               views=sum(c[3].shape[0] for c in calls),
+               B=calls[0][7].shape[0], n_dust=n_dust, rays=n_rays,
+               f64_max_rel_err=worst64, f32_max_rel_err_vs_f64=worst32,
+               f32_rays_outside=n_far, f32_vs_plain32_max_abs_err=max_err,
+               longest_walk=max_cross, device_us=device_us / len(calls),
+               host_us=host_us, plain_ms=plain_ms,
+               bound_us=max(t_bytes, t_ops),
+               bound_by='bytes' if t_bytes >= t_ops else 'operations',
+               bytes_per_call=nbytes / len(calls),
+               flops_per_call=flops / len(calls))
+    phase('escape_column %s (%s, %d calls, %d views, B=%d, %d walking '
+          'rays): max rel err against the float64 plain version %.3e '
+          '(float64 lanes), %.3e (float32 lanes; %d ray-dusts beyond %.0e); '
+          'float32 lanes against their plain version on %d calls: max abs '
+          'err %.3e; longest walk %d crossings; device %.2f us per call, '
+          'host %.2f us per call, plain %.3f ms, bound %.3f us (%s: %.0f '
+          'bytes, %.0f float64 flops per call) [%s]'
+          % (what, kind, len(calls), out['views'], out['B'], n_rays,
+             worst64, worst32, n_far, ESCAPE_TAU_RTOL32, len(some), max_err,
+             max_cross, out['device_us'], host_us, plain_ms,
+             out['bound_us'], out['bound_by'], out['bytes_per_call'],
+             out['flops_per_call'], card))
+    if worst64 > 1e-10 or n_far or n_far_plain:
+        raise AssertionError('escape_column %s: the kernel against its '
+                             'plain version: %s' % (what, out))
+    return out
+
+
+def column_phase(card, runs):
+    """Phase 13: the column mode against its plain version on the very
+    column calls of phase 11 (class2) and phase 12 (b) (the quickstart),
+    ``runs`` = [(what, model, calls)]."""
+    import torch
+    from hyperion_tpu_torch.model.run import (_density_array,
+                                              build_geometry_tables)
+
+    dev = torch.device('cuda')
+    out = []
+    for what, model, calls in runs:
+        geo64 = build_geometry_tables(model.grid, dev, torch.float64)
+        rho64 = _density_array(model, geo64.length_scale, dev, torch.float64)
+        rho32 = _density_array(model, geo64.length_scale, dev, torch.float32)
+        kinds = {k for k, _ in calls}
+        if len(kinds) != 1 or not calls:
+            raise AssertionError('escape_column %s: calls %s' % (what, kinds))
+        out.append(check_columns(what, kinds.pop(), [c for _, c in calls],
+                                 (geo64, rho32.T.contiguous(),
+                                  rho64.T.contiguous()), card))
+    return out
+
+
 def main():
     import argparse
     import torch
@@ -1629,6 +2202,9 @@ def main():
     ap.add_argument('--yso-thick-photons', type=int, default=None,
                     help='run only phases 1, 2 and 9, with 2 iterations of '
                     'this many photons (bench.py: 2000000)')
+    ap.add_argument('--raytracing', action='store_true',
+                    help='run only phases 1, 2, 4 and 8 (for their specific '
+                    'energies) and 11-13')
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1673,7 +2249,7 @@ def main():
 
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda)
-    launches = dict(deposit_visit={}, escape_tau={})
+    launches = dict(deposit_visit={}, escape_tau={}, escape_column={})
 
     def run_phase(n, fn, *a, **kw):
         t0 = time.time()
@@ -1681,6 +2257,67 @@ def main():
         record.setdefault('phase_s', {})[n] = time.time() - t0
         phase('phase %d in %.1f s' % (n, time.time() - t0))
         return out
+
+    def raytracing_phases(se4, phase8):
+        """Phases 11-13; returns their column reports."""
+        # for scripts/raytrace_spread.py and scripts/raytrace_vs_mc.py
+        np.save(OUT / 'class2_specific_energy.npy',
+                phase8['specific_energy'])
+        np.save(OUT / 'quickstart_specific_energy.npy', se4)
+        t0 = time.time()
+        launches['escape_tau']['class2_raytrace'], \
+            launches['escape_column']['class2_raytrace'], \
+            record['class2_raytrace'], calls11 = run_phase(
+                11, class2_raytrace_phase, et, card, phase8)
+        (launches['escape_tau']['mono_a'], launches['escape_tau']['mono_b']), \
+            launches['escape_column']['mono_raytrace'], record['mono'], \
+            calls12 = run_phase(12, mono_phase, et, card, se4)
+        cols = record['escape_column_calls'] = run_phase(
+            13, column_phase, card,
+            [('class2 raytracing (phase 11)',
+              class2_model(CLASS2_CUT['n_photons']), calls11),
+             ('quickstart mono raytracing (phase 12 b)',
+              tutorial_model(), calls12)])
+        record['class2_raytrace']['longest_walk'] = cols[0]['longest_walk']
+        phase('phases 11-13 in %.1f s' % (time.time() - t0))
+        return cols
+
+    def column_kernel(cols):
+        """The kernels line's escape_column entry: class2's calls (phase
+        11, the full-width raytracing of the main path) as the headline,
+        the quickstart's beside them."""
+        c = cols[0]
+        return dict(name='escape_column', route='cuda',
+                    source=ESCAPE_TAU_SOURCE, replaces=ESCAPE_COLUMN_REPLACES,
+                    launches=sum(launches['escape_column'].values()),
+                    max_abs_err=max(r['f32_vs_plain32_max_abs_err']
+                                    for r in cols),
+                    ms=c['device_us'] / 1e3, plain_ms=c['plain_ms'],
+                    bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'],
+                    library_ms=None, device_us=c['device_us'],
+                    host_us=c['host_us'], bound_us=c['bound_us'],
+                    launches_by_phase=launches['escape_column'],
+                    f64_max_rel_err=max(r['f64_max_rel_err'] for r in cols),
+                    f32_max_rel_err_vs_f64=max(r['f32_max_rel_err_vs_f64']
+                                               for r in cols),
+                    calls=[{k: r[k] for k in (
+                        'run', 'model', 'calls', 'views', 'B', 'device_us',
+                        'host_us', 'plain_ms', 'bound_us', 'bound_by',
+                        'longest_walk')} for r in cols])
+
+    if args.raytracing:
+        # 4 and 8 for their specific energies, then 11-13
+        *_, se4 = run_phase(4, run_slice, dv, et, card)
+        *_, phase8 = run_phase(8, class2_phase, dv, et, card, **CLASS2_CUT)
+        kernel = column_kernel(raytracing_phases(se4, phase8))
+        (OUT / 'raytracing.json').write_text(json.dumps(record, indent=1))
+        for name in ('escape_tau', 'escape_column'):
+            if not all(launches[name].values()):
+                raise AssertionError('%s was not launched on the main path: '
+                                     '%s' % (name, launches[name]))
+        print(json.dumps({'kernels': [kernel]}), flush=True)
+        print(result_line, flush=True)
+        return 0
 
     # 3. kernel against the plain version, and its times
     max_err, checks, timings, hot = run_phase(3, kernel_phase, dv, device,
@@ -1690,7 +2327,7 @@ def main():
 
     # 4. the slice, through the kernels
     launches['deposit_visit']['tutorial'], launches['escape_tau']['tutorial'], \
-        iterations, wall, img = run_phase(4, run_slice, dv, et, card)
+        iterations, wall, img, se4 = run_phase(4, run_slice, dv, et, card)
     record['slice'] = dict(wall_s=wall, iterations=iterations, imaging=img)
 
     # 5. physics on the card
@@ -1708,8 +2345,8 @@ def main():
 
     # 8. the class2 YSO model through the normal entry point
     launches['deposit_visit']['class2'], launches['escape_tau']['class2'], \
-        record['class2'] = run_phase(8, class2_phase, dv, et, card,
-                                     **CLASS2_CUT)
+        record['class2'], phase8 = run_phase(8, class2_phase, dv, et, card,
+                                             **CLASS2_CUT)
 
     # 9. bench.py's yso_thick configuration, cut
     launches['deposit_visit']['yso_thick'], record['yso_thick'] = \
@@ -1717,7 +2354,11 @@ def main():
 
     # 10. escape_tau on the imaging path's own walk calls
     walks = record['escape_tau_walks'] = run_phase(10, escape_tau_phase, card)
-    phase('phases 3-10 in %.1f s' % (time.time() - t_start))
+
+    # 11-13. raytracing and monochromatic imaging, and the column mode on
+    # their own calls
+    cols = raytracing_phases(se4, phase8)
+    phase('phases 3-13 in %.1f s' % (time.time() - t_start))
 
     record['launches'] = launches
     record['wall_s'] = time.time() - t_start
@@ -1763,7 +2404,8 @@ def main():
                         'model', 'steps', 'calls', 'views', 'device_us',
                         'device_us_per_view', 'host_us', 'plain_ms',
                         'bound_us', 'bound_by', 'longest_walk')}
-                        for w in walks])]
+                        for w in walks]),
+               column_kernel(cols)]
     record['kernels'] = kernels
     (OUT / 'results.json').write_text(json.dumps(record, indent=1))
     print(json.dumps({'kernels': kernels}), flush=True)

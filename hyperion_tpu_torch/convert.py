@@ -60,8 +60,8 @@ def visit_state_from_numpy(last_uid_padded, n_cells):
 def peel_group_from_numpy(fields, device, dtype):
     """The port's PeelGroup from a dict of numpy fields (and static values)
     of the JAX PeelGroup: the frames stay float64 numpy, the limits become
-    floats, the filter tables tensors. The JAX monochromatic fields are
-    dropped (the port has no monochromatic imaging yet)."""
+    floats, the filter tables tensors, the monochromatic flag and first
+    index a bool and an int."""
     kw = {}
     for f in dataclasses.fields(PeelGroup):
         if f.name.startswith('_'):
@@ -69,6 +69,10 @@ def peel_group_from_numpy(fields, device, dtype):
         v = fields.get(f.name)
         if f.name in ('view_dir', 'east', 'north', 'origin'):
             v = np.asarray(v, float)
+        elif f.name == 'monochromatic':
+            v = bool(v)
+        elif f.name == 'iwav_min':
+            v = int(v or 0)
         elif f.name in ('filter_lognu', 'filter_tn'):
             v = None if v is None else torch.tensor(np.asarray(v),
                                                     device=device, dtype=dtype)

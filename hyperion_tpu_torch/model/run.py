@@ -10,8 +10,10 @@ energy bins, an initial or additional specific energy read from the grid,
 the minimum-specific-energy floor, ``enforce_energy_range``, sublimation
 and the probabilistic geometry self-check; then the imaging iteration with
 peeled and binned SEDs and images (forced first interaction, polarization,
-every track_origin mode, filters, depth cuts, inside observers). Anything
-else raises ``NotImplementedError`` naming its ROADMAP.md item. The output
+every track_origin mode, filters, depth cuts, inside observers), or the
+monochromatic one at exact frequencies, and the raytracing pass; models
+without sources (monochromatic dust emission). Anything else raises
+``NotImplementedError`` naming its ROADMAP.md item. The output
 layout is the JAX package's, read by either package's ``ModelOutput``;
 :func:`run_lucy_model` is the same run without the file, for machines
 without HDF5. Both run on the card unless the caller passes
@@ -116,10 +118,6 @@ def _check_slice(model):
         if not isinstance(s, (PointSource, PointSourceCollection,
                               SphericalSource)):
             refuse("%s" % type(s).__name__, 4)
-    if model._monochromatic:
-        refuse("monochromatic imaging", 10)
-    if model.raytracing:
-        refuse("raytracing", 10)
 
 
 def build_geometry_tables(grid, device, dtype):
@@ -202,6 +200,7 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
     device = resolve_device(device)
     dtype = engine_dtype(device, dtype)
     _check_slice(model)
+    user_batch_size = batch_size
 
     dusts = model._dust_objects()
     if not dusts:
@@ -214,7 +213,9 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
                              length_scale=geometry.length_scale,
                              sample_evenly=model.sample_sources_evenly)
     density = _density_array(model, geometry.length_scale, device, dtype)
-    _validate_model(geometry, st, dt)
+    if model.sources:
+        # (a source-less model's placeholder row emits nothing)
+        _validate_model(geometry, st, dt)
 
     n_initial = model.n_photons.get('initial', 0)
     if batch_size is None:
@@ -289,14 +290,25 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
                 np.asarray(se, float), dtype=dtype, device=device),
             batch_size,
             max_steps=max_steps if imaging_max_steps is None
-            else imaging_max_steps)
-        n_img = model.n_photons.get('last') or 0
+            else imaging_max_steps, user_batch_size=user_batch_size)
+        n_img = sum(model.n_photons.get(k) or 0
+                    for k in ('last', 'last_sources', 'last_dust'))
+        # the imaging steps, as the JAX package's, make no geometry
+        # self-check: their killed_geo is 0 by construction
         perf.add('imaging', img.wall, photons=n_img or None,
                  events=img.n_events, steps=img.n_steps,
                  lanes=img.batch_size, energy_current=img.energy_current,
                  killed_int=img.killed_int, killed_geo=0)
         print("[imaging] %d steps, killed=%d/0" % (img.n_steps,
                                                    img.killed_int))
+        if img.raytrace is not None:
+            perf.add('raytracing', img.raytrace['wall'],
+                     photons=img.raytrace['photons'] or None,
+                     outside=img.raytrace['outside'])
+            print("[raytracing] %d batches in %.3f s, %d photons outside "
+                  "the grid or their cell"
+                  % (img.raytrace['batches'], img.raytrace['wall'],
+                     img.raytrace['outside']))
     perf.report()
     return ModelRun(result, iterations, density0, perf, img)
 

@@ -18,6 +18,13 @@ move (snapped onto a crossed cartesian wall), until the ray escapes, the
 distance is used up, or ``max_steps`` crossings. Rays of lanes that are
 not active get 0.
 
+:meth:`EscapeTau.columns` is the same walk's column mode, the counterpart
+of ``hyperion_tpu/transport/raytrace.py:escape_column_walk`` (ref
+grid_escape_column_density, grid_propagate_3d.f90:482-584): no chi rows,
+and the per-dust column density Σ rho ds of each ray, (V, B, n_dust), which
+raytracing attenuates a whole spectrum by. Its plain version is
+:func:`escape_column_reference`.
+
 The walk runs in float64 on the grid's float64 walls whatever the type of
 the lanes: float32 lanes, chi rows and density (the engine's type on the
 card) are widened, and tau rounded back once. A float32 walk's on-wall
@@ -33,26 +40,33 @@ from . import _build
 from .gtable import ESCAPED, CartesianGeometry
 from .gtable_spherical import SphericalGeometry
 
-# kernel launches since the last reset; chip_smoke.py reads it to show that
-# the main path ran the kernel
+# kernel launches since the last reset, of the tau walk and of the column
+# mode; chip_smoke.py reads them to show that the main path ran the kernel
 launches = 0
+column_launches = 0
 
 # the kernel's argument block, int64 words in the order of csrc/escape_tau.cu's
 # enum Arg: the grid's part (filled once, the plan by escape_tau_plan), then
 # the lanes' part (filled at every call)
 _ARGS = ('is_double', 'kind', 'w0', 'w1', 'w2', 'w3', 'w4', 'w5', 'w6', 'w7',
          'theta_kind', 'n1', 'n2', 'n3', 'rho', 'n_dust', 'smem',
-         'walls_shared', 'rho_shared', 'max_blocks', 'counter', 'max_steps',
-         'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'cell', 'active', 't_max',
-         'tau', 'B', 'V')
+         'walls_shared', 'rho_shared', 'max_blocks', 'max_blocks_col',
+         'counter', 'max_steps', 'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz',
+         'cell', 'active', 't_max', 'tau', 'acc', 'B', 'V')
 _LANES = _ARGS.index('chi')
+# csrc/escape_tau.cu's kChiRegs: the column mode sums up to this many dusts
+# in registers, more in a float64 scratch row
+KCHI_REGS = 4
 
 
 def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
           max_steps, t_max):
-    """One view of the plain walk, on float64 tensors: (tau, crossings)."""
+    """One view of the plain walk, on float64 tensors: (tau, crossings);
+    with ``chi_rows`` None, (the per-dust columns (B, n_dust), crossings)."""
     limited = t_max is not None
-    tau = torch.zeros_like(x)
+    columns = chi_rows is None
+    tau = torch.zeros((x.shape[0], rho_t.shape[1]) if columns else x.shape,
+                      dtype=x.dtype, device=x.device)
     n_cross = torch.zeros_like(cell)
     remaining = t_max
     i = 0
@@ -61,12 +75,17 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
         cell_safe = cell.clamp_min(0)
         t_wall, next_cell, ax, wall_coord = geometry.find_wall(
             cell_safe, x, y, z, kx, ky, kz)
-        chi_rho = (chi_rows * rho_t[cell_safe]).sum(dim=-1)
+        rho_rows = rho_t[cell_safe]
         seg = t_wall
         if limited:
             seg = torch.minimum(t_wall, remaining)
             remaining = remaining - t_wall
-        tau = tau + torch.where(active, chi_rho * seg, 0.0)
+        if columns:
+            tau = tau + torch.where(active[:, None], rho_rows * seg[:, None],
+                                    0.0)
+        else:
+            chi_rho = (chi_rows * rho_rows).sum(dim=-1)
+            tau = tau + torch.where(active, chi_rho * seg, 0.0)
         x2, y2, z2 = geometry.snap(x + t_wall * kx, y + t_wall * ky,
                                    z + t_wall * kz, ax, wall_coord, active)
         x = torch.where(active, x2, x)
@@ -80,6 +99,30 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
     return tau, n_cross
 
 
+def _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
+               active, max_steps, t_max, crossings):
+    """The plain walk of every view in turn, widened to float64 (tau, or
+    the columns with ``chi_rows`` None)."""
+    dtype, V, B = x.dtype, kx.shape[0], x.shape[0]
+    rho_t, x, y, z, kx, ky, kz = (
+        a.to(torch.float64) for a in (rho_t, x, y, z, kx, ky, kz))
+    if chi_rows is not None:
+        chi_rows = chi_rows.to(torch.float64)
+    if t_max is not None:
+        t_max = t_max.to(torch.float64)
+    walks = [_walk(geometry, rho_t, chi_rows, x, y, z, kx[v], ky[v], kz[v],
+                   cell, active, max_steps,
+                   None if t_max is None else t_max[v]) for v in range(V)]
+    if not walks:
+        shape = (0, B) if chi_rows is not None else (0, B, rho_t.shape[1])
+        out = torch.empty(shape, dtype=dtype, device=x.device)
+        n_cross = torch.empty((0, B), dtype=torch.int64, device=x.device)
+    else:
+        out = torch.stack([w[0] for w in walks]).to(dtype)
+        n_cross = torch.stack([w[1] for w in walks])
+    return (out, n_cross) if crossings else out
+
+
 def escape_tau_reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz,
                          cell, active, max_steps=100000, t_max=None,
                          crossings=False):
@@ -91,20 +134,22 @@ def escape_tau_reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz,
     tau (V, B) in the lanes' type, and with ``crossings`` also the (V, B)
     int64 count of cells each ray walked through. Reads ``any(active)`` on
     the host once per crossing."""
-    dtype = x.dtype
-    rho_t, chi_rows, x, y, z, kx, ky, kz = (
-        a.to(torch.float64) for a in (rho_t, chi_rows, x, y, z, kx, ky, kz))
-    if t_max is not None:
-        t_max = t_max.to(torch.float64)
-    walks = [_walk(geometry, rho_t, chi_rows, x, y, z, kx[v], ky[v], kz[v],
-                   cell, active, max_steps,
-                   None if t_max is None else t_max[v])
-             for v in range(kx.shape[0])]
-    if not walks:
-        empty = torch.empty((0, x.shape[0]), dtype=dtype, device=x.device)
-        return (empty, empty.long()) if crossings else empty
-    tau = torch.stack([w[0] for w in walks]).to(dtype)
-    return (tau, torch.stack([w[1] for w in walks])) if crossings else tau
+    return _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
+                      active, max_steps, t_max, crossings)
+
+
+def escape_column_reference(geometry, rho_t, x, y, z, kx, ky, kz, cell,
+                            active, max_steps=100000, t_max=None,
+                            crossings=False):
+    """The plain PyTorch column walk, the JAX package's
+    ``escape_column_walk`` (``hyperion_tpu/transport/raytrace.py:25``) with
+    the port's geometry: the per-dust column density Σ rho[cell, d] × the
+    segment along each ray, on the same crossings as
+    :func:`escape_tau_reference` (whose arguments it takes, without chi
+    rows). Returns (V, B, n_dust) in the lanes' type, and with
+    ``crossings`` also the (V, B) int64 crossing counts."""
+    return _reference(geometry, rho_t, None, x, y, z, kx, ky, kz, cell,
+                      active, max_steps, t_max, crossings)
 
 
 def _lane_error(name, t, dtype, shape, device):
@@ -197,14 +242,16 @@ class EscapeTau:
         self._counter = torch.zeros(2, dtype=torch.int32, device=self.device)
         # keep the tables alive while the kernel may read them
         self._tables = walls + [theta_kind]
-        fn = lib.escape_tau
+        fn, fn_col = lib.escape_tau, lib.escape_column
         if fn.argtypes is None:
             lib.escape_tau_plan.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
             lib.escape_tau_plan.restype = ctypes.c_int
             lib.escape_tau_n_args.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_double,
-                           ctypes.c_double, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for f in (fn, fn_col):
+                f.argtypes = [ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.c_double, ctypes.c_double,
+                              ctypes.c_void_p]
+                f.restype = ctypes.c_int
         if lib.escape_tau_n_args() != len(_ARGS):
             raise RuntimeError("escape_tau: the library's argument block has "
                                "%d words, the wrapper's %d"
@@ -220,31 +267,18 @@ class EscapeTau:
         self._args = (ctypes.c_longlong * len(_ARGS))(
             *[grid.get(name, 0) for name in _ARGS])
         err = lib.escape_tau_plan(self._args)
-        if err != 0 or self._args[_ARGS.index('max_blocks')] <= 0:
+        blocks = [self._args[_ARGS.index(k)]
+                  for k in ('max_blocks', 'max_blocks_col')]
+        if err != 0 or min(blocks) <= 0:
             raise RuntimeError("escape_tau: no plan for the kernel (cudaError "
-                               "%d, %d resident blocks)"
-                               % (err, self._args[_ARGS.index('max_blocks')]))
-        self._t_eps, self._rw1, self._fn = t_eps, rw1, fn
+                               "%d, %s resident blocks)" % (err, blocks))
+        self._t_eps, self._rw1 = t_eps, rw1
+        self._fn, self._fn_col = fn, fn_col
 
     def __call__(self, chi_rows, x, y, z, kx, ky, kz, cell, active,
                  t_max=None):
-        # the same checks on either device, so that the CPU tests hold the
-        # callers to what the kernel takes
-        if kx.dim() != 2:
-            raise _lane_error('kx', kx, self.dtype, '(V, B)', self.device)
-        V, B = kx.shape
-        if V * B >= 2 ** 31 - 2 ** 20:
-            raise ValueError("escape_tau: %d x %d rays is too many for one "
-                             "call" % (V, B))
-        for name, t, shape in (('x', x, (B,)), ('y', y, (B,)), ('z', z, (B,)),
-                               ('kx', kx, (V, B)), ('ky', ky, (V, B)),
-                               ('kz', kz, (V, B)),
-                               ('chi_rows', chi_rows, (B, self.n_dust))):
-            self._check(name, t, self.dtype, shape)
-        if t_max is not None:
-            self._check('t_max', t_max, self.dtype, (V, B))
-        self._check('cell', cell, torch.int64, (B,))
-        self._check('active', active, torch.bool, (B,))
+        V, B = self._check_lanes(x, y, z, kx, ky, kz, cell, active, t_max)
+        self._check('chi_rows', chi_rows, self.dtype, (B, self.n_dust))
         if not self._cuda:
             return escape_tau_reference(self.geometry, self.rho_t, chi_rows,
                                         x, y, z, kx, ky, kz, cell, active,
@@ -253,18 +287,72 @@ class EscapeTau:
         tau = torch.empty((V, B), dtype=self.dtype, device=self.device)
         if V * B == 0:
             return tau
+        self._launch(self._fn, chi_rows.data_ptr(), x, y, z, kx, ky, kz,
+                     cell, active, t_max, tau, 0)
+        launches += 1
+        return tau
+
+    def columns(self, x, y, z, kx, ky, kz, cell, active, t_max=None):
+        """The column mode: the per-dust column density Σ rho ds of each
+        ray, (V, B, n_dust) in the lanes' type, on the crossings of the
+        tau walk (the lanes as in a call, without chi rows). On CUDA one
+        launch of the kernel's column mode on the current stream, sharing
+        this object's tables, plan and counter; on the CPU
+        :func:`escape_column_reference`."""
+        V, B = self._check_lanes(x, y, z, kx, ky, kz, cell, active, t_max)
+        if not self._cuda:
+            return escape_column_reference(self.geometry, self.rho_t, x, y, z,
+                                           kx, ky, kz, cell, active,
+                                           self.max_steps, t_max)
+        global column_launches
+        col = torch.empty((V, B, self.n_dust), dtype=self.dtype,
+                          device=self.device)
+        if V * B == 0:
+            return col
+        # more dusts than the kernel keeps in registers: float64 sums in a
+        # scratch row of each ray (the columns themselves in float64)
+        acc = 0
+        if self.n_dust > KCHI_REGS:
+            acc = col if self.dtype == torch.float64 else torch.empty(
+                (V, B, self.n_dust), dtype=torch.float64, device=self.device)
+            acc = acc.data_ptr()
+        self._launch(self._fn_col, 0, x, y, z, kx, ky, kz, cell, active,
+                     t_max, col, acc)
+        column_launches += 1
+        return col
+
+    def _check_lanes(self, x, y, z, kx, ky, kz, cell, active, t_max):
+        """The same checks on either device, so that the CPU tests hold the
+        callers to what the kernel takes; returns (V, B)."""
+        if kx.dim() != 2:
+            raise _lane_error('kx', kx, self.dtype, '(V, B)', self.device)
+        V, B = kx.shape
+        if V * B * max(self.n_dust, 1) >= 2 ** 31 - 2 ** 20:
+            raise ValueError("escape_tau: %d x %d rays is too many for one "
+                             "call" % (V, B))
+        for name, t, shape in (('x', x, (B,)), ('y', y, (B,)), ('z', z, (B,)),
+                               ('kx', kx, (V, B)), ('ky', ky, (V, B)),
+                               ('kz', kz, (V, B))):
+            self._check(name, t, self.dtype, shape)
+        if t_max is not None:
+            self._check('t_max', t_max, self.dtype, (V, B))
+        self._check('cell', cell, torch.int64, (B,))
+        self._check('active', active, torch.bool, (B,))
+        return V, B
+
+    def _launch(self, fn, chi, x, y, z, kx, ky, kz, cell, active, t_max, out,
+                acc):
+        V, B = kx.shape
         self._args[_LANES:] = [
-            chi_rows.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            kx.data_ptr(), ky.data_ptr(), kz.data_ptr(), cell.data_ptr(),
-            active.data_ptr(), 0 if t_max is None else t_max.data_ptr(),
-            tau.data_ptr(), B, V]
-        err = self._fn(self._args, self._t_eps, self._rw1,
-                       self._stream(self._index))
+            chi, x.data_ptr(), y.data_ptr(), z.data_ptr(), kx.data_ptr(),
+            ky.data_ptr(), kz.data_ptr(), cell.data_ptr(), active.data_ptr(),
+            0 if t_max is None else t_max.data_ptr(), out.data_ptr(), acc, B,
+            V]
+        err = fn(self._args, self._t_eps, self._rw1,
+                 self._stream(self._index))
         if err != 0:
             raise RuntimeError("escape_tau kernel launch failed: cudaError %d"
                                % err)
-        launches += 1
-        return tau
 
     def _check(self, name, t, dtype, shape):
         # get_device() is the card's index, or -1 on the CPU

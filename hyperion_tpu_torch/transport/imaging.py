@@ -19,8 +19,9 @@ One ``(n_rows, B)`` block of uniforms per step, a refill only when a
 quarter of the lanes are dead or a re-absorbed photon waits, and one host
 read per step (the alive count, with the waiting count): no event is gated
 on an ``any()``, since the walk returns at once for lanes that are not
-active. Map, LTE and external sources and monochromatic imaging are not in
-this slice (``run_model`` refuses them)."""
+active. Map, LTE and external sources are not in this slice (``run_model``
+refuses them); the monochromatic iteration (``mono.py``) peels through
+:func:`peel_and_bin` too."""
 
 import math
 from dataclasses import dataclass, field
@@ -84,6 +85,11 @@ class PeelGroup:
     uncertainties: bool
     track_origin: str
     n_stokes: int = 1
+    # monochromatic groups: the frequency bins are the indices iwav_min ..
+    # iwav_min + n_nu - 1 of the model's exact frequencies (ref
+    # image_type.f90's monochromatic binning)
+    monochromatic: bool = False
+    iwav_min: int = 0
     # inside observer (ref images_peeled.f90:176-213): per-photon peel
     # directions toward ``origin``, (longitude, latitude) sky maps in
     # degrees and a 1/(4 pi d^2) dilution
@@ -184,8 +190,7 @@ def _aperture_setup(conf, L):
 
 def build_peel_group(conf, device, dtype, length_scale=1.0, n_sources=1,
                      n_dust=1):
-    """A PeelGroup from a PeeledImageConf (a copy of the JAX builder;
-    monochromatic groups are refused by ``run_model``)."""
+    """A PeelGroup from a PeeledImageConf (a copy of the JAX builder)."""
     L = float(length_scale)
     inside = conf.inside_observer is not None
     if inside:
@@ -196,8 +201,14 @@ def build_peel_group(conf, device, dtype, length_scale=1.0, n_sources=1,
         origin = np.asarray(conf.peeloff_origin or (0.0, 0.0, 0.0),
                             float) / L
     view, east, north = _viewing_frames(angles)
-    n_nu, nu_min, nu_max, filter_lognu, filter_tn = _spectral_setup(
-        conf, device, dtype)
+    mono = bool(getattr(conf, '_monochromatic', False))
+    if mono:
+        # the bins are frequency indices: nu_min and nu_max are unused
+        n_nu, nu_min, nu_max, filter_lognu, filter_tn = (
+            conf.iwav_max - conf.iwav_min + 1, 1.0, 10.0, None, None)
+    else:
+        n_nu, nu_min, nu_max, filter_lognu, filter_tn = _spectral_setup(
+            conf, device, dtype)
     ap_min, ap_max, n_ap = _aperture_setup(conf, L)
     track_n_scat = int(conf.track_n_scat or 0)
     d_min = getattr(conf, 'd_min', None)
@@ -219,6 +230,7 @@ def build_peel_group(conf, device, dtype, length_scale=1.0, n_sources=1,
         compute_image=bool(conf.image), compute_sed=bool(conf.sed),
         uncertainties=bool(conf.uncertainties),
         track_origin=conf.track_origin, n_stokes=4 if conf.stokes else 1,
+        monochromatic=mono, iwav_min=int(conf.iwav_min or 0) if mono else 0,
         inside=inside,
         ignore_optical_depth=bool(getattr(conf, 'ignore_optical_depth',
                                           False)),
@@ -349,7 +361,9 @@ def _deposit(group, flat, flat2, flatn, spatial_idx, ok_base, inu, nu_ok,
     """Add the lanes' fluxes into one cube (flat, with its sink slot): one
     ``index_add_`` for the sums, and with uncertainties one each for the
     squares and the counts. With ``tr`` (B, n_filt) a lane lands in every
-    filter channel weighted by its transmission, else in its ``inu`` bin."""
+    filter channel weighted by its transmission, else in its ``inu`` bin.
+    The fluxes take the cube's type (float64 cubes of float32 lanes: the
+    monochromatic iteration's)."""
     sink = flat.shape[0] - 1
     S = group.n_stokes
     vals = torch.stack(flux_s, dim=-1)                     # (B, S)
@@ -367,12 +381,12 @@ def _deposit(group, flat, flat2, flatn, spatial_idx, ok_base, inu, nu_ok,
         vals = vals[:, None, :] * tr[..., None]
         ok = okf[..., None]
     idx = torch.where(ok, idx, sink).reshape(-1)
-    val = torch.where(ok, vals, 0.0).reshape(-1)
+    val = torch.where(ok, vals, 0.0).reshape(-1).to(flat.dtype)
     flat.index_add_(0, idx, val)
     if group.uncertainties:
         flat2.index_add_(0, idx, val * val)
         flatn.index_add_(0, idx, torch.where(ok, torch.ones_like(vals),
-                                             0.0).reshape(-1))
+                                             0.0).reshape(-1).to(flat.dtype))
 
 
 def _aperture_bin(group, x_img, y_img, ok_base):
@@ -390,15 +404,20 @@ def _aperture_bin(group, x_img, y_img, ok_base):
     return ir.clamp(0, group.n_ap - 1), ir < group.n_ap
 
 
-def _spectral_bin(group, nu):
-    """(inu, nu_ok, tr) of a lane batch: the log-frequency bin, or the
-    filter transmissions."""
+def _spectral_bin(group, nu, inu_global=None):
+    """(inu, nu_ok, tr) of a lane batch: the log-frequency bin, the filter
+    transmissions, or for a monochromatic group the bin of the exact
+    frequency's index ``inu_global`` (an int, the same for every lane)."""
     if group.use_filters:
         return None, torch.ones_like(nu, dtype=torch.bool), \
             filter_transmissions(group, nu)
-    fnu = (torch.log10(nu) - group.log10_nu_min) / \
-        (group.log10_nu_max - group.log10_nu_min)
-    inu = _floor_index(fnu * group.n_nu, group.n_nu)
+    if group.monochromatic:
+        inu = torch.full(nu.shape, int(inu_global) - group.iwav_min,
+                         dtype=torch.int64, device=nu.device)
+    else:
+        fnu = (torch.log10(nu) - group.log10_nu_min) / \
+            (group.log10_nu_max - group.log10_nu_min)
+        inu = _floor_index(fnu * group.n_nu, group.n_nu)
     nu_ok = (inu >= 0) & (inu < group.n_nu)
     return inu.clamp(0, group.n_nu - 1), nu_ok, None
 
@@ -492,7 +511,7 @@ def _walk_sights(walk, groups, sights, chi_rows, p_x, p_y, p_z, cell,
 def peel_and_bin(walk, dt, groups, accums, p_x, p_y, p_z, chi_rows, cell, nu,
                  energy, weight_iso, is_scatter, dust_id, k_in_x, k_in_y,
                  k_in_z, prov, active, stokes_in=None, surface=None,
-                 extra=None):
+                 extra=None, inu_global=None):
     """For every group and view: the peel weight, the escape optical depth
     and the binning into ``accums`` (in place). ``walk``, an
     :class:`~.escape_tau.EscapeTau`, is called once for the event: the
@@ -507,6 +526,8 @@ def peel_and_bin(walk, dt, groups, accums, p_x, p_y, p_z, chi_rows, cell, nu,
     surface, which peel with 4 mu or the limb-darkened 2 (1.5 mu^2 + mu)
     (ref emit_from_sphere_peeloff, source_type.f90:692-707).
     ``stokes_in``: the photons' (q, u, v), None for unpolarized.
+    ``inu_global``: for monochromatic groups, the index of the lanes'
+    exact frequency in the model's list (an int).
     ``extra``: (kx, ky, kz, mask), one more ray per lane, (B,) each, walked
     to the edge in the same call for the lanes of ``mask`` (the emission
     rays of a forced first interaction). Returns their tau (B,), 0 outside
@@ -535,7 +556,7 @@ def peel_and_bin(walk, dt, groups, accums, p_x, p_y, p_z, chi_rows, cell, nu,
                                    p_z, cell, active, extra)
     for group, acc, sight, tau_g in zip(groups, accums, sights, taus):
         io = origin_index(group, prov).clamp(0, group.n_orig - 1)
-        inu, nu_ok, tr = _spectral_bin(group, nu)
+        inu, nu_ok, tr = _spectral_bin(group, nu, inu_global)
         d_obs = sight[3]
         for iv in range(group.n_view):
             j = 0 if group.inside else iv

@@ -112,11 +112,11 @@ def _sphere_rows(s, n_spec, group):
 def build_source_tables(sources, device, dtype, n_spec=1024,
                         length_scale=1.0, sample_evenly=False):
     """Build SourceTables from a list of PointSource, PointSourceCollection
-    and SphericalSource objects; other source types raise."""
-    if not sources:
-        raise NotImplementedError(
-            "source-less models (monochromatic dust emission) are not in "
-            "the port yet: ROADMAP.md queue 1 item 10")
+    and SphericalSource objects; other source types raise. A source-less
+    model (monochromatic dust emission alone; the reference's source loop
+    idles, iter_final_mono.f90) gets one zero-luminosity point row at the
+    origin, as in the JAX package, so that the tables keep their shapes;
+    its ``energy_total`` is 0."""
     rows = []
     for i_top, s in enumerate(sources):
         s._check_all_set()
@@ -134,6 +134,9 @@ def build_source_tables(sources, device, dtype, n_spec=1024,
                 "%s is not in the port yet (point and spherical sources "
                 "only): ROADMAP.md queue 1 item 4" % type(s).__name__)
 
+    if not rows:
+        rows = [_row(POINT, (0.0, 0.0, 0.0), 0.0, np.array([1e10, 1e15]), 0,
+                     intersect=False)]
     lum = np.array([r['luminosity'] for r in rows])
     groups = np.array([r['group'] for r in rows], dtype=int)
     n_groups = len(sources)
@@ -172,6 +175,21 @@ def build_source_tables(sources, device, dtype, n_spec=1024,
                     np.array([r['intersect'] for r in rows])),
         cap_dir=f([r['cap_dir'] for r in rows]),
         cap_cos=f([r['cap_cos'] for r in rows]))
+
+
+def per_row(sources, one):
+    """``[one(s) ...]`` for each emission row of :func:`build_source_tables`
+    in its order: a collection's points share their ``one``, a spotted
+    sphere's row is followed by one row per spot (``one(spot)``)."""
+    rows = []
+    for s in sources:
+        if isinstance(s, PointSourceCollection):
+            rows += [one(s)] * s.position.shape[0]
+        elif isinstance(s, SphericalSource):
+            rows += [one(s)] + [one(spot) for spot in s.spots]
+        else:
+            rows.append(one(s))
+    return rows
 
 
 def pick_sources(st, u):

@@ -10,7 +10,10 @@ On the card (marked ``cuda``: the kernel has no CPU mode), the kernel
 against the plain version: both lane types and grids, the thin shells, a
 call with no live ray and one with a single live ray among 50,000, rays
 whose lengths differ 100-fold, and a CUDA graph of the call replayed on
-new lanes."""
+new lanes; and the column mode against its plain version on the same
+grids (thin shells too), sparse calls, six dust types (more than the
+kernel keeps in registers) and a CUDA graph. The column walk against the
+JAX package's is in tests/test_torch_raytrace.py."""
 
 import numpy as np
 import pytest
@@ -457,4 +460,111 @@ def test_kernel_in_a_cuda_graph_on_card(cuda_device):
         graph.replay()
         torch.cuda.synchronize()
         _close(out, et.escape_tau_reference(pg, rho_t, *new, t_max=tm),
+               torch.float64)
+
+
+# -------------------------------------------- the column mode, on the card --
+
+def _card_columns(pg, density, args, t_max, cuda_device):
+    """(kernel, plain version) of one column call on the card (the lanes of
+    ``args`` without their chi rows); the kernel's call launches once."""
+    rho_t = torch.as_tensor(density.T.copy(), dtype=args[1].dtype,
+                            device=cuda_device)
+    launches, col_launches = et.launches, et.column_launches
+    col = et.EscapeTau(pg, rho_t).columns(*args[1:], t_max=t_max)
+    torch.cuda.synchronize()
+    assert et.column_launches == col_launches + 1
+    assert et.launches == launches
+    return col, et.escape_column_reference(pg, rho_t, *args[1:], t_max=t_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('limited', [False, True], ids=['edge', 't_max'])
+@pytest.mark.parametrize('kind', ['cartesian', 'spherical', 'thin_shells'])
+def test_column_kernel_matches_plain_version_on_card(kind, limited,
+                                                     cuda_device):
+    """The column mode with three views, float64 and float32 lanes, an
+    unlimited view (+inf) in the limited call: (V, B, n_dust) equal to the
+    plain column walk, 0 for inactive lanes."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup(
+        kind, cuda_device, n=20000)
+    t_max[2] = np.inf
+    for dtype in (torch.float64, torch.float32):
+        args = _port_args(pos, k, cell, active, chi, dtype, cuda_device)
+        tm = torch.as_tensor(t_max, dtype=dtype, device=cuda_device) \
+            if limited else None
+        col, plain = _card_columns(pg, density, args, tm, cuda_device)
+        assert col.shape == (N_VIEWS, len(cell), 2)
+        _close(col, plain, dtype)
+        assert (col[:, torch.as_tensor(~active)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('live', [0, 1], ids=['none', 'one'])
+def test_column_kernel_sparse_calls_on_card(live, cuda_device):
+    """50,000 lanes of which none, or one, is active, twice (the counter
+    the tau walk shares is reset by each call)."""
+    pg, pos, k, cell, active, density, chi, _ = _setup(
+        'spherical', cuda_device, n=50000)
+    only = np.zeros_like(active)
+    if live:
+        only[np.flatnonzero(active)[live * 7919 % active.sum()]] = True
+    for _ in range(2):
+        args = _port_args(pos, k, cell, only, chi, torch.float64, cuda_device)
+        col, plain = _card_columns(pg, density, args, None, cuda_device)
+        _close(col, plain, torch.float64)
+        assert int((col.sum(dim=-1) != 0).sum()) == (N_VIEWS if live else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['f64', 'f32'])
+def test_column_kernel_many_dusts_on_card(dtype, cuda_device):
+    """Six dust types, more than the kernel keeps in registers: the sums go
+    through the ray's float64 scratch row and are rounded once."""
+    pg, pos, k, cell, active, _, chi, t_max = _setup('spherical',
+                                                     cuda_device, n=20000)
+    rng = np.random.default_rng(11)
+    density = rng.uniform(0.0, 3.0, (6, pg.n_cells))
+    density[rng.random(density.shape) < 0.2] = 0.0
+    args = _port_args(pos, k, cell, active, chi, dtype, cuda_device)
+    tm = torch.as_tensor(t_max, dtype=dtype, device=cuda_device)
+    for limit in (None, tm):
+        col, plain = _card_columns(pg, density, args, limit, cuda_device)
+        assert col.shape == (N_VIEWS, len(cell), 6)
+        _close(col, plain, dtype)
+
+
+@pytest.mark.cuda
+def test_column_kernel_in_a_cuda_graph_on_card(cuda_device):
+    """One column call captured in a CUDA graph, replayed on new lanes
+    copied into its inputs: each replay equals the plain version."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup(
+        'cartesian', cuda_device, n=20000)
+    rho_t = torch.as_tensor(density.T.copy(), device=cuda_device)
+    walk = et.EscapeTau(pg, rho_t)
+    static = _port_args(pos, k, cell, active, chi, torch.float64,
+                        cuda_device)[1:]
+    tm = torch.as_tensor(t_max, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        walk.columns(*static, t_max=tm)          # warm up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = walk.columns(*static, t_max=tm)
+    rng = np.random.default_rng(6)
+    for seed in range(3):
+        _, pos2, k2, cell2, active2, _, chi2, t_max2 = _setup(
+            'cartesian', cuda_device, n=20000, seed=200 + seed)
+        p = rng.permutation(20000)
+        new = _port_args(pos2[:, p], k2[:, :, p], cell2[p], active2[p],
+                         chi2[p], torch.float64, cuda_device)[1:]
+        for s, a in zip(static, new):
+            s.copy_(a)
+        tm.copy_(torch.as_tensor(t_max2[:, p], device=cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, et.escape_column_reference(pg, rho_t, *new, t_max=tm),
                torch.float64)

@@ -160,14 +160,20 @@ def test_entry_points_need_the_card_unless_asked(entry, monkeypatch,
     assert not (tmp_path / 'x.rtout').exists()
 
 
-def _monochromatic(m):
-    m.set_monochromatic(True, wavelengths=[1.0, 10.0])
-    m.add_peeled_images(sed=True, image=False)
+def _octree(m):
+    dust = m.dust[0]
+    refined = [True] + [False] * 8
+    m.set_octree_grid(0.0, 0.0, 0.0, 1e14, 1e14, 1e14, refined)
+    m.add_density_grid(np.full(len(refined), 1e-18), dust)
 
 
-def _raytracing(m):
-    m.set_raytracing(True)
-    m.add_peeled_images(sed=True, image=False)
+def _plane_parallel_source(m):
+    s = m.add_plane_parallel_source()
+    s.luminosity = lsun
+    s.temperature = 5000.0
+    s.radius = 1e13
+    s.position = (0.0, 0.0, 0.0)
+    s.direction = (45.0, 0.0)
 
 
 def _cylindrical(m):
@@ -192,8 +198,8 @@ def test_jax_model_is_refused(tmp_path):
                   device='cpu')
 
 
-@pytest.mark.parametrize('change', [_monochromatic, _raytracing, _cylindrical,
-                                    _external_spherical_source])
+@pytest.mark.parametrize('change', [_octree, _plane_parallel_source,
+                                    _cylindrical, _external_spherical_source])
 def test_outside_the_slice_raises(change, tmp_path):
     m = tutorial_model()
     change(m)
