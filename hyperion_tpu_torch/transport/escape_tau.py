@@ -23,7 +23,9 @@ of ``hyperion_tpu/transport/raytrace.py:escape_column_walk`` (ref
 grid_escape_column_density, grid_propagate_3d.f90:482-584): no chi rows,
 and the per-dust column density Σ rho ds of each ray, (V, B, n_dust), which
 raytracing attenuates a whole spectrum by. Its plain version is
-:func:`escape_column_reference`.
+:func:`escape_column_reference`. On the card the column mode shares its
+rays out in small chunks, a spherical grid's deep lanes first
+(:func:`column_split`).
 
 The walk runs in float64 on the grid's float64 walls whatever the type of
 the lanes: float32 lanes, chi rows and density (the engine's type on the
@@ -46,17 +48,36 @@ launches = 0
 column_launches = 0
 
 # the kernel's argument block, int64 words in the order of csrc/escape_tau.cu's
-# enum Arg: the grid's part (filled once, the plan by escape_tau_plan), then
-# the lanes' part (filled at every call)
+# enum Arg: the grid's part (filled once, the plan by escape_tau_plan, the
+# clock by EscapeTau.block_clock), then the lanes' part (filled at every call)
 _ARGS = ('is_double', 'kind', 'w0', 'w1', 'w2', 'w3', 'w4', 'w5', 'w6', 'w7',
          'theta_kind', 'n1', 'n2', 'n3', 'rho', 'n_dust', 'smem',
-         'walls_shared', 'rho_shared', 'max_blocks', 'max_blocks_col',
-         'counter', 'max_steps', 'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz',
-         'cell', 'active', 't_max', 'tau', 'acc', 'B', 'V')
+         'walls_shared', 'rho_shared', 'smem_col', 'rho_shared_col',
+         'big_col', 'max_blocks', 'max_blocks_col', 'counter', 'max_steps',
+         'split', 'clock', 'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'cell',
+         'active', 't_max', 'tau', 'acc', 'B', 'V')
 _LANES = _ARGS.index('chi')
+_CLOCK = _ARGS.index('clock')
 # csrc/escape_tau.cu's kChiRegs: the column mode sums up to this many dusts
 # in registers, more in a float64 scratch row
 KCHI_REGS = 4
+# csrc/escape_tau.cu's kCounterWords
+COUNTER_WORDS = 3
+# The column mode on a spherical grid hands out first the lanes whose rays
+# cross at least this many radial walls to the edge (those starting in the
+# inner n1 - DEEP_WALLS shells), so that the long walks start early: a
+# walk's length follows its start's depth. Measured on class2's 96 shells
+# (PERF.md, section 6): 24, against 12, 18, 30, 36, 48 and none.
+DEEP_WALLS = 24
+
+
+def column_split(geometry):
+    """The radial index below which the column mode hands a lane out in
+    its first sweep: spherical grids with more than DEEP_WALLS shells, else
+    0 (one sweep, in lane order)."""
+    if isinstance(geometry, SphericalGeometry):
+        return max(0, geometry.n1 - DEEP_WALLS)
+    return 0
 
 
 def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
@@ -171,12 +192,12 @@ class EscapeTau:
     ``rho_t`` the (n_cells, n_dust) density the step keeps, float32 or
     float64, on one device; the lanes take the density's type. On CUDA the
     tables are checked, the kernel's plan made (shared memory, resident
-    blocks) and its argument block filled here, once, beside a two-word
-    device counter that the kernel resets itself: a call checks each lane
-    tensor once, allocates tau, fills the block's lane words and launches
-    once on the current stream, without synchronising, so it can be
-    captured in a CUDA graph. Calls of one object run in stream order (they
-    share the counter)."""
+    blocks) and its argument block filled here, once, beside a device
+    counter that the kernel resets itself: a call checks each lane tensor
+    once, allocates tau, fills the block's lane words and launches once on
+    the current stream, without synchronising, so it can be captured in a
+    CUDA graph. Calls of one object run in stream order (they share the
+    counter)."""
 
     def __init__(self, geometry, rho_t, max_steps=100000):
         self.geometry, self.rho_t = geometry, rho_t
@@ -239,41 +260,88 @@ class EscapeTau:
         if geometry.n_cells * self.n_dust >= 2 ** 31:
             raise ValueError("escape_tau: the density must have fewer than "
                              "2^31 entries")
-        self._counter = torch.zeros(2, dtype=torch.int32, device=self.device)
+        # the device counter (csrc/escape_tau.cu's enum Counter)
+        self._counter = torch.zeros(COUNTER_WORDS, dtype=torch.int32,
+                                    device=self.device)
         # keep the tables alive while the kernel may read them
         self._tables = walls + [theta_kind]
         fn, fn_col = lib.escape_tau, lib.escape_column
         if fn.argtypes is None:
             lib.escape_tau_plan.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
             lib.escape_tau_plan.restype = ctypes.c_int
-            lib.escape_tau_n_args.restype = ctypes.c_int
             for f in (fn, fn_col):
                 f.argtypes = [ctypes.POINTER(ctypes.c_longlong),
                               ctypes.c_double, ctypes.c_double,
                               ctypes.c_void_p]
                 f.restype = ctypes.c_int
-        if lib.escape_tau_n_args() != len(_ARGS):
-            raise RuntimeError("escape_tau: the library's argument block has "
-                               "%d words, the wrapper's %d"
-                               % (lib.escape_tau_n_args(), len(_ARGS)))
+        for what, ours in (('n_args', len(_ARGS)),
+                           ('counter_words', COUNTER_WORDS)):
+            theirs = getattr(lib, 'escape_tau_' + what)()
+            if theirs != ours:
+                raise RuntimeError("escape_tau: the library's %s is %d, the "
+                                   "wrapper's %d" % (what, theirs, ours))
         ptrs = [w.data_ptr() for w in walls] + [0] * (8 - len(walls))
         grid = dict(is_double=int(self.dtype == torch.float64), kind=kind,
                     theta_kind=0 if theta_kind is None else
                     theta_kind.data_ptr(), n1=geometry.n1, n2=geometry.n2,
                     n3=geometry.n3, rho=rho_t.data_ptr(), n_dust=self.n_dust,
                     counter=self._counter.data_ptr(),
-                    max_steps=self.max_steps,
+                    max_steps=self.max_steps, split=column_split(geometry),
                     **{'w%d' % k: p for k, p in enumerate(ptrs)})
         self._args = (ctypes.c_longlong * len(_ARGS))(
             *[grid.get(name, 0) for name in _ARGS])
         err = lib.escape_tau_plan(self._args)
-        blocks = [self._args[_ARGS.index(k)]
-                  for k in ('max_blocks', 'max_blocks_col')]
-        if err != 0 or min(blocks) <= 0:
+        blocks = self.plan['resident_blocks']
+        if err != 0 or min(blocks.values()) <= 0:
             raise RuntimeError("escape_tau: no plan for the kernel (cudaError "
-                               "%d, %s resident blocks)" % (err, blocks))
+                               "%d, resident blocks %s)" % (err, blocks))
         self._t_eps, self._rw1 = t_eps, rw1
         self._fn, self._fn_col = fn, fn_col
+        self._block_clock = None
+
+    @property
+    def plan(self):
+        """The kernel's plan (CUDA only): shared-memory bytes of a block and
+        what lives there, for the tau walk and for the column mode
+        (``big_col``: its blocks of kBigBlock threads with the density past
+        48 KB), and the resident blocks of each mode's kernel."""
+        a = {k: int(self._args[_ARGS.index(k)]) for k in _ARGS[:_LANES]}
+        return dict(
+            smem=a['smem'], walls_shared=bool(a['walls_shared']),
+            rho_shared=bool(a['rho_shared']), smem_col=a['smem_col'],
+            rho_shared_col=bool(a['rho_shared_col']),
+            big_col=bool(a['big_col']), split=a['split'],
+            resident_blocks={k: a[k] for k in ('max_blocks',
+                                               'max_blocks_col')})
+
+    def clock_words(self):
+        """The int64 words that ``block_clock`` needs: [start, end] of each
+        resident block of either mode's kernel."""
+        blocks = self.plan['resident_blocks']
+        return 2 * max(blocks.values())
+
+    @property
+    def block_clock(self):
+        """None, or an int64 tensor of at least ``clock_words()`` words on
+        the card into which each block of the next calls writes its [start,
+        end] (``%globaltimer``, ns; a block's words are left as they were
+        where fewer blocks run). Set once: the calls read nothing of it."""
+        return self._block_clock
+
+    @block_clock.setter
+    def block_clock(self, clock):
+        if not self._cuda:
+            raise ValueError("escape_tau: block_clock times the kernel's "
+                             "blocks, on the card only")
+        if clock is not None and (
+                clock.dtype != torch.int64 or not clock.is_contiguous() or
+                clock.numel() < self.clock_words() or
+                clock.get_device() != self._device_index):
+            raise ValueError("escape_tau: block_clock must be a contiguous "
+                             "int64 tensor of %d words on %s"
+                             % (self.clock_words(), self.device))
+        self._block_clock = clock
+        self._args[_CLOCK] = 0 if clock is None else clock.data_ptr()
 
     def __call__(self, chi_rows, x, y, z, kx, ky, kz, cell, active,
                  t_max=None):
@@ -310,14 +378,15 @@ class EscapeTau:
         if V * B == 0:
             return col
         # more dusts than the kernel keeps in registers: float64 sums in a
-        # scratch row of each ray (the columns themselves in float64)
-        acc = 0
+        # scratch row of each ray (the columns themselves in float64), held
+        # until the launch is queued: freed before it, its memory could go
+        # to another tensor first
+        acc = None
         if self.n_dust > KCHI_REGS:
             acc = col if self.dtype == torch.float64 else torch.empty(
                 (V, B, self.n_dust), dtype=torch.float64, device=self.device)
-            acc = acc.data_ptr()
         self._launch(self._fn_col, 0, x, y, z, kx, ky, kz, cell, active,
-                     t_max, col, acc)
+                     t_max, col, 0 if acc is None else acc.data_ptr())
         column_launches += 1
         return col
 

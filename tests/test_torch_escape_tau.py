@@ -12,8 +12,12 @@ call with no live ray and one with a single live ray among 50,000, rays
 whose lengths differ 100-fold, and a CUDA graph of the call replayed on
 new lanes; and the column mode against its plain version on the same
 grids (thin shells too), sparse calls, six dust types (more than the
-kernel keeps in registers) and a CUDA graph. The column walk against the
-JAX package's is in tests/test_torch_raytrace.py."""
+kernel keeps in registers) and a CUDA graph; and how the column mode
+shares its rays out: more rays than the card has threads, the inner
+shells' lanes first or in lane order (the same bits), a density in the
+card's opt-in shared memory, and the blocks' clock. On the CPU, the
+split of the column mode's sweeps. The column walk against the JAX
+package's is in tests/test_torch_raytrace.py."""
 
 import numpy as np
 import pytest
@@ -283,6 +287,38 @@ def test_call_checks_its_lanes(wrong):
         args[1] = torch.stack(args[1:4], dim=1)[:, 0]
     with pytest.raises(ValueError, match='escape_tau'):
         et.EscapeTau(pg, torch.as_tensor(density.T.copy()))(*args, t_max=tm)
+
+
+def _deep_grid(package):
+    """A spherical-polar grid with DEEP_WALLS + 24 shells, two theta cells
+    a hemisphere and one phi cell: the column mode hands out the lanes of
+    its inner 24 shells first."""
+    return frontend(package).SphericalPolarGrid(
+        np.geomspace(0.01, 1.0, et.DEEP_WALLS + 25),
+        np.linspace(0.0, np.pi, 5), np.linspace(0.0, 2.0 * np.pi, 2))
+
+
+SPLIT_GRIDS = {
+    'cartesian': (lambda: build_cartesian_geometry(
+        _cartesian_grid('port'), CPU, torch.float64), 0),
+    'spherical': (lambda: build_spherical_geometry(
+        _spherical_grid('port', 4, 0.0), CPU, torch.float64), 0),
+    'deep': (lambda: build_spherical_geometry(_deep_grid('port'), CPU,
+                                              torch.float64), 24),
+}
+
+
+@pytest.mark.parametrize('kind', list(SPLIT_GRIDS))
+def test_column_split(kind):
+    """The column mode's first sweep: on a spherical grid the lanes that
+    start in the inner shells, whose rays cross at least DEEP_WALLS radial
+    walls; none (one sweep, in lane order) on cartesian grids and on
+    spherical grids of DEEP_WALLS shells or fewer."""
+    make, split = SPLIT_GRIDS[kind]
+    geometry = make()
+    assert et.column_split(geometry) == split
+    if split:
+        assert geometry.n1 - split == et.DEEP_WALLS
 
 
 # ------------------------------------------------------------- on the card --
@@ -568,3 +604,115 @@ def test_column_kernel_in_a_cuda_graph_on_card(cuda_device):
         torch.cuda.synchronize()
         _close(out, et.escape_column_reference(pg, rho_t, *new, t_max=tm),
                torch.float64)
+
+
+# ------------------------------ how the column mode shares its rays out --
+
+def _five_dusts(pg, seed=13):
+    rng = np.random.default_rng(seed)
+    density = rng.uniform(0.0, 3.0, (5, pg.n_cells))
+    density[rng.random(density.shape) < 0.2] = 0.0
+    return density
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_dust', [1, 5])
+@pytest.mark.parametrize('limited', [False, True], ids=['edge', 't_max'])
+@pytest.mark.parametrize('kind', ['spherical', 'thin_shells'])
+def test_column_sweeps_match_plain_version_on_card(kind, limited, n_dust,
+                                                   cuda_device, monkeypatch):
+    """More rays than the card has threads (50,000 lanes, three views: the
+    warps take chunks of 16 rays from the counter after their first), the
+    lanes of the inner half of the shells handed out first or in lane
+    order: the same columns to the bit, equal to the plain walk; one and
+    five dusts (more than kChiRegs sum in the scratch row)."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup(
+        kind, cuda_device, n=50000)
+    t_max[2] = np.inf
+    density = density[:1] if n_dust == 1 else _five_dusts(pg)
+    for dtype in (torch.float64, torch.float32):
+        args = _port_args(pos, k, cell, active, chi, dtype, cuda_device)[1:]
+        tm = torch.as_tensor(t_max, dtype=dtype, device=cuda_device) \
+            if limited else None
+        rho_t = torch.as_tensor(density.T.copy(), dtype=dtype,
+                                device=cuda_device)
+        cols = {}
+        for deep in (pg.n1, pg.n1 - pg.n1 // 2):
+            monkeypatch.setattr(et, 'DEEP_WALLS', deep)
+            walk = et.EscapeTau(pg, rho_t)
+            assert walk.plan['split'] == pg.n1 - deep
+            cols[deep] = walk.columns(*args, t_max=tm)
+        first, second = cols.values()
+        assert torch.equal(first, second)
+        _close(first, et.escape_column_reference(pg, rho_t, *args, t_max=tm),
+               dtype)
+        assert (first[:, torch.as_tensor(~active)] == 0).all()
+
+
+def _big_cartesian_grid(package, n=24):
+    """A cartesian grid of n^3 cells: its float32 density (55,296 bytes at
+    n = 24) needs more shared memory than a block takes without the
+    opt-in."""
+    w = np.linspace(-1.0, 1.0, n + 1)
+    return frontend(package).CartesianGrid(w, w + 0.01 * np.sin(7.0 * w),
+                                           w * 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['f64', 'f32'])
+def test_column_density_in_opt_in_shared_memory_on_card(dtype, cuda_device):
+    """A density past 48 KB: the column mode takes it into the card's
+    opt-in shared memory (blocks of 1,024 threads) while the tau walk
+    reads it from global memory; both equal their plain versions."""
+    grid = _big_cartesian_grid('port')
+    g64 = build_cartesian_geometry(grid, CPU, torch.float64)
+    pos, k0 = _cartesian_rays(g64, n=20000, seed=5)
+    cell = g64.find_cell(*[torch.as_tensor(a) for a in pos],
+                         *[torch.as_tensor(a) for a in k0]).numpy()
+    pg = build_cartesian_geometry(grid, cuda_device, torch.float64)
+    rng = np.random.default_rng(9)
+    k = np.stack([k0, -k0], axis=1)
+    active = (cell >= 0) & (rng.random(len(cell)) < 0.9)
+    density = rng.uniform(0.0, 3.0, (1, pg.n_cells))
+    chi = rng.uniform(0.1, 2.0, (len(cell), 1))
+    args = _port_args(pos, k, cell, active, chi, dtype, cuda_device)
+    rho_t = torch.as_tensor(density.T.copy(), dtype=dtype, device=cuda_device)
+    walk = et.EscapeTau(pg, rho_t)
+    plan = walk.plan
+    assert plan['big_col'] and plan['rho_shared_col']
+    assert plan['smem_col'] > 48 * 1024 and not plan['rho_shared']
+    _close(walk.columns(*args[1:]),
+           et.escape_column_reference(pg, rho_t, *args[1:]), dtype)
+    _close(walk(*args), et.escape_tau_reference(pg, rho_t, *args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('columns', [True, False], ids=['columns', 'tau'])
+def test_block_clock_on_card(columns, cuda_device):
+    """With a block clock set, each block that ran writes its start and its
+    end (ns) and the results are unchanged; a table too short, of another
+    type or on the CPU is refused."""
+    pg, pos, k, cell, active, density, chi, t_max = _setup(
+        'spherical', cuda_device, n=20000)
+    args = _port_args(pos, k, cell, active, chi, torch.float64, cuda_device)
+    rho_t = torch.as_tensor(density.T.copy(), device=cuda_device)
+    walk = et.EscapeTau(pg, rho_t)
+
+    def call():
+        return walk.columns(*args[1:]) if columns else walk(*args)
+    plain = call()
+    n = walk.clock_words()
+    for wrong in (torch.zeros(n - 1, dtype=torch.int64, device=cuda_device),
+                  torch.zeros(n, dtype=torch.int32, device=cuda_device),
+                  torch.zeros(n, dtype=torch.int64)):
+        with pytest.raises(ValueError, match='block_clock'):
+            walk.block_clock = wrong
+    walk.block_clock = torch.zeros(n, dtype=torch.int64, device=cuda_device)
+    assert torch.equal(call(), plain)
+    torch.cuda.synchronize()
+    c = walk.block_clock.cpu().numpy().reshape(-1, 2)
+    ran = c[:, 0] > 0
+    assert ran.sum() >= 1 and (c[ran, 1] >= c[ran, 0]).all()
+    walk.block_clock = None
+    assert torch.equal(call(), plain)
