@@ -114,10 +114,35 @@ Phases, each of which raises on failure (exit code 1, no result line):
    walk and the times (device us per call, host us per call, the plain
    version's, the bound).
 
-``--raytracing`` runs phases 1, 2, 4, 8 and 11-13 alone.
+14. BASELINE.md config 3 (class1_cyl_model: an embedded star with a flared
+   disk, an Ulrich envelope with a bipolar cavity and an ISRF-like
+   external sphere on the 200 x 200 x 1 cylindrical-polar auto grid, MRW,
+   SEDs at 10, 60 and 85 degrees with their origins, a 128 x 128 image at
+   60 degrees of 10 wavelengths, raytracing with phase 11's photons) at
+   CLASS1_CYL_CUT's photons through run_lucy_model: no geometry kills,
+   killed_int only at the step caps, energy_current the photons emitted,
+   the ISRF's share of the source draws within 3 sigma of its luminosity
+   share, temperatures finite and > 0 in dusty cells, SEDs and images
+   finite and >= 0, the 85 degree view's scattered share at 0.3 um above
+   the 10 degree view's, at most one escape_tau launch per peel event, no
+   raytraced photon outside the grid or its cell; walls, steps, ms per
+   step, occupancy and host reads per stage. Then the three kernels
+   against their plain versions on this run's own calls, by the methods
+   of phases 6 (deposit_visit, 80 Lucy calls), 10 (escape_tau, the
+   WALK_WINDOWS imaging steps) and 13 (escape_column, the raytracing
+   calls), with their times;
+15. the other sources of ROADMAP.md item 4 on the card in float32: a
+   plane-parallel beam through a slab of pure absorbers of tau 1 (escaped
+   share within 3 sigma of exp(-1)), an external box over the
+   quickstart's box (positions' means and variances within 3 sigma of
+   uniform), and an LTE map source after one Lucy iteration (emission
+   cells against the map, chi^2 per degree of freedom below 2).
+
+``--raytracing`` runs phases 1, 2, 4, 8 and 11-13 alone; ``--cylindrical``
+phases 1, 2, 14 (with its parts of phases 6, 10 and 13) and 15.
 
 Each kernel's launch count is reset just before and read just after each
-main-path run (phases 4, 8, 9, 11 and 12); the kernels line sums them.
+main-path run (phases 4, 8, 9, 11, 12 and 14); the kernels line sums them.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
 It needs no network and imports nothing of JAX or of hyperion_tpu.
@@ -167,6 +192,18 @@ YSO_THICK_CUT = dict(n_photons=20_000, n_iterations=1)
 # for the same diffusion tail.
 CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=8000,
                   n_imaging=100_000, imaging_max_steps=3000)
+# BASELINE.md config 3 (class1_cyl, phase 14) as chip_smoke runs it: the
+# full 200 x 200 x 1 auto grid and every density component and source, with
+# the photons cut so that the phase stays near two minutes on the card:
+# 1 Lucy iteration of 100,000 photons capped at 3,000 steps (uncut, the
+# counts of examples/class2_sed.py: 5 iterations of 200,000) and 50,000
+# imaging photons capped at 1,500 steps (uncut: 500,000); the raytracing
+# photons are RAYTRACING's, uncut. Lanes alive at a cap are killed and
+# counted in killed_int.
+CLASS1_CYL_CUT = dict(n_photons=100_000, n_iterations=1, max_steps=3000,
+                      n_imaging=50_000, imaging_max_steps=1500)
+# its star's and its ISRF stand-in's luminosities (Lsun)
+CLASS1_CYL_LUM = dict(star=1.0, isrf=0.1)
 # the JAX package's yso_thick steps per iteration at B = 4,096
 # (BENCH_r05.json, TPU v5e): a property of the algorithm and the batch
 JAX_YSO_THICK_STEPS = 55580
@@ -187,11 +224,16 @@ ESCAPE_TAU_RTOL32 = 1e-6
 # ones of its steady state (deep in the disk, grazing the cones)
 WALK_WINDOWS = ((0, 20), (40, 60))
 # the float64 operations of one crossing of the walk itself, counted from
-# the plain walk's find_wall (transport/gtable.py, gtable_spherical.py):
-# three plane distances and the move (cartesian); two spheres, two cones,
-# the nudged find_cell at the landing point (spherical-polar). The bound
-# counts this work, whatever the kernel does around it.
-FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120}
+# the plain walk's find_wall (transport/gtable.py, gtable_spherical.py,
+# gtable_cylindrical.py): three plane distances and the move (cartesian);
+# two spheres, two cones, the nudged find_cell at the landing point
+# (spherical-polar); with one phi cell, the exclusion (8), the ray's a, b
+# and w^2 (9), two cylinders (10 each: b^2 - a (w^2 - ww^2), the root, two
+# roots and two divisions), two z planes (2 each), the move (6) and the
+# nudged find_cell (the landing's w and exclusion, the nudge and its w^2:
+# 17) (cylindrical-polar; each phi wall would add 12). The bound counts
+# this work, whatever the kernel does around it.
+FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120, 'cylindrical': 64}
 # escape_tau.cu's column mode (an XLA while_loop too, not a Pallas kernel)
 ESCAPE_COLUMN_REPLACES = 'hyperion_tpu/transport/raytrace.py:25'
 # phase 13's host time: rounds of the eager column calls, each round's
@@ -887,9 +929,10 @@ def check_imaging(what, run, n_photons, syncs, card):
     geometry kills, at most 1.05 host reads per step, the peeled arrays
     finite and >= 0. Returns the row with ms per step and reads per step."""
     img = run.imaging
-    row = dict(run.perf.rows[-1])
-    if row['label'] != 'imaging' or img is None:
+    rows = [r for r in run.perf.rows if r['label'] == 'imaging']
+    if len(rows) != 1 or img is None:
         raise AssertionError('%s: no imaging iteration ran' % what)
+    row = dict(rows[0])
     if img.energy_current != n_photons:
         raise AssertionError('%s imaging: energy_current %r'
                              % (what, img.energy_current))
@@ -1493,19 +1536,15 @@ def imaging_tables(model, dtype):
     return geo, dt, st, density
 
 
-def record_walks(model, batch, windows):
-    """The escape_tau calls of the imaging steps in each window (first,
-    last) of step indices, counted from 0, of ``model`` run on the card in
-    float32 by ``imaging_runner.run_imaging``, the entry point's own
-    imaging (the specific energy zero: the walks' inputs do not depend on
-    it), up to the last window's end. Each call is the list of its nine
-    lane tensors and t_max (cloned). Returns (density, {window: calls})."""
-    import torch
-    from hyperion_tpu_torch.model import imaging_runner
+@contextlib.contextmanager
+def walk_calls(windows):
+    """Record the escape_tau calls of the imaging steps in each window
+    (first, last) of step indices, counted from 0, made inside the block:
+    yields {window: calls}, each call the list of its nine lane tensors and
+    t_max (cloned)."""
     from hyperion_tpu_torch.transport import escape_tau as et
     from hyperion_tpu_torch.transport import imaging
 
-    geo, dt, st, density = imaging_tables(model, torch.float32)
     calls = {w: [] for w in windows}
     at = [0]          # the index of the step that runs
     inner_call, inner_make = et.EscapeTau.__call__, imaging.make_final_step
@@ -1528,11 +1567,25 @@ def record_walks(model, batch, windows):
     et.EscapeTau.__call__ = recording
     imaging.make_final_step = counting
     try:
-        imaging_runner.run_imaging(model, geo, dt, st, density, None, batch,
-                                   max_steps=max(last for _, last in windows))
+        yield calls
     finally:
         et.EscapeTau.__call__ = inner_call
         imaging.make_final_step = inner_make
+
+
+def record_walks(model, batch, windows):
+    """The escape_tau calls (:func:`walk_calls`) of the imaging steps in
+    each window of ``model`` run on the card in float32 by
+    ``imaging_runner.run_imaging``, the entry point's own imaging (the
+    specific energy zero: the walks' inputs do not depend on it), up to the
+    last window's end. Returns (density, {window: calls})."""
+    import torch
+    from hyperion_tpu_torch.model import imaging_runner
+
+    geo, dt, st, density = imaging_tables(model, torch.float32)
+    with walk_calls(windows) as calls:
+        imaging_runner.run_imaging(model, geo, dt, st, density, None, batch,
+                                   max_steps=max(last for _, last in windows))
     torch.cuda.synchronize()
     return density, calls
 
@@ -1732,12 +1785,16 @@ def column_calls():
     eight lane tensors and t_max (cloned)."""
     from hyperion_tpu_torch.transport import escape_tau as et
     from hyperion_tpu_torch.transport.gtable import CartesianGeometry
+    from hyperion_tpu_torch.transport.gtable_cylindrical import \
+        CylindricalGeometry
 
     calls = []
     inner = et.EscapeTau.columns
 
     def recording(self, *args, t_max=None):
         kind = 'cartesian' if isinstance(self.geometry, CartesianGeometry) \
+            else 'cylindrical' if isinstance(self.geometry,
+                                             CylindricalGeometry) \
             else 'spherical'
         calls.append((kind, [a.clone() for a in args] +
                       [None if t_max is None else t_max.clone()]))
@@ -2209,6 +2266,498 @@ def column_phase(card, runs):
     return out
 
 
+# ------------------------------------------ BASELINE config 3: class1_cyl --
+
+def class1_cyl_model(n_w=200, n_z=200, n_photons=100_000, n_iterations=1,
+                     n_imaging=50_000, raytracing=RAYTRACING, n_pix=128,
+                     frontend=None):
+    """BASELINE.md config 3 (class1_cyl): an embedded source with a bipolar
+    cavity on a cylindrical-polar grid, with peeled SEDs and multi-
+    wavelength images, laid out as Hyperion's class 1 tutorial
+    (hyperion-rt/hyperion, docs/tutorials/example_class1.rst), built with
+    the port's AnalyticalYSOModel and evaluated to a Model (no file):
+
+    - the star and flared disk of examples/class2_sed.py (1 Lsun, 2 Rsun,
+      4300 K, 0.5 Msun; 1e-3 Msun from 0.1 to 200 au), its gray HG dust;
+    - an Ulrich envelope (rc 200 au, 0.1 to 5,000 au, rho_0 5e-20 g/cm^3)
+      with a bipolar cavity (power 1.5, theta_0 20 degrees at r_0 5,000
+      au, rho_0 1e-22 g/cm^3, rho_exp 0);
+    - an ExternalSphericalSource of 5,000 au at the origin, 5,000 K and
+      0.1 Lsun, a stand-in for the interstellar field, inscribed in the
+      grid's cylinder;
+    - set_cylindrical_polar_grid_auto(n_w, n_z, 1) (200 x 200 in the
+      config), MRW with gamma 2, n_iterations Lucy iterations of n_photons;
+    - SEDs at 10 (down the cavity), 60 and 85 degrees (120 wavelengths
+      from 0.3 to 2,000 um, one 5,000 au aperture, track_origin 'basic',
+      with uncertainties), and one image group at 60 degrees: n_pix x n_pix
+      pixels over +-2,000 au at 10 wavelengths from 0.5 to 100 um;
+    - n_imaging imaging photons and raytracing with ``raytracing``'s
+      source and dust photons (none when None).
+
+    ``frontend`` holds the front end's AnalyticalYSOModel,
+    HenyeyGreensteinDust and the constants au, lsun, msun and rsun (the
+    port's when None; the CPU tests pass the JAX package's too)."""
+    if frontend is None:
+        from types import SimpleNamespace
+        from hyperion_tpu_torch.dust import HenyeyGreensteinDust
+        from hyperion_tpu_torch.model import AnalyticalYSOModel
+        from hyperion_tpu_torch.util import constants
+        frontend = SimpleNamespace(
+            AnalyticalYSOModel=AnalyticalYSOModel,
+            HenyeyGreensteinDust=HenyeyGreensteinDust, au=constants.au,
+            lsun=constants.lsun, msun=constants.msun, rsun=constants.rsun)
+    F = frontend
+    au = F.au
+    nu = np.logspace(8, 17, 64)
+    dust = F.HenyeyGreensteinDust(nu, np.repeat(0.5, 64),
+                                  np.repeat(400.0, 64), np.repeat(0.4, 64),
+                                  np.repeat(0.8, 64))
+    m = F.AnalyticalYSOModel()
+    m.star.luminosity = CLASS1_CYL_LUM['star'] * F.lsun
+    m.star.radius = 2.0 * F.rsun
+    m.star.temperature = 4300.0
+    m.star.mass = 0.5 * F.msun
+    disk = m.add_flared_disk()
+    disk.mass = 1e-3 * F.msun
+    disk.rmin = 0.1 * au
+    disk.rmax = 200.0 * au
+    disk.r_0 = 10.0 * au
+    disk.h_0 = 0.4 * au
+    disk.p = -1.0
+    disk.beta = 1.25
+    disk.dust = dust
+    env = m.add_ulrich_envelope()
+    env.rc = 200.0 * au
+    env.rmin = 0.1 * au
+    env.rmax = 5000.0 * au
+    env.rho_0 = 5e-20
+    env.dust = dust
+    cav = env.add_bipolar_cavity()
+    cav.power = 1.5
+    cav.theta_0 = 20.0
+    cav.r_0 = 5000.0 * au
+    cav.rho_0 = 1e-22
+    cav.rho_exp = 0.0
+    cav.dust = dust
+    isrf = m.add_external_spherical_source()
+    isrf.luminosity = CLASS1_CYL_LUM['isrf'] * F.lsun
+    isrf.temperature = 5000.0
+    isrf.radius = 5000.0 * au
+    isrf.position = (0.0, 0.0, 0.0)
+    m.set_cylindrical_polar_grid_auto(n_w, n_z, 1)
+    sed = m.add_peeled_images(sed=True, image=False)
+    sed.set_viewing_angles([10.0, 60.0, 85.0], [0.0, 0.0, 0.0])
+    sed.set_wavelength_range(120, 0.3, 2000.0)
+    sed.set_aperture_radii(1, 5000.0 * au, 5000.0 * au)
+    sed.set_track_origin('basic')
+    sed.set_uncertainties(True)
+    image = m.add_peeled_images(sed=False, image=True)
+    image.set_viewing_angles([60.0], [0.0])
+    image.set_image_size(n_pix, n_pix)
+    image.set_image_limits(-2000.0 * au, 2000.0 * au, -2000.0 * au,
+                           2000.0 * au)
+    image.set_wavelength_range(10, 0.5, 100.0)
+    m.set_mrw(True, gamma=2.0)
+    m.set_n_initial_iterations(n_iterations)
+    m.set_raytracing(raytracing is not None)
+    m.set_n_photons(initial=n_photons, imaging=n_imaging,
+                    **(raytracing or {}))
+    m.set_seed(20261017)
+    m.evaluate_optically_thin_radii()
+    return m.to_model()
+
+
+@contextlib.contextmanager
+def source_picks(n_rows, device):
+    """Tally the source rows that the emission draws (``pick_sources``, one
+    draw per lane of every refill, as the Lucy and imaging steps call it):
+    yields an int64 (n_rows,) tensor on ``device``."""
+    import torch
+    from hyperion_tpu_torch.transport import engine, imaging, stable
+
+    tally = torch.zeros(n_rows, dtype=torch.int64, device=device)
+    inner = stable.pick_sources
+
+    def counted(st, u):
+        rows = inner(st, u)
+        tally.add_(torch.bincount(rows, minlength=n_rows))
+        return rows
+
+    mods = (stable, engine, imaging)
+    for mod in mods:
+        mod.pick_sources = counted
+    try:
+        yield tally
+    finally:
+        for mod in mods:
+            mod.pick_sources = inner
+
+
+@contextlib.contextmanager
+def deposit_calls(dv, first, last):
+    """Record the deposit_visit calls number ``first`` to ``last`` (from 0)
+    made inside the block, as :func:`record_calls` does."""
+    calls, n = [], [0]
+    run = dv.DepositVisit.__call__
+
+    def recording(self, cell_dep, dep, enter, uid):
+        if first <= n[0] < last:
+            calls.append((None if dep is None else cell_dep.clone(),
+                          None if dep is None else dep.clone(),
+                          enter.clone(), uid.clone()))
+        n[0] += 1
+        run(self, cell_dep, dep, enter, uid)
+
+    dv.DepositVisit.__call__ = recording
+    try:
+        yield calls
+    finally:
+        dv.DepositVisit.__call__ = run
+
+
+def class1_cyl_phase(dv, et, card, n_photons, n_iterations, max_steps,
+                     n_imaging, imaging_max_steps):
+    """Phase 14: BASELINE config 3 (:func:`class1_cyl_model`, the full 200 x
+    200 grid, CLASS1_CYL_CUT's photons) through run_lucy_model on the card:
+    the Lucy iteration, the imaging iteration with MRW into its SEDs and
+    images, and the raytracing pass. Checks: no geometry kills;
+    killed_int only at the step caps; energy_current the photons emitted;
+    the ISRF's share of the source draws within 3 sigma of its share of
+    the luminosity; temperatures finite and > 0 in dusty cells; SEDs and
+    images finite and >= 0; at the shortest wavelength the 85 degree
+    view's scattered share above the 10 degree one's; at most one
+    escape_tau launch per peel event; no raytraced photon outside the grid
+    or its cell. Then each kernel against its plain version on this run's
+    own calls: deposit_visit on 80 calls of the Lucy iteration (phase 6's
+    method), escape_tau on the imaging steps of WALK_WINDOWS (phase 10's)
+    and escape_column on the raytracing calls (phase 13's). Returns
+    ({kernel: launches}, report)."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.model.run import (_density_array,
+                                              build_geometry_tables)
+    from hyperion_tpu_torch.transport.gtable import ESCAPED
+    from hyperion_tpu_torch.transport.stable import (EXTERN_SPH,
+                                                     build_source_tables,
+                                                     emit_packets)
+
+    dev = torch.device('cuda')
+    t0 = time.time()
+    m = class1_cyl_model(n_photons=n_photons, n_iterations=n_iterations,
+                         n_imaging=n_imaging)
+    build_s = time.time() - t0
+    n_rows = len(m.sources)
+    dv.launches = et.launches = et.column_launches = 0
+    t0 = time.time()
+    with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
+            peel_events() as events, source_picks(n_rows, dev) as picks, \
+            deposit_calls(dv, 40, 120) as dcalls, \
+            walk_calls(WALK_WINDOWS) as wcalls, column_calls() as ccalls:
+        run = run_lucy_model(m, device='cuda', max_steps=max_steps,
+                             imaging_max_steps=imaging_max_steps)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(deposit_visit=dv.launches, escape_tau=et.launches,
+                    escape_column=et.column_launches)
+    res, img = run.result, run.imaging
+    what = 'class1_cyl'
+    rows = report_iterations(what, run.perf.rows[:len(run.iterations)],
+                             syncs, n_photons, card)
+    temp = res.temperature[0]
+    dusty = run.density0[0] > 0
+    if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
+        raise AssertionError('class1_cyl: temperatures not finite and > 0 in '
+                             'dusty cells')
+    if res.killed_int and res.n_steps < max_steps:
+        raise AssertionError('class1_cyl Lucy: killed_int %d below the cap '
+                             '(%d steps)' % (res.killed_int, res.n_steps))
+    img_row = check_imaging(what, run, n_imaging, img_syncs, card)
+    if img.killed_int and img.n_steps < imaging_max_steps:
+        raise AssertionError('class1_cyl imaging: killed_int %d below the '
+                             'cap (%d steps)' % (img.killed_int, img.n_steps))
+    # the ISRF's share of the draws against its share of the luminosity
+    lum = np.array([float(s.luminosity) for s in m.sources])
+    i_isrf = next(i for i, s in enumerate(m.sources)
+                  if type(s).__name__ == 'ExternalSphericalSource')
+    n_picks = int(picks.sum())
+    p = lum[i_isrf] / lum.sum()
+    share = int(picks[i_isrf]) / n_picks
+    sigma = np.sqrt(p * (1.0 - p) / n_picks)
+    # the scattered share of each view at the shortest wavelength: seds
+    # (n_stokes, n_orig, n_view, n_ap, n_nu), frequency ascending, origins
+    # source and dust emission, then source and dust scattering
+    seds = img.peeled[0]['datasets']['seds'][0][0, :, :, 0, -1]
+    scat = (seds[2] + seds[3]) / np.maximum(seds.sum(axis=0), 1e-300)
+    ray = img.raytrace
+    # where the ISRF's photons start: a million emissions from the engine's
+    # float32 tables (those found outside the grid escape at once, as in
+    # the JAX package)
+    geo32 = build_geometry_tables(m.grid, dev, torch.float32)
+    st32 = build_source_tables(m.sources, dev, torch.float32,
+                               length_scale=geo32.length_scale, grid=m.grid)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = torch.rand((8, 1_000_000), generator=gen, device=dev)
+    new = emit_packets(st32, *u[:4], tuple(u[4:]))
+    cell = geo32.find_cell(new['x'], new['y'], new['z'], new['kx'],
+                           new['ky'], new['kz'])
+    from_isrf = st32.type_code[new['source']] == EXTERN_SPH
+    isrf_outside = int((from_isrf & (cell == ESCAPED)).sum())
+    out = dict(
+        model_build_s=build_s, wall_s=wall, iterations=rows,
+        lucy_steps=res.n_steps, lucy_killed_int=res.killed_int,
+        lucy_killed_geo=res.killed_geo, imaging=img_row,
+        imaging_killed_int=img.killed_int, launches=launches,
+        peel_events=events[0],
+        escape_tau_launches_per_step=launches['escape_tau'] / img.n_steps,
+        peel_events_per_step=events[0] / img.n_steps,
+        isrf_share=share, isrf_share_expected=p, isrf_share_sigma=sigma,
+        isrf_picks=n_picks, isrf_outside_of_1e6=isrf_outside,
+        isrf_emitted_of_1e6=int(from_isrf.sum()),
+        scattered_share_shortest=scat.tolist(),
+        raytracing=dict(wall_s=ray['wall'], batches=ray['batches'],
+                        photons=ray['photons'], outside=ray['outside']),
+        grid=dict(n_cells=int(np.prod(m.grid.shape)),
+                  shape=list(m.grid.shape)),
+        cut=dict(n_photons=n_photons, n_iterations=n_iterations,
+                 max_steps=max_steps, n_imaging=n_imaging,
+                 imaging_max_steps=imaging_max_steps))
+    phase('class1_cyl (%d x %d x %d cells): run_lucy_model in %.3f s (model '
+          'built in %.3f s); Lucy %d steps, killed %d/%d; imaging %d steps, '
+          'killed_int %d; escape_tau %d launches for %d peel events '
+          '(%.3f per step); raytracing %d photons in %d batches, %.3f s, %d '
+          'outside; the ISRF drew %.5f of %d sources (its luminosity share '
+          '%.5f, sigma %.2e); %d of its 1,000,000-draw photons (%d) start '
+          'outside the grid; scattered share at 0.3 um per view (10, 60, 85 '
+          'degrees) %s [%s]'
+          % (*m.grid.shape[::-1], wall, build_s, res.n_steps,
+             res.killed_int, res.killed_geo, img.n_steps, img.killed_int,
+             launches['escape_tau'], events[0],
+             launches['escape_tau'] / img.n_steps, ray['photons'],
+             ray['batches'], ray['wall'], ray['outside'], share, n_picks, p,
+             sigma, isrf_outside, int(from_isrf.sum()),
+             ['%.4f' % v for v in scat], card))
+    if res.killed_geo or ray['outside'] or launches['escape_tau'] > events[0]:
+        raise AssertionError('class1_cyl: %s' % out)
+    if abs(share - p) > 3.0 * sigma:
+        raise AssertionError('class1_cyl: the ISRF drew %.5f of the sources, '
+                             'its luminosity share is %.5f (sigma %.2e)'
+                             % (share, p, sigma))
+    if not scat[2] > scat[0]:
+        raise AssertionError('class1_cyl: scattered share at 0.3 um of the 85 '
+                             'degree view %g, of the 10 degree view %g'
+                             % (scat[2], scat[0]))
+    if not all(launches.values()):
+        raise AssertionError('class1_cyl: a kernel was not launched: %s'
+                             % launches)
+
+    # the kernels on this run's own calls
+    n_dust, n_cells = run.density0.shape
+    err = check_calls(dv, dcalls, n_dust, n_cells, dev, 'class1_cyl calls')
+    t = time_calls(dv, dcalls, n_dust, n_cells, dev)
+    t['lanes'] = 'class1_cyl steps'
+    phase('deposit_visit class1_cyl Lucy calls (%d, %d visits only): counts '
+          'and uids equal, max abs energy err %.3g; B=%d n_cells=%d: device '
+          '%.2f us, host %.2f us per call, plain %.4f ms, index_add_ %.4f '
+          'ms, bound %.3f us [%s]'
+          % (len(dcalls), sum(d is None for _, d, _, _ in dcalls), err,
+             t['B'], n_cells, t['device_us'], t['host_us'], t['plain_ms'],
+             t['library_ms'], t['bound_us'], card))
+    geo64 = build_geometry_tables(m.grid, dev, torch.float64)
+    rho64 = _density_array(m, geo64.length_scale, dev, torch.float64)
+    rho32 = _density_array(m, geo64.length_scale, dev, torch.float32)
+    tables = (geo64, rho32.T.contiguous(), rho64.T.contiguous())
+    walks = [check_window('cylindrical', w, wcalls[w], tables,
+                          img.batch_size, card) for w in WALK_WINDOWS]
+    kinds = {k for k, _ in ccalls}
+    if kinds != {'cylindrical'}:
+        raise AssertionError('class1_cyl columns: calls of %s' % kinds)
+    cols = check_columns('class1_cyl raytracing (phase 14)', 'cylindrical',
+                         [c for _, c in ccalls], tables, card)
+    out.update(deposit_visit=dict(max_abs_err=err, timing=t), walks=walks,
+               columns=cols)
+    return launches, out
+
+
+def sources_phase(card):
+    """Phase 15: the source types of ROADMAP.md item 4 on the card in
+    float32. A PlaneParallelSource's beam through a uniform cartesian slab
+    of pure absorbers (tau 1, absorptions kill): the escaped share within
+    3 sigma of exp(-1). An ExternalBoxSource filling the quickstart's box:
+    the emitted positions' means and variances within 3 sigma of uniform.
+    A MapSource with an LTE spectrum after one Lucy iteration: the
+    emission cells' counts against the map's luminosity, chi^2 per degree
+    of freedom below 2, and the LTE frequencies inside the dust's
+    emissivity grid."""
+    import torch
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.grid import CartesianGrid
+    from hyperion_tpu_torch.sources import (ExternalBoxSource, MapSource,
+                                            PlaneParallelSource)
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+    from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
+    from hyperion_tpu_torch.transport.lucy import compute_jnu_var, run_lucy
+    from hyperion_tpu_torch.transport.stable import (N_EMIT_EXTRA,
+                                                     build_source_tables,
+                                                     emit_packets)
+    from hyperion_tpu_torch.util.constants import au, lsun
+
+    dev, f32 = torch.device('cuda'), torch.float32
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+
+    # the beam: 200,000 photons up through a slab of tau 1
+    grid = CartesianGrid(*[np.linspace(-1.0, 1.0, 9)] * 3)
+    nu = np.logspace(5, 18, 20)
+    chi = 2.0
+    dust = IsotropicDust(nu, np.zeros(20), np.repeat(chi, 20))
+    geo = build_cartesian_geometry(grid, dev, f32)
+    dt = build_dust_tables([dust], dev, f32)
+    beam = PlaneParallelSource(luminosity=1.0, temperature=5000.0,
+                               radius=0.5, position=(0.1, -0.2, -1.0),
+                               direction=(0.0, 0.0))
+    st = build_source_tables([beam], dev, f32, length_scale=geo.length_scale)
+    density = torch.full((1, grid.n_cells), 0.5 / chi * geo.length_scale,
+                         dtype=f32, device=dev)
+    n = 200_000
+    res = run_lucy(geo, dt, st, density, gen, n_photons=n, n_iterations=1,
+                   batch_size=50_000, kill_on_absorb=True, verbose=False)
+    escaped = 1.0 - res.killed_int / n
+    p = np.exp(-1.0)
+    sigma = np.sqrt(p * (1 - p) / n)
+    out['beam'] = dict(escaped=escaped, expected=p, sigma=sigma,
+                       killed_geo=res.killed_geo,
+                       energy_current=res.energy_current)
+    phase('plane-parallel beam through tau 1 of pure absorbers: %.5f escaped '
+          '(exp(-1) %.5f, %.2f sigma) [%s]'
+          % (escaped, p, (escaped - p) / sigma, card))
+    if abs(escaped - p) > 3 * sigma or res.killed_geo or \
+            res.energy_current != n:
+        raise AssertionError('plane-parallel beam: %s' % out['beam'])
+
+    # the box: a million positions in the quickstart's +-50 au box
+    lim = 50 * au
+    box = ExternalBoxSource(luminosity=lsun, temperature=5000.0)
+    box.bounds = [(-lim, lim)] * 3
+    q = tutorial_model()
+    qgeo = build_cartesian_geometry(q.grid, dev, f32)
+    st = build_source_tables([box], dev, f32, length_scale=qgeo.length_scale)
+    n = 1_000_000
+    u = torch.rand((4 + N_EMIT_EXTRA, n), generator=gen, device=dev)
+    new = emit_packets(st, *u[:4], u_extra=u[4:])
+    pos = torch.stack([new[c] for c in 'xyz']).double() * \
+        (qgeo.length_scale / lim)
+    mean = pos.mean(dim=1).cpu().numpy()
+    var = pos.var(dim=1).cpu().numpy()
+    n_sig_mean = np.abs(mean) / np.sqrt(1.0 / 3.0 / n)
+    n_sig_var = np.abs(var - 1.0 / 3.0) / np.sqrt(4.0 / 45.0 / n)
+    cells = qgeo.find_cell(*(new[c] for c in ('x', 'y', 'z', 'kx', 'ky',
+                                              'kz')))
+    out['box'] = dict(mean=mean.tolist(), var=var.tolist(),
+                      sigma_mean=n_sig_mean.tolist(),
+                      sigma_var=n_sig_var.tolist(),
+                      outside=int((cells < 0).sum()))
+    phase('external box over the quickstart box: means %s (%s sigma), '
+          'variances %s (%s sigma from 1/3), %d of %d outside [%s]'
+          % (['%.5f' % v for v in mean], ['%.2f' % v for v in n_sig_mean],
+             ['%.5f' % v for v in var], ['%.2f' % v for v in n_sig_var],
+             out['box']['outside'], n, card))
+    if (n_sig_mean > 3).any() or (n_sig_var > 3).any():
+        raise AssertionError('external box: %s' % out['box'])
+
+    # the LTE map: one Lucy iteration, then a million emissions
+    grid = CartesianGrid(*[np.linspace(-10 * au, 10 * au, 9)] * 3)
+    nu = np.logspace(8, 17, 32)
+    dust = IsotropicDust(nu, np.repeat(0.5, 32), np.repeat(2.0, 32))
+    lum = np.random.default_rng(15).uniform(0.0, 1.0, grid.shape)
+    lum[lum < 0.2] = 0.0
+    lmap = MapSource(luminosity=lsun, map=lum)
+    geo = build_cartesian_geometry(grid, dev, f32)
+    dt = build_dust_tables([dust], dev, f32)
+    st = build_source_tables([lmap], dev, f32, length_scale=geo.length_scale,
+                             grid=grid)
+    density = torch.full((1, grid.n_cells), 1e-19 * geo.length_scale,
+                         dtype=f32, device=dev)
+    res = run_lucy(geo, dt, st, density, gen, n_photons=100_000,
+                   n_iterations=1, batch_size=25_000, verbose=False)
+    se = torch.as_tensor(res.specific_energy, dtype=f32, device=dev)
+    jid, jfrac = compute_jnu_var(dt, se)
+    u = torch.rand((4 + N_EMIT_EXTRA, n), generator=gen, device=dev)
+    new = emit_packets(st, *u[:4], u_extra=u[4:], geometry=geo,
+                       lte_ctx=(dt, jid, jfrac, se * density))
+    # each photon's cell by its position (find_cell's direction would put
+    # one emitted on the grid's face, with float32 rounding, outside: it
+    # escapes at once, as in the JAX package; counted as 'outside')
+    cells = geo.find_cell(*(new[c] for c in ('x', 'y', 'z', 'kx', 'ky',
+                                             'kz')))
+    walls = (geo.xw, geo.yw, geo.zw)
+    idx = [(torch.searchsorted(w, new[c].contiguous(), right=True) - 1)
+           .clamp(0, len(w) - 2) for w, c in zip(walls, 'xyz')]
+    flat = (idx[2] * geo.n2 + idx[1]) * geo.n1 + idx[0]
+    counts = torch.bincount(flat, minlength=grid.n_cells).cpu().numpy()
+    expect = n * lum.reshape(-1) / lum.sum()
+    pos_cells = expect > 0
+    chi2 = float(((counts[pos_cells] - expect[pos_cells]) ** 2 /
+                  expect[pos_cells]).sum())
+    dof = int(pos_cells.sum()) - 1
+    nu_lte = new['nu'].cpu().numpy()
+    e_nu = dt.emiss_nu[0].cpu().numpy()
+    out['map_lte'] = dict(chi2_per_dof=chi2 / dof, dof=dof,
+                          in_dark_cells=int(counts[~pos_cells].sum()),
+                          outside=int((cells < 0).sum()),
+                          lucy_killed=[res.killed_int, res.killed_geo],
+                          nu_range=[float(nu_lte.min()),
+                                    float(nu_lte.max())])
+    phase('LTE map after one Lucy iteration: emission cells chi^2/dof %.4f '
+          '(%d dof), %d photons in dark cells, %d found outside the grid; '
+          'frequencies %.4e .. %.4e Hz (emissivity grid %.4e .. %.4e) [%s]'
+          % (chi2 / dof, dof, out['map_lte']['in_dark_cells'],
+             out['map_lte']['outside'], nu_lte.min(), nu_lte.max(),
+             e_nu.min(), e_nu.max(), card))
+    if chi2 / dof >= 2.0 or out['map_lte']['in_dark_cells'] or \
+            not (np.isfinite(nu_lte).all() and
+                 nu_lte.min() >= e_nu.min() * 0.999 and
+                 nu_lte.max() <= e_nu.max() * 1.001):
+        raise AssertionError('LTE map: %s' % out['map_lte'])
+    return out
+
+
+def cylindrical_kernels(cyl, launches):
+    """The kernels line of ``--cylindrical``: each kernel on phase 14's own
+    calls (class1_cyl's Lucy deposits, imaging walks and raytracing
+    columns) and its launches there."""
+    t, w, c = cyl['deposit_visit']['timing'], cyl['walks'][0], cyl['columns']
+    walk_keys = ('model', 'steps', 'calls', 'views', 'device_us',
+                 'device_us_per_view', 'host_us', 'plain_ms', 'bound_us',
+                 'bound_by', 'longest_walk')
+    return [
+        dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
+             replaces=REPLACES, launches=sum(launches['deposit_visit'].values()),
+             max_abs_err=cyl['deposit_visit']['max_abs_err'],
+             ms=t['device_us'] / 1e3, plain_ms=t['plain_ms'],
+             bound_ms=t['bound_us'] / 1e3, bound_by='bytes',
+             library_ms=t['library_ms'], device_us=t['device_us'],
+             host_us=t['host_us'], bound_us=t['bound_us']),
+        dict(name='escape_tau', route='cuda', source=ESCAPE_TAU_SOURCE,
+             replaces=ESCAPE_TAU_REPLACES,
+             launches=sum(launches['escape_tau'].values()),
+             max_abs_err=max(x['f32_vs_plain32_max_abs_err']
+                             for x in cyl['walks']),
+             ms=w['device_us'] / 1e3, plain_ms=w['plain_ms'],
+             bound_ms=w['bound_us'] / 1e3, bound_by=w['bound_by'],
+             library_ms=None, f64_max_rel_err=max(
+                 x['f64_max_rel_err'] for x in cyl['walks']),
+             windows=[{k: x[k] for k in walk_keys} for x in cyl['walks']]),
+        dict(name='escape_column', route='cuda', source=ESCAPE_TAU_SOURCE,
+             replaces=ESCAPE_COLUMN_REPLACES,
+             launches=sum(launches['escape_column'].values()),
+             max_abs_err=c['f32_vs_plain32_max_abs_err'],
+             ms=c['device_us'] / 1e3, plain_ms=c['plain_ms'],
+             bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'],
+             library_ms=None, f64_max_rel_err=c['f64_max_rel_err'],
+             host_us=c['host_us'], longest_walk=c['longest_walk'],
+             plan=c['plan'])]
+
+
 def main():
     import argparse
     import torch
@@ -2219,6 +2768,9 @@ def main():
     ap.add_argument('--raytracing', action='store_true',
                     help='run only phases 1, 2, 4 and 8 (for their specific '
                     'energies) and 11-13')
+    ap.add_argument('--cylindrical', action='store_true',
+                    help='run only phases 1, 2, 14 (with its part of phases '
+                    '10 and 13) and 15')
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2296,10 +2848,20 @@ def main():
         phase('phases 11-13 in %.1f s' % (time.time() - t0))
         return cols
 
+    def cylindrical_phases():
+        """Phases 14 and 15; returns phase 14's report."""
+        launches_14, cyl = run_phase(14, class1_cyl_phase, dv, et, card,
+                                     **CLASS1_CYL_CUT)
+        for name, n in launches_14.items():
+            launches[name]['class1_cyl'] = n
+        record['class1_cyl'] = cyl
+        record['sources'] = run_phase(15, sources_phase, card)
+        return cyl
+
     def column_kernel(cols):
         """The kernels line's escape_column entry: class2's calls (phase
         11, the full-width raytracing of the main path) as the headline,
-        the quickstart's beside them."""
+        the quickstart's and class1_cyl's beside them."""
         c = cols[0]
         return dict(name='escape_column', route='cuda',
                     source=ESCAPE_TAU_SOURCE, replaces=ESCAPE_COLUMN_REPLACES,
@@ -2318,6 +2880,14 @@ def main():
                         'run', 'model', 'calls', 'views', 'B', 'device_us',
                         'host_us', 'plain_ms', 'bound_us', 'bound_by',
                         'longest_walk')} for r in cols])
+
+    if args.cylindrical:
+        cyl = cylindrical_phases()
+        (OUT / 'cylindrical.json').write_text(json.dumps(record, indent=1))
+        kernels = cylindrical_kernels(cyl, launches)
+        print(json.dumps({'kernels': kernels}), flush=True)
+        print(result_line, flush=True)
+        return 0
 
     if args.raytracing:
         # 4 and 8 for their specific energies, then 11-13
@@ -2372,7 +2942,13 @@ def main():
     # 11-13. raytracing and monochromatic imaging, and the column mode on
     # their own calls
     cols = raytracing_phases(se4, phase8)
-    phase('phases 3-13 in %.1f s' % (time.time() - t_start))
+
+    # 14-15. BASELINE config 3 (cylindrical-polar), with config 3's own
+    # calls of phases 6, 10 and 13's checks, and the remaining sources
+    cyl = cylindrical_phases()
+    walks = walks + cyl['walks']
+    cols = cols + [cyl['columns']]
+    phase('phases 3-15 in %.1f s' % (time.time() - t_start))
 
     record['launches'] = launches
     record['wall_s'] = time.time() - t_start
@@ -2388,7 +2964,8 @@ def main():
     kernels = [dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
                     replaces=REPLACES,
                     launches=sum(launches['deposit_visit'].values()),
-                    max_abs_err=max(max_err, yso_err),
+                    max_abs_err=max(max_err, yso_err,
+                                    cyl['deposit_visit']['max_abs_err']),
                     ms=t['device_us'] / 1e3,
                     plain_ms=t['plain_ms'], bound_ms=t['bound_us'] / 1e3,
                     bound_by='bytes', library_ms=t['library_ms'],
@@ -2400,7 +2977,8 @@ def main():
                     yso_bound_us=yso_t['bound_us'],
                     yso_plain_ms=yso_t['plain_ms'],
                     yso_library_ms=yso_t['library_ms'],
-                    yso_contention=yso_hot),
+                    yso_contention=yso_hot,
+                    class1_cyl=cyl['deposit_visit']['timing']),
                dict(name='escape_tau', route='cuda', source=ESCAPE_TAU_SOURCE,
                     replaces=ESCAPE_TAU_REPLACES,
                     launches=sum(launches['escape_tau'].values()),

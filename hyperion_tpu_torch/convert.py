@@ -13,6 +13,7 @@ import torch
 
 from .transport.dtable import DustTables
 from .transport.gtable import CartesianGeometry
+from .transport.gtable_cylindrical import CylindricalGeometry
 from .transport.gtable_spherical import SphericalGeometry
 from .transport.imaging import PeelGroup
 from .transport.mrw import MRWTables
@@ -34,11 +35,12 @@ def _build(cls, fields, device, dtype):
 
 def tables_from_numpy(dust, sources, geometry, device, dtype):
     """(DustTables, SourceTables, geometry) from dicts of numpy fields of
-    the JAX DustTables, SourceTables and CartesianGeometry or
-    SphericalGeometry (told apart by the radial walls ``rw``)."""
+    the JAX DustTables, SourceTables and CartesianGeometry,
+    SphericalGeometry or CylindricalGeometry (told apart by the radial
+    walls ``rw`` and ``ww``)."""
     sources = dict(sources, energy_total=float(sources['energy_total']))
     geometry_cls = SphericalGeometry if 'rw' in geometry else \
-        CartesianGeometry
+        CylindricalGeometry if 'ww' in geometry else CartesianGeometry
     return (_build(DustTables, dust, device, dtype),
             _build(SourceTables, sources, device, dtype),
             _build(geometry_cls, geometry, device, dtype))

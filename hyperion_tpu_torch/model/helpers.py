@@ -2,10 +2,9 @@
 (ref: hyperion/model/helpers.py:10-250).
 
 ``tau_to_radius`` finds the radial photosphere of a spherical-polar model;
-``hseq_profile`` is the vertical hydrostatic-equilibrium density profile.
-``run_with_vertical_hseq`` of ``hyperion_tpu/model/helpers.py`` iterates
-an AnalyticalYSOModel on a cylindrical-polar grid, which the port does not
-run yet (ROADMAP.md queue 1 item 11), so it is left out here.
+``hseq_profile`` is the vertical hydrostatic-equilibrium density profile,
+which ``run_with_vertical_hseq`` iterates a cylindrical-polar
+AnalyticalYSOModel to.
 """
 
 import numpy as np
@@ -81,3 +80,73 @@ def hseq_profile(w, z, temperature, mstar, mu=MU_H2_HE):
     rho = np.exp(-(G * mstar * mu * m_h / k) * i_z) / temperature
     trapz = np.trapezoid if hasattr(np, 'trapezoid') else np.trapz
     return rho / trapz(rho, z)
+
+
+def run_with_vertical_hseq(prefix, model, n_iter=10, mpi=False,
+                           n_processes=1, overwrite=True, device=None,
+                           batch_size=None):
+    """Iterate a cylindrical-grid AnalyticalYSOModel to vertical hydrostatic
+    equilibrium (ref helpers.py:132-250; the JAX package's, with the
+    density set where that one raises): run RT, recompute each disk's
+    vertical density from the temperature via :func:`hseq_profile`
+    (holding the surface density fixed), rerun. The model must write its
+    density and specific energy (``conf.output``). Returns the last output
+    filename.
+
+    Each iteration writes its ``.rtin`` and reads the previous ``.rtout``,
+    which needs h5py: where the card's host has no h5py, this runs on the
+    CPU only (``device='cpu'``). ``device`` and ``batch_size`` go to
+    :meth:`Model.run`."""
+    from .model import Model
+    from .model_output import ModelOutput
+    from .analytical_yso_model import AnalyticalYSOModel
+
+    if not isinstance(model, AnalyticalYSOModel):
+        raise TypeError("run_with_vertical_hseq requires an "
+                        "AnalyticalYSOModel")
+    if not isinstance(model.grid, dict) or \
+            model.grid.get('grid_type') != 'cylindrical':
+        raise TypeError("run_with_vertical_hseq requires a cylindrical "
+                        "polar grid")
+    if model.star.mass is None:
+        raise ValueError("star.mass must be set for hydrostatic equilibrium")
+    n_disks = len(model.disks)
+    if n_disks == 0:
+        raise ValueError("model has no disks")
+    run_kw = dict(mpi=mpi, n_processes=n_processes, overwrite=overwrite,
+                  device=device, batch_size=batch_size)
+
+    model.write('%s_00000.rtin' % prefix, overwrite=overwrite)
+    model.run('%s_00000.rtout' % prefix, **run_kw)
+    previous = '%s_00000.rtout' % prefix
+
+    trapz = np.trapezoid if hasattr(np, 'trapezoid') else np.trapz
+    for it in range(1, n_iter + 1):
+        g = ModelOutput(previous).get_quantities()
+        density = [q.array.copy() for q in g['density']]
+        temperature = [q.array.copy() for q in g['temperature']]
+
+        for idisk in range(n_disks):
+            t = temperature[idisk]
+            # floor unheated cells to the column maximum so the profile
+            # stays finite (same pragmatic choice as the reference)
+            t = np.where(t < 1.0, t.max(axis=1, keepdims=True), t)
+            rho = density[idisk]
+            for j in range(rho.shape[0]):          # phi
+                for i in range(rho.shape[2]):      # w
+                    sigma = trapz(rho[j, :, i], g.z)
+                    if sigma > 0:
+                        rho[j, :, i] = sigma * hseq_profile(
+                            g.w[i], g.z, t[j, :, i], model.star.mass)
+            density[idisk] = rho
+
+        m = Model.read(previous)
+        # the populations' arrays set as the grid's quantity (the JAX copy
+        # assigns the list through grid['density'], which takes only a
+        # GridView, [] or a link, and raises)
+        m.grid.quantities['density'] = density
+        m.write('%s_%05i.rtin' % (prefix, it), overwrite=overwrite)
+        m.run('%s_%05i.rtout' % (prefix, it), **run_kw)
+        previous = '%s_%05i.rtout' % (prefix, it)
+
+    return previous

@@ -1,9 +1,11 @@
 """Run a Model through the port and write its .rtout (counterpart of
 ``hyperion_tpu/model/run.py``).
 
-The slice: cartesian and spherical-polar grids; point sources,
-point-source collections and spherical sources (limb darkening, spots, and
-the re-absorption of photons that hit them); any number of dust types;
+The slice: cartesian, spherical-polar and cylindrical-polar grids; every
+source type (point sources and their collections, spherical sources with
+limb darkening, spots and the re-absorption of photons that hit them,
+luminosity maps with or without an LTE spectrum, external spheres and
+boxes, plane-parallel beams); any number of dust types;
 Lucy iterations with or without convergence checking, the modified random
 walk, the partial diffusion approximation, frequency-resolved specific
 energy bins, an initial or additional specific energy read from the grid,
@@ -27,14 +29,15 @@ import numpy as np
 import torch
 
 from ..device import engine_dtype, resolve_device
-from ..grid import AMRGrid, CartesianGrid, SphericalPolarGrid
-from ..sources import PointSource, PointSourceCollection, SphericalSource
+from ..grid import (AMRGrid, CartesianGrid, CylindricalPolarGrid,
+                    SphericalPolarGrid)
 from ..transport.dtable import build_dust_tables
 from ..transport.gtable import ESCAPED, build_cartesian_geometry
+from ..transport.gtable_cylindrical import build_cylindrical_geometry
 from ..transport.gtable_spherical import build_spherical_geometry
 from ..transport.lucy import run_lucy
 from ..transport.pda import build_pda_tables
-from ..transport.stable import build_source_tables
+from ..transport.stable import POINT, SPHERE, build_source_tables
 from ..util.perf import PerfTable
 from .imaging_runner import run_imaging, write_peel_group
 from .model import Model
@@ -112,18 +115,18 @@ def _check_slice(model):
         raise TypeError("the port runs a hyperion_tpu_torch.model.Model, not "
                         "a %s.%s" % (type(model).__module__,
                                      type(model).__name__))
-    if not isinstance(model.grid, (CartesianGrid, SphericalPolarGrid)):
+    if not isinstance(model.grid, (CartesianGrid, SphericalPolarGrid,
+                                   CylindricalPolarGrid)):
         refuse("%s" % type(model.grid).__name__, 11)
-    for s in model.sources:
-        if not isinstance(s, (PointSource, PointSourceCollection,
-                              SphericalSource)):
-            refuse("%s" % type(s).__name__, 4)
 
 
 def build_geometry_tables(grid, device, dtype):
-    """The geometry tables of a cartesian or spherical-polar grid."""
+    """The geometry tables of a cartesian, spherical-polar or
+    cylindrical-polar grid."""
     if isinstance(grid, SphericalPolarGrid):
         return build_spherical_geometry(grid, device, dtype)
+    if isinstance(grid, CylindricalPolarGrid):
+        return build_cylindrical_geometry(grid, device, dtype)
     return build_cartesian_geometry(grid, device, dtype)
 
 
@@ -145,14 +148,18 @@ def _density_array(model, length_scale, device, dtype):
 
 
 def _validate_model(geometry, st, dt):
-    """Fail fast where the reference aborts at run time: a source (a
-    point, or a sphere's centre) outside the grid, or a source spectrum
-    beyond the dust frequency tables."""
+    """Fail fast where the reference aborts at run time: a point source or
+    a sphere's centre outside the grid, or a source spectrum (not an LTE
+    one) beyond the dust frequency tables. As in the JAX package
+    (``hyperion_tpu/model/run.py:143-170``) other rows are not checked for
+    lying inside the grid: their photons emitted outside it escape at
+    once."""
     pos = st.position
     zero = torch.zeros_like(pos[:, 0])
     cell = geometry.find_cell(pos[:, 0], pos[:, 1], pos[:, 2], zero, zero,
                               zero + 1.0)
-    bad = (cell == ESCAPED).nonzero()
+    checked = (st.type_code == POINT) | (st.type_code == SPHERE)
+    bad = ((cell == ESCAPED) & checked).nonzero()
     if len(bad):
         i = int(bad[0, 0])
         raise ValueError(
@@ -162,7 +169,11 @@ def _validate_model(geometry, st, dt):
     nu_lo = float(dt.nu.min())
     nu_hi = float(dt.nu.max())
     spec = st.spec_nu.cpu().numpy().astype(float)
+    lte = st.lte.cpu().numpy() if st.has_lte else \
+        np.zeros(spec.shape[0], bool)
     for i in range(spec.shape[0]):
+        if lte[i]:
+            continue
         if spec[i].min() < nu_lo * (1 - 1e-10) or \
                 spec[i].max() > nu_hi * (1 + 1e-10):
             raise ValueError(
@@ -211,7 +222,8 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
     dt = build_dust_tables(dusts, device, dtype)
     st = build_source_tables(model.sources, device, dtype,
                              length_scale=geometry.length_scale,
-                             sample_evenly=model.sample_sources_evenly)
+                             sample_evenly=model.sample_sources_evenly,
+                             grid=model.grid)
     density = _density_array(model, geometry.length_scale, device, dtype)
     if model.sources:
         # (a source-less model's placeholder row emits nothing)

@@ -16,8 +16,10 @@ driven from the host and reads the device once per step: the alive count,
 and with source re-absorption the count of photons waiting for
 re-emission in the same read. The MRW branch is computed masked in every
 step of an MRW run (a gate on "any lane jumps" would need a second read).
-The map and LTE branches of the JAX step are not in this slice
-(``run_model`` refuses such models)."""
+Map sources place their photons in the grid's cells, and a map with an
+LTE spectrum draws its frequencies from the dust emissivity there
+(``se_rho``, the specific energy times the density of the previous
+iteration)."""
 
 import math
 from dataclasses import dataclass
@@ -29,11 +31,14 @@ from .gtable import ESCAPED
 from .mrw import sample_min09
 from .sampling import (interp_loglog, isotropic_direction, random_exp,
                        rotate_direction, sample_quantile_rows)
-from .stable import emit_packets, nearest_source_intersection, pick_sources
+from .stable import (N_EMIT_EXTRA, emit_packets, nearest_source_intersection,
+                     pick_sources)
 
 # rows of the per-step uniform draw: refill (emission), the step, then the
-# sphere emission's and the MRW move's; a step draws only the rows its
-# model uses, so a point-source model without MRW draws the first 15
+# sphere emission's and the MRW move's, then for map, box and beam sources
+# the N_EMIT_EXTRA rows of stable.E_* from U_EM_EXTRA; a step draws only the
+# rows its model uses, so a point-source model without MRW draws the first
+# 15
 (U_SRC, U_EM_NU, U_EM_MU, U_EM_PHI, U_EM_TAU,
  U_CHECK, U_DUST, U_COIN, U_BIN, U_XI, U_DIR_MU, U_DIR_PHI, U_MU, U_PHI,
  U_TAU,
@@ -41,6 +46,7 @@ from .stable import emit_packets, nearest_source_intersection, pick_sources
  U_MRW_Y, U_MRW_JUMP_MU, U_MRW_JUMP_PHI, U_MRW_DIR_MU, U_MRW_DIR_PHI,
  U_MRW_DUST, U_MRW_BIN, U_MRW_XI) = range(27)
 N_UNIFORMS = 27
+U_EM_EXTRA = N_UNIFORMS
 
 
 @dataclass
@@ -208,8 +214,23 @@ def mrw_jump_update(dt, mrw, u, mrw_now, x, y, z, energy, chi, d_close,
             nu_m, chi_m, kappa_m, alb_m)
 
 
+def emit_options(geometry, dt, st, jnu_var_id, jnu_var_frac, se_rho):
+    """``(n_extra, kw)``: the rows of extra uniforms that the source rows
+    draw from (0 or N_EMIT_EXTRA) and :func:`~.stable.emit_packets`'
+    keywords besides them: the geometry for map cells, and for LTE spectra
+    the context of the dust emissivity (``se_rho`` None: zero, the first
+    iteration's uniform dust pick)."""
+    kw = dict(geometry=geometry)
+    if st.has_lte:
+        kw['lte_ctx'] = (dt, jnu_var_id, jnu_var_frac,
+                         torch.zeros_like(jnu_var_frac) if se_rho is None
+                         else se_rho)
+    return (N_EMIT_EXTRA if st.has_extra else 0), kw
+
+
 def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
-                   config, mrw=None, spec_bins=None, spec_bin_frac=None):
+                   config, mrw=None, spec_bins=None, spec_bin_frac=None,
+                   se_rho=None):
     """The step of one Lucy iteration: ``step(carry, generator)`` advances
     the carry by one step, in place.
 
@@ -222,7 +243,9 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
     ``spec_bins``: (n_bins + 1,) log2 frequency bin edges, or None;
     ``spec_bin_frac``: (n_dust * n_var, n_bins) emissivity fraction of each
     bin per (dust, var) row, which spreads MRW deposits over the bins (ref
-    deposit_specific_energy_spectrum, grid_physics_3d.f90:367-415)."""
+    deposit_specific_energy_spectrum, grid_physics_3d.f90:367-415).
+    ``se_rho``: (n_dust, n_cells) specific energy times density, where a
+    map emits with an LTE spectrum (None: zero)."""
     n_dust, n_cells = density.shape
     dtype = density.dtype
     # per-cell rows, gathered by each lane's cell
@@ -236,7 +259,9 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
     reabs_on = bool(config.get('source_intersect', False))
     n_reabs_max = int(config.get('n_reabs_max', 0))
     sphere = st.has_sphere
-    n_rows = N_UNIFORMS if mrw is not None else \
+    n_extra, emit_kw = emit_options(geometry, dt, st, jnu_var_id,
+                                    jnu_var_frac, se_rho)
+    n_rows = N_UNIFORMS + n_extra if n_extra or mrw is not None else \
         U_EM_OUT_PHI + 1 if sphere else U_TAU + 1
     if mrw is not None:
         n_mrw_max = int(config['n_mrw_max'])
@@ -278,7 +303,9 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
                               pick_sources(st, u[U_SRC]))
             can = can_fresh | reemit_ok
         new = emit_packets(st, u[U_SRC], u[U_EM_NU], u[U_EM_MU],
-                           u[U_EM_PHI], u_sphere, src=src)
+                           u[U_EM_PHI], u_sphere, src=src,
+                           u_extra=u[U_EM_EXTRA:] if n_extra else None,
+                           **emit_kw)
         cell_new = geometry.find_cell(new['x'], new['y'], new['z'],
                                       new['kx'], new['ky'], new['kz'])
         chi_n, kappa_n, alb_n = update_optical_constants(dt, new['nu'])
@@ -307,7 +334,7 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
             n_reabs=n_reabs, reemit_src=reemit_src,
             uid=m(p.uid, uid_new, can_fresh),
             # photons emitted outside the grid simply escape (run_model
-            # checks that sources lie inside it)
+            # checks that point and sphere sources lie inside it)
             alive=p.alive | (can & (cell_new != ESCAPED)),
             chi=m(p.chi, chi_n), kappa=m(p.kappa, kappa_n),
             albedo=m(p.albedo, alb_n))
@@ -553,7 +580,7 @@ def _init_lucy_carry(dt, density, n_photons, batch_size, n_bins=0):
 
 def run_lucy_iteration(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
                        generator, n_photons, batch_size, config, mrw=None,
-                       spec_bins=None, spec_bin_frac=None):
+                       spec_bins=None, spec_bin_frac=None, se_rho=None):
     """One Lucy iteration on one device.
 
     Returns (energy_sum (n_dust, n_cells), energy_current, n_photons_cell,
@@ -563,7 +590,7 @@ def run_lucy_iteration(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
     carry = _init_lucy_carry(dt, density, n_photons, batch_size, n_bins)
     step = make_lucy_step(geometry, dt, st, density, jnu_var_id,
                           jnu_var_frac, config, mrw=mrw, spec_bins=spec_bins,
-                          spec_bin_frac=spec_bin_frac)
+                          spec_bin_frac=spec_bin_frac, se_rho=se_rho)
     max_steps = int(config['max_steps'])
     while (carry.budget > 0 or carry.n_alive > 0 or carry.n_pending > 0) \
             and carry.n_steps < max_steps:

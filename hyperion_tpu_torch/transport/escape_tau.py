@@ -40,6 +40,7 @@ import torch
 
 from . import _build
 from .gtable import ESCAPED, CartesianGeometry
+from .gtable_cylindrical import CylindricalGeometry
 from .gtable_spherical import SphericalGeometry
 
 # kernel launches since the last reset, of the tau walk and of the column
@@ -74,7 +75,7 @@ DEEP_WALLS = 24
 def column_split(geometry):
     """The radial index below which the column mode hands a lane out in
     its first sweep: spherical grids with more than DEEP_WALLS shells, else
-    0 (one sweep, in lane order)."""
+    0 (one sweep, in lane order; cartesian and cylindrical grids)."""
     if isinstance(geometry, SphericalGeometry):
         return max(0, geometry.n1 - DEEP_WALLS)
     return 0
@@ -187,8 +188,8 @@ class EscapeTau:
     ``t_max`` of shape (V, B) (an unlimited view in a limited call takes
     +inf).
 
-    ``geometry`` is a CartesianGeometry or SphericalGeometry of float64
-    tables (``build_geometry_tables(grid, device, torch.float64)``) and
+    ``geometry`` is a CartesianGeometry, SphericalGeometry or
+    CylindricalGeometry of float64 tables (``build_geometry_tables(grid, device, torch.float64)``) and
     ``rho_t`` the (n_cells, n_dust) density the step keeps, float32 or
     float64, on one device; the lanes take the density's type. On CUDA the
     tables are checked, the kernel's plan made (shared memory, resident
@@ -215,6 +216,7 @@ class EscapeTau:
                              % self.max_steps)
         first_wall = geometry.rw if isinstance(geometry, SphericalGeometry) \
             else geometry.xw if isinstance(geometry, CartesianGeometry) \
+            else geometry.ww if isinstance(geometry, CylindricalGeometry) \
             else None
         if first_wall is not None and first_wall.dtype != torch.float64:
             raise ValueError("escape_tau walks in float64: give it the grid's "
@@ -242,16 +244,26 @@ class EscapeTau:
                      geometry.cos_pw, geometry.phi_w]
             theta_kind = geometry.theta_kind.to(torch.int32).contiguous()
             t_eps, rw1 = float(geometry.t_eps), float(geometry.rw[1])
+        elif isinstance(geometry, CylindricalGeometry):
+            # (csrc/escape_tau.cu's wall_len: w[3] and w[4] unused; the
+            # exclusion's second term, eps_floor, rides in rw1's place)
+            kind = 2
+            walls = [geometry.ww, geometry.ww2, geometry.zw, None, None,
+                     geometry.sin_pw, geometry.cos_pw, geometry.phi_w]
+            theta_kind = None
+            t_eps, rw1 = float(geometry.t_eps), float(geometry.eps_floor)
         elif isinstance(geometry, CartesianGeometry):
             kind = 0
             walls = [geometry.xw, geometry.yw, geometry.zw]
             theta_kind, t_eps, rw1 = None, 0.0, 0.0
         else:
             raise NotImplementedError(
-                "escape_tau walks cartesian and spherical-polar grids, not "
-                "%s: ROADMAP.md queue 1 item 11" % type(geometry).__name__)
-        walls = [w.contiguous() for w in walls]
-        for w in walls:
+                "escape_tau walks cartesian, spherical-polar and "
+                "cylindrical-polar grids, not %s: ROADMAP.md queue 1 item 11"
+                % type(geometry).__name__)
+        walls = [None if w is None else w.contiguous() for w in walls]
+        walls += [None] * (8 - len(walls))
+        for w in (w for w in walls if w is not None):
             if w.device != self.device:
                 raise ValueError("escape_tau: the grid's walls are on %s, the "
                                  "density on %s" % (w.device, self.device))
@@ -280,7 +292,7 @@ class EscapeTau:
             if theirs != ours:
                 raise RuntimeError("escape_tau: the library's %s is %d, the "
                                    "wrapper's %d" % (what, theirs, ours))
-        ptrs = [w.data_ptr() for w in walls] + [0] * (8 - len(walls))
+        ptrs = [0 if w is None else w.data_ptr() for w in walls]
         grid = dict(is_double=int(self.dtype == torch.float64), kind=kind,
                     theta_kind=0 if theta_kind is None else
                     theta_kind.data_ptr(), n1=geometry.n1, n2=geometry.n2,

@@ -19,9 +19,9 @@ One ``(n_rows, B)`` block of uniforms per step, a refill only when a
 quarter of the lanes are dead or a re-absorbed photon waits, and one host
 read per step (the alive count, with the waiting count): no event is gated
 on an ``any()``, since the walk returns at once for lanes that are not
-active. Map, LTE and external sources are not in this slice (``run_model``
-refuses them); the monochromatic iteration (``mono.py``) peels through
-:func:`peel_and_bin` too."""
+active. An external sphere's emission peels with its inward normal's
+cosine law, as a star's with its outward one. The monochromatic iteration
+(``mono.py``) peels through :func:`peel_and_bin` too."""
 
 import math
 from dataclasses import dataclass, field
@@ -30,8 +30,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .engine import (_select_col, sample_emission_nu, select_dust,
-                     update_optical_constants)
+from .engine import (_select_col, emit_options, sample_emission_nu,
+                     select_dust, update_optical_constants)
 from .escape_tau import EscapeTau
 from .ffi import sample_first_interaction
 from .gtable import ESCAPED
@@ -48,13 +48,15 @@ ORIG_DUST_SCAT = 3
 
 # rows of the per-step uniform draw: the refill's (with the forced first
 # interaction's), the step's, then the sphere emission's and the MRW
-# move's; a step draws only the rows its model uses
+# move's, then for map, box and beam sources the N_EMIT_EXTRA rows of
+# stable.E_* from U_EM_EXTRA; a step draws only the rows its model uses
 (U_SRC, U_EM_NU, U_EM_MU, U_EM_PHI, U_EM_TAU, U_FFI,
  U_DUST, U_COIN, U_BIN, U_XI, U_DIR_MU, U_DIR_PHI, U_MU, U_PHI, U_TAU,
  U_EM_CAP, U_EM_CAP_PHI, U_EM_OUT, U_EM_OUT_PHI,
  U_MRW_JUMP_MU, U_MRW_JUMP_PHI, U_MRW_DIR_MU, U_MRW_DIR_PHI,
  U_MRW_DUST, U_MRW_BIN, U_MRW_XI) = range(26)
 N_UNIFORMS = 26
+U_EM_EXTRA = N_UNIFORMS
 
 
 @dataclass
@@ -696,7 +698,8 @@ class FinalCarry:
 
 
 def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
-                    jnu_var_frac, groups, config, binned=None, mrw=None):
+                    jnu_var_frac, groups, config, binned=None, mrw=None,
+                    se_rho=None):
     """The step of the imaging iteration: ``step(carry, generator)``
     advances the carry by one step, in place. ``walk_geometry``: the grid's
     float64 tables, which the escape-tau walk runs on (``escape_tau.py``).
@@ -705,7 +708,8 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
     forced_first_interaction, ffi_algorithm, ffi_baes16_xi,
     peeloff_scattering_only, n_reabs_max, source_intersect, n_mrw_max.
     ``binned``: (group, n_theta, n_phi) of the binned images, or None.
-    ``mrw``: the :class:`~.mrw.MRWTables`, or None."""
+    ``mrw``: the :class:`~.mrw.MRWTables`, or None. ``se_rho``: specific
+    energy times density, where a map emits with an LTE spectrum."""
     n_dust, n_cells = density.shape
     rho_t = density.T.contiguous()
     vid_t = jnu_var_id.T.contiguous()
@@ -721,7 +725,9 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
     reabs_on = bool(config.get('source_intersect', False))
     n_reabs_max = int(config.get('n_reabs_max', 0))
     sphere = st.has_sphere
-    n_rows = N_UNIFORMS if mrw is not None else \
+    n_extra, emit_kw = emit_options(geometry, dt, st, jnu_var_id,
+                                    jnu_var_frac, se_rho)
+    n_rows = N_UNIFORMS + n_extra if n_extra or mrw is not None else \
         U_EM_OUT_PHI + 1 if sphere else U_TAU + 1
     if mrw is not None:
         n_mrw_max = int(config['n_mrw_max'])
@@ -754,7 +760,9 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
                               pick_sources(st, u[U_SRC]))
             can = can_fresh | reemit_ok
         new = emit_packets(st, u[U_SRC], u[U_EM_NU], u[U_EM_MU],
-                           u[U_EM_PHI], u_sphere, src=src)
+                           u[U_EM_PHI], u_sphere, src=src,
+                           u_extra=u[U_EM_EXTRA:] if n_extra else None,
+                           **emit_kw)
         # a point source's position columns are strided views; the walk
         # takes contiguous lanes
         for k in ('x', 'y', 'z'):
@@ -1126,9 +1134,11 @@ def start_final(geometry, dt, st, density, specific_energy, groups,
         (binned_group,) + tuple(binned_dims)
     carry = _init_final_carry(dt, density, groups, n_photons, batch_size,
                               binned_group)
+    # a map with an LTE spectrum picks its dust ∝ specific energy x density
+    se_rho = specific_energy * density if st.has_lte else None
     step = make_final_step(geometry, walk_geometry, dt, st, density,
                            jnu_var_id, jnu_var_frac, groups, config,
-                           binned=binned, mrw=mrw)
+                           binned=binned, mrw=mrw, se_rho=se_rho)
     return carry, step
 
 

@@ -237,11 +237,15 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
         jnu_var_id, jnu_var_frac = compute_jnu_var(dt, specific_energy)
         mrw = prepare_mrw_tables(dt, density, specific_energy, mrw_gamma) \
             if use_mrw else None
+        # a map with an LTE spectrum picks its dust ∝ specific energy x
+        # density at the emission cell (ref select_dust_specific_energy_rho)
+        se_rho = specific_energy * density if st.has_lte else None
         energy_sum, energy_current, npc, killed_int, killed_geo, n_steps, \
             energy_sum_spec, n_events = run_lucy_iteration(
                 geometry, dt, st, density, jnu_var_id, jnu_var_frac,
                 generator, n_photons, batch_size, config, mrw=mrw,
-                spec_bins=spec_bins, spec_bin_frac=spec_bin_frac)
+                spec_bins=spec_bins, spec_bin_frac=spec_bin_frac,
+                se_rho=se_rho)
         n_photons_cell = npc.cpu().numpy()
 
         # host float64 for the combined scale; engine lengths carry one

@@ -37,8 +37,8 @@ from .gtable import ESCAPED
 from .imaging import PeelAccum, Provenance, peel_and_bin
 from .raytrace import sample_position_in_cell
 from .sampling import isotropic_direction, random_exp
-from .stable import emit_packets, nearest_source_intersection, per_row, \
-    pick_sources
+from .stable import N_EMIT_EXTRA, emit_packets, \
+    nearest_source_intersection, per_row, pick_sources
 from .stokes import sample_scatter_stokes
 
 # rows of the per-step uniforms: the refill's (the source pick, the drawn
@@ -50,6 +50,8 @@ from .stokes import sample_scatter_stokes
  U_DUST_PICK, U_CELL, U_POS_X, U_POS_Y, U_POS_Z, U_DIR_MU, U_DIR_PHI,
  U_DUST, U_MU, U_PHI, U_TAU) = range(21)
 N_UNIFORMS = 21
+# then, for map, box and beam sources, the N_EMIT_EXTRA rows of stable.E_*
+U_EM_EXTRA = N_UNIFORMS
 
 
 def source_mono_energies(sources, frequencies):
@@ -242,6 +244,7 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
     n_inter_max = int(config['n_inter_max'])
     kill_on_scatter = bool(config['kill_on_scatter'])
     sphere = st.has_sphere
+    n_extra = N_EMIT_EXTRA if mode == 'source' and st.has_extra else 0
     lanes = {}
 
     def consts(B, device):
@@ -255,7 +258,9 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
     def emit_sources(u, src):
         new = emit_packets(st, u[U_SRC], u[U_EM_NU], u[U_EM_MU], u[U_EM_PHI],
                            (u[U_EM_CAP], u[U_EM_CAP_PHI], u[U_EM_OUT],
-                            u[U_EM_OUT_PHI]) if sphere else None, src=src)
+                            u[U_EM_OUT_PHI]) if sphere else None, src=src,
+                           u_extra=u[U_EM_EXTRA:] if n_extra else None,
+                           geometry=geometry)
         for k in ('x', 'y', 'z'):
             new[k] = new[k].contiguous()
         return new
@@ -388,7 +393,7 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
     def step(carry, generator):
         p0 = carry.packets
         B = p0.x.shape[0]
-        u = torch.rand((N_UNIFORMS, B), generator=generator,
+        u = torch.rand((N_UNIFORMS + n_extra, B), generator=generator,
                        device=p0.x.device, dtype=dtype)
         if (carry.budget > 0 and (carry.n_alive * 4 <= 3 * B or
                                   carry.n_alive == 0)) or carry.n_pending:

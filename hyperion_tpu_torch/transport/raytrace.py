@@ -27,13 +27,16 @@ import numpy as np
 import torch
 
 from .gtable import ESCAPED, CartesianGeometry
+from .gtable_cylindrical import CylindricalGeometry
 from .gtable_spherical import SphericalGeometry
 from .imaging import Provenance, origin_index
-from .stable import emit_packets, per_row
+from .stable import N_EMIT_EXTRA, emit_packets, per_row
 
 # rows of a source batch's uniforms: the source pick, the frequency (drawn,
-# not used), the direction, then the stellar surface's point and direction
+# not used), the direction, then the stellar surface's point and direction;
+# for maps, boxes and beams then the N_EMIT_EXTRA rows of stable.E_*
 U_SRC, U_NU, U_MU, U_PHI, U_CAP, U_CAP_PHI, U_OUT, U_OUT_PHI = range(8)
+U_EXTRA = 8
 # rows of a dust batch's uniforms: the emitting (dust, cell), then the
 # position in the cell
 U_CELL, U_POS = 0, 1
@@ -234,7 +237,8 @@ def build_raytrace_tables_mono(dusts, sources, frequencies, specific_energy,
 def sample_position_in_cell(geometry, cell, u):
     """A random position inside each cell from the uniforms ``u`` (3, B)
     (ref random_position_cell): exact on cartesian cells; uniform in r^3,
-    cos(theta) and phi on spherical-polar ones."""
+    cos(theta) and phi on spherical-polar ones, and in w^2, z and phi on
+    cylindrical-polar ones."""
     i1, i2, i3 = geometry.decode(cell)
     if isinstance(geometry, CartesianGeometry):
         xw, yw, zw = geometry.xw, geometry.yw, geometry.zw
@@ -252,9 +256,18 @@ def sample_position_in_cell(geometry, cell, u):
                                            geometry.phi_w[i3])
         st_ = torch.sqrt((1.0 - mu * mu).clamp_min(0.0))
         return r * st_ * torch.cos(phi), r * st_ * torch.sin(phi), r * mu
+    if isinstance(geometry, CylindricalGeometry):
+        w2_lo = geometry.ww[i1] ** 2
+        w2_hi = geometry.ww[i1 + 1] ** 2
+        w = torch.sqrt(w2_lo + u[0] * (w2_hi - w2_lo))
+        zc = geometry.zw[i2] + u[1] * (geometry.zw[i2 + 1] - geometry.zw[i2])
+        phi = geometry.phi_w[i3] + u[2] * (geometry.phi_w[i3 + 1] -
+                                           geometry.phi_w[i3])
+        return w * torch.cos(phi), w * torch.sin(phi), zc
     raise NotImplementedError(
-        "positions in the cells of %s are not in the port yet: ROADMAP.md "
-        "queue 1 item 11" % type(geometry).__name__)
+        "positions in the cells of %s are not in the port yet (the octree, "
+        "AMR and Voronoi grids): ROADMAP.md queue 1 item 11"
+        % type(geometry).__name__)
 
 
 class RaytraceAccum:
@@ -386,16 +399,19 @@ def _peel_batch(walk, rt, groups, accums, x, y, z, cell, active, spec, prov,
 
 def raytrace_source_batch(walk, geometry, st, rt, groups, accums, u, n_active,
                           scale, sphere):
-    """One batch of source photons from the uniforms ``u`` (8, B): emitted,
-    peeled into ``accums`` with the energy ``scale`` each (the sources'
-    luminosity over the photon count; the source pick already weighs each
-    source by its share). ``sphere``: whether a row emits from a stellar
-    surface (``st.has_sphere``). Returns the count (a device tensor) of
-    the batch's photons emitted outside the grid, which peel nothing."""
+    """One batch of source photons from the uniforms ``u`` (8, B), or (8 +
+    N_EMIT_EXTRA, B) for map, box and beam rows: emitted, peeled into
+    ``accums`` with the energy ``scale`` each (the sources' luminosity over
+    the photon count; the source pick already weighs each source by its
+    share). ``sphere``: whether a row emits from a sphere's surface
+    (``st.has_sphere``). Returns the count (a device tensor) of the
+    batch's photons emitted outside the grid, which peel nothing."""
     B = u.shape[1]
     new = emit_packets(st, u[U_SRC], u[U_NU], u[U_MU], u[U_PHI],
                        (u[U_CAP], u[U_CAP_PHI], u[U_OUT], u[U_OUT_PHI])
-                       if sphere else None)
+                       if sphere else None,
+                       u_extra=u[U_EXTRA:] if u.shape[0] > U_EXTRA else None,
+                       geometry=geometry)
     x, y, z = (new[c].contiguous() for c in ('x', 'y', 'z'))
     cell = geometry.find_cell(x, y, z, new['kx'], new['ky'], new['kz'])
     in_batch = torch.arange(B, device=x.device) < n_active
@@ -404,8 +420,9 @@ def raytrace_source_batch(walk, geometry, st, rt, groups, accums, u, n_active,
     weight_fn = None
     if sphere:
         def weight_fn(vdx, vdy, vdz):
-            # the stellar surface's peel weight: 4 mu, or limb-darkened 2
-            # (1.5 mu^2 + mu) (ref emit_from_sphere_peeloff)
+            # the surface's peel weight (an external sphere's about its
+            # inward normal): 4 mu, or limb-darkened 2 (1.5 mu^2 + mu) (ref
+            # emit_from_sphere_peeloff)
             mu_s = (new['snx'] * vdx + new['sny'] * vdy +
                     new['snz'] * vdz).clamp_min(0.0)
             w = torch.where(new['limb'], 2.0 * (1.5 * mu_s * mu_s + mu_s),
@@ -493,11 +510,16 @@ def run_raytracing(walk, geometry, st, rt, var_grids, groups,
     outside = torch.zeros((), dtype=torch.int64, device=device)
     # a source-less model (a placeholder source row) has no source pass
     if n_ray_sources > 0 and rt.source_spec.shape[0] > 0:
+        if st.has_lte:
+            # (the JAX package's raytracing has no LTE context either)
+            raise ValueError("raytracing cannot emit from a source with an "
+                             "LTE spectrum")
         scale = float(st.energy_total) / n_ray_sources
         sphere = st.has_sphere
+        n_rows = U_EXTRA + (N_EMIT_EXTRA if st.has_extra else 0)
         for start in range(0, n_ray_sources, batch_size):
             b = min(batch_size, n_ray_sources - start)
-            u = torch.rand((8, batch_size), generator=generator,
+            u = torch.rand((n_rows, batch_size), generator=generator,
                            device=device, dtype=dtype)
             outside += raytrace_source_batch(walk, geometry, st, rt, groups,
                                              accums, u, b, scale, sphere)

@@ -6,14 +6,16 @@
 Builds an instrumented copy of csrc/escape_tau.cu (clock64() around the
 parts of a crossing, summed into a device table; the arithmetic is the
 kernel's own) into hyperion_tpu_torch/_build/, records the walk calls of
-imaging steps 41-60 of class2 (examples/class2_sed.py, B = 50,000) and of
-the quickstart (B = 125,000) with chip_smoke.record_walks, and runs, with
-the instrumented library in place of the kernel's:
+imaging steps 41-60 of class2 (examples/class2_sed.py, B = 50,000), of
+the quickstart (B = 125,000) and of BASELINE config 3
+(chip_smoke.class1_cyl_model, cylindrical-polar, B = 25,000) with
+chip_smoke.record_walks, and runs, with the instrumented library in place
+of the kernel's:
 
 - the window's longest ray alone (its lane the only active one, its view
   the only one): SM cycles per crossing from the ray's start to its end,
-  in the crossing's body, and for a spherical grid in the six wall
-  candidates and in find_cell at the landing point;
+  in the crossing's body, and for a spherical or cylindrical grid in the
+  six wall candidates and in find_cell at the landing point;
 - every call of the window: the same figures averaged over all crossings.
 
 Prints the card and one JSON object per model. The clock reads and the
@@ -32,22 +34,28 @@ sys.path.insert(0, str(ROOT / 'scripts'))
 
 import chip_smoke as cs  # noqa: E402
 
-# (marker in csrc/escape_tau.cu, text put after it)
+# (marker in csrc/escape_tau.cu, text put after it, the times it is found:
+# the spherical and cylindrical crossings share some markers)
 PROBES = [
     ('  const double big = DBL_MAX / 8.0;\n  const double b = x * kx',
-     None),  # replaced below: the candidates' start
+     None, 1),  # replaced below: the spherical candidates' start
+    ('  const double big = DBL_MAX / 8.0;\n  const double eps = cyl_eps',
+     None, 1),  # and the cylindrical ones'
     ('  t = tmin;\n', '  const long long c1 = clock64();\n'
-     '  atomicAdd(&probe[1], (unsigned long long)(c1 - c0));\n'),
+     '  atomicAdd(&probe[1], (unsigned long long)(c1 - c0));\n', 2),
     ('        walking = true;\n',
-     '        ray0 = clock64();\n'),
-    ('      // one crossing\n', '      const long long w0 = clock64();\n'),
+     '        ray0 = clock64();\n', 1),
+    ('      // one crossing\n', '      const long long w0 = clock64();\n', 1),
     ('      ++steps;\n',
      '      atomicAdd(&probe[3], (unsigned long long)(clock64() - w0));\n'
-     '      atomicAdd(&probe[4], 1ull);\n'),
+     '      atomicAdd(&probe[4], 1ull);\n', 1),
     ('        walking = false;\n',
      '        atomicAdd(&probe[0],'
-     ' (unsigned long long)(clock64() - ray0));\n'),
+     ' (unsigned long long)(clock64() - ray0));\n', 1),
 ]
+# the end of find_cell at the landing point: spherical, cylindrical
+ENDS = ['  return i1 >= 0 && i1 < g.n1;\n',
+        '  return i1 < g.n1 && i2 >= 0 && i2 < g.n2 && w2 >= g.w[1][0];\n']
 
 
 def instrumented_source():
@@ -56,8 +64,8 @@ def instrumented_source():
         .read_text()
     src = src.replace('namespace {\n', '__device__ unsigned long long '
                       'probe[8];\nnamespace {\n', 1)
-    for marker, after in PROBES:
-        if src.count(marker) != 1:
+    for marker, after, times in PROBES:
+        if src.count(marker) != times:
             raise RuntimeError('escape_tau_cycles: marker %r found %d times'
                                % (marker, src.count(marker)))
         if after is None:
@@ -65,11 +73,12 @@ def instrumented_source():
                               + marker)
         else:
             src = src.replace(marker, marker + after)
-    end = '  return i1 >= 0 && i1 < g.n1;\n'
-    if src.count(end) != 1:
-        raise RuntimeError('escape_tau_cycles: find_cell end moved')
-    src = src.replace(end, '  atomicAdd(&probe[2], (unsigned long long)'
-                      '(clock64() - c1));\n' + end)
+    for end in ENDS:
+        if src.count(end) != 1:
+            raise RuntimeError('escape_tau_cycles: find_cell end %r moved'
+                               % end)
+        src = src.replace(end, '  atomicAdd(&probe[2], (unsigned long long)'
+                          '(clock64() - c1));\n' + end)
     src = src.replace('  bool walking = false;\n',
                       '  bool walking = false;\n  long long ray0 = 0;\n', 1)
     return src + '''
@@ -124,7 +133,8 @@ def main():
     lib = build()
     dev = torch.device('cuda')
     window = (40, 60)
-    for name, (make, batch) in ab.MODELS.items():
+    models = dict(ab.MODELS, class1_cyl=(cs.class1_cyl_model, 25_000))
+    for name, (make, batch) in models.items():
         model = make()
         # record with the kernel, then probe with the instrumented copy
         rho32, calls = cs.record_walks(model, batch, (window,))

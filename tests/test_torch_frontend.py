@@ -48,6 +48,9 @@ def frontend(package):
         PointSourceCollection=sources.PointSourceCollection,
         SphericalSource=sources.SphericalSource,
         ExternalSphericalSource=sources.ExternalSphericalSource,
+        ExternalBoxSource=sources.ExternalBoxSource,
+        PlaneParallelSource=sources.PlaneParallelSource,
+        MapSource=sources.MapSource,
         Model=model.Model, AnalyticalYSOModel=model.AnalyticalYSOModel,
         ModelOutput=model.ModelOutput, densities=mod('densities'),
         au=const.au, lsun=const.lsun, rsun=const.rsun, msun=const.msun)

@@ -110,12 +110,26 @@ def test_source_tables_equal_jax(make, evenly):
                                              sample_evenly=evenly), ref)
 
 
-def test_source_tables_refuse_other_sources():
-    for package in ('port', 'jax'):
-        s = frontend(package).ExternalSphericalSource(
-            luminosity=lsun, temperature=5000.0, radius=1e11)
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            build_source_tables([s], CPU, F64)
+@pytest.mark.parametrize('kind,evenly', [
+    ('external_sphere', False), ('external_box', False),
+    ('plane_parallel', False), ('map', False), ('map_lte', False),
+    ('mixed', True)])
+@pytest.mark.parametrize('grid_kind', ['cartesian', 'cylindrical'])
+def test_source_tables_of_the_other_sources_equal_jax(kind, evenly,
+                                                      grid_kind):
+    """Maps (a blackbody and an LTE spectrum; their CDFs over the grid's
+    cells), external spheres and boxes and plane-parallel beams, alone and
+    mixed with a point source and a star, on a cartesian and a
+    cylindrical-polar grid."""
+    from test_torch_sources import other_sources, source_grid
+    L = 10 * au
+    grids = {p: source_grid(p, grid_kind) for p in ('jax', 'port')}
+    ref = j_sources(other_sources('jax', kind, grids['jax']),
+                    dtype=jnp.float64, length_scale=L, sample_evenly=evenly,
+                    grid=grids['jax'])
+    _assert_fields_equal(build_source_tables(
+        other_sources('port', kind, grids['port']), CPU, F64, length_scale=L,
+        sample_evenly=evenly, grid=grids['port']), ref)
 
 
 @pytest.mark.parametrize('walls', [
