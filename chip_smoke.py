@@ -55,16 +55,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
 8. examples/class2_sed.py with its peeled SEDs at 20, 45 and 80 degrees,
    built with the port's AnalyticalYSOModel (96 x 32 x 1 auto grid, MRW, a
    spherical star) and run on the card by run_lucy_model, cut to 1 Lucy
-   iteration of 200,000 photons capped at 8,000 steps and 100,000 imaging
-   photons capped at 3,000 steps (CLASS2_CUT; lanes alive at a cap are
+   iteration of 200,000 photons capped at 4,000 steps and 100,000 imaging
+   photons capped at 1,500 steps (CLASS2_CUT; lanes alive at a cap are
    killed and counted in killed_int): no geometry kills, energy_current
    the photon count, the SEDs finite and >= 0 and the 80 degree view
    fainter than the 20 degree one at the shortest wavelength; per
    iteration wall, photons/s, steps, ms per step, occupancy, killed_int and
    host syncs per step (at most 1.05); escape_tau launches per imaging
-   step, at most the peel events per step (one launch per event);
+   step beside the peel events per step (one launch in each event);
 9. bench.py's yso_thick configuration through transport.lucy.run_lucy as
-   bench.py calls it, cut to 1 iteration of 20,000 photons (bench.py: 2
+   bench.py calls it, cut to 1 iteration of 10,000 photons (bench.py: 2
    of 2,000,000; ``--yso-thick-photons N`` runs phases 1, 2 and 9 alone
    with 2 iterations of N photons): nothing killed, the steps per
    iteration beside the JAX package's;
@@ -124,7 +124,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the ISRF's share of the source draws within 3 sigma of its luminosity
    share, temperatures finite and > 0 in dusty cells, SEDs and images
    finite and >= 0, the 85 degree view's scattered share at 0.3 um above
-   the 10 degree view's, at most one escape_tau launch per peel event, no
+   the 10 degree view's, one escape_tau launch in each peel event, no
    raytraced photon outside the grid or its cell; walls, steps, ms per
    step, occupancy and host reads per stage. Then the three kernels
    against their plain versions on this run's own calls, by the methods
@@ -138,11 +138,41 @@ Phases, each of which raises on failure (exit code 1, no result line):
    uniform), and an LTE map source after one Lucy iteration (emission
    cells against the map, chi^2 per degree of freedom below 2).
 
+16. BASELINE.md config 4 (sph_octree_model: 100,000 SPH particles, 80%
+   in a Plummer sphere and 20% in 10 clumps, imported by the port's
+   construct_octree with the native library into an octree of ~12,400
+   nodes over a +-0.5 pc cube, three point sources of 1.2e4 Lsun in all,
+   SEDs at 0, 45 and 90 degrees, a 128 x 128 image at 45 degrees of 10
+   wavelengths, a binned SED over all directions, raytracing with phase
+   11's photons) at SPH_OCT_CUT's photons through run_lucy_model: no
+   geometry kills, killed_int 0 with every Lucy iteration below its step
+   cap (a walk that stalled would run into it), energy_current the photons
+   emitted, temperatures finite and > 0 in dusty leaves, no photon in a
+   refined node, the grid's dust mass within [0.95, 1] of the particles'
+   in the cube, the binned SED within 3% of 1.2e4 Lsun, SEDs and images
+   finite and >= 0, one escape_tau launch in each peel event, no
+   raytraced photon outside the grid or its cell, the native library
+   loaded; walls, steps, ms per step, occupancy and host reads per stage;
+   then the three kernels against their plain versions on this run's own
+   calls (phase 14's way);
+17. BASELINE.md config 5 on one card (orion_amr_model: a BoxLib plotfile
+   of 3 levels of 8 fabs of 32^3 cells written here and read by the
+   port's parse_orion, a dense core of tau ~ 100 with a 10 Lsun sink, MRW
+   gamma 2, forced first interaction, SEDs at 10, 45 and 80 degrees, a 128
+   x 128 image at 45 degrees, raytracing) at AMR_CUT's photons and step
+   caps (one emission, nearly every photon killed at a cap: the share is
+   printed): the plotfile read back equal to what was written, no geometry
+   kills, killed_int only at the step caps, MRW jumps counted and > 0,
+   the forced first interaction's weights finite and > 0, and the checks
+   and kernels of phase 16.
+
 ``--raytracing`` runs phases 1, 2, 4, 8 and 11-13 alone; ``--cylindrical``
-phases 1, 2, 14 (with its parts of phases 6, 10 and 13) and 15.
+phases 1, 2, 14 (with its parts of phases 6, 10 and 13) and 15;
+``--hierarchical`` phases 1, 2, 16 and 17.
 
 Each kernel's launch count is reset just before and read just after each
-main-path run (phases 4, 8, 9, 11, 12 and 14); the kernels line sums them.
+main-path run (phases 4, 8, 9, 11, 12, 14, 16 and 17); the kernels line
+sums them.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
 It needs no network and imports nothing of JAX or of hyperion_tpu.
@@ -171,39 +201,84 @@ ESCAPE_TAU_REPLACES = 'hyperion_tpu/transport/imaging.py:465'
 SHAPES = [(131072, 3375), (125000, 32768), (4096, 2048)]
 TUTORIAL = (125000, 32768, 1)
 # The YSO steps are host-bound (7-17 ms each on the H100) and the diffusion
-# tail sets their count, so phases 8 and 9 run cut to keep the script well
-# inside 10 minutes: fewer iterations first, then fewer photons (or, for
-# class2, a step cap); grid, dust, densities, star and MRW stay as given.
+# tail sets their count, so phases 8, 9 and 14 run cut, to keep the whole
+# script well inside its 1,200 s on the slowest hosts seen (phases 3-17
+# took 884.6 s on one H100 machine and 1,115.5 s on another with the cuts
+# before these, PERF.md): fewer iterations first, then fewer photons (or,
+# for class2 and class1_cyl, step caps); grid, dust, densities, star and
+# MRW stay as given.
 # bench.py:103-195, yso_thick: the run_lucy arguments, and the photons and
 # iterations chip_smoke runs (bench.py: 2 x 2,000,000, some 58,000 steps
 # each; 1 x 50,000 takes ~12,600, 1 x 20,000 ~8,400, at 10-16 ms a step on
-# the H100: 20,000 since class2's imaging joined phase 8;
-# --yso-thick-photons runs it at bench size)
+# the H100; --yso-thick-photons runs it at bench size)
 YSO_THICK = dict(batch_size=4096, mrw_gamma=1.0, n_mrw_max=100000,
                  n_reabs_max=100, max_steps=100000)
-YSO_THICK_CUT = dict(n_photons=20_000, n_iterations=1)
+YSO_THICK_CUT = dict(n_photons=10_000, n_iterations=1)
 # examples/class2_sed.py as chip_smoke runs it: its 200,000 photons, 1 of
-# its 5 iterations, capped at 8,000 steps. The diffusion tail (photons deep
+# its 5 iterations, capped at 4,000 steps. The diffusion tail (photons deep
 # in the disk's inner rim, whose innermost shells are too thin for MRW
 # jumps) is heavy: on the H100 145-155 of the 200,000 photons were still
-# alive at 8,000 steps, and the iteration's occupancy was 5% at B = 50,000.
-# Lanes alive at the cap are killed and counted in killed_int.
-# Imaging is cut to 100,000 of its 500,000 photons, capped at 3,000 steps,
+# alive at 8,000 steps, and the iteration's occupancy was 5% at B = 50,000
+# (its photons ~107 events each: all are emitted in the first ~1,000
+# steps). Lanes alive at the cap are killed and counted in killed_int.
+# Imaging is cut to 100,000 of its 500,000 photons, capped at 1,500 steps,
 # for the same diffusion tail.
-CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=8000,
-                  n_imaging=100_000, imaging_max_steps=3000)
+CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=4000,
+                  n_imaging=100_000, imaging_max_steps=1500)
 # BASELINE.md config 3 (class1_cyl, phase 14) as chip_smoke runs it: the
 # full 200 x 200 x 1 auto grid and every density component and source, with
-# the photons cut so that the phase stays near two minutes on the card:
-# 1 Lucy iteration of 100,000 photons capped at 3,000 steps (uncut, the
-# counts of examples/class2_sed.py: 5 iterations of 200,000) and 50,000
-# imaging photons capped at 1,500 steps (uncut: 500,000); the raytracing
+# the photons cut so that the phase stays near a minute and a half on the
+# card: 1 Lucy iteration of 100,000 photons capped at 2,500 steps (uncut,
+# the counts of examples/class2_sed.py: 5 iterations of 200,000) and
+# 50,000 imaging photons capped at 1,500 steps (uncut: 500,000; at 1,250
+# the imaging's fixed host reads, its tables' and the raytracing pass's,
+# came to 1.050 per step, over check_imaging's 1.05); the raytracing
 # photons are RAYTRACING's, uncut. Lanes alive at a cap are killed and
 # counted in killed_int.
-CLASS1_CYL_CUT = dict(n_photons=100_000, n_iterations=1, max_steps=3000,
+CLASS1_CYL_CUT = dict(n_photons=100_000, n_iterations=1, max_steps=2500,
                       n_imaging=50_000, imaging_max_steps=1500)
 # its star's and its ISRF stand-in's luminosities (Lsun)
 CLASS1_CYL_LUM = dict(star=1.0, isrf=0.1)
+# BASELINE.md config 4 (sph_octree, phase 16): 100,000 SPH particles from
+# np.random.default_rng(1234) (80% Plummer, scale radius 0.1 pc; 20% in 10
+# clumps of sigma 0.01 pc), the +-0.5 pc root cube, n_ref 32, kernel sigma
+# half the distance to the 32nd neighbour, 100 Msun of gas at dust-to-gas
+# 0.01 (tau ~ 2 through the Plummer body's centre, ~ 3 through a clump in
+# the HG stand-in dust), three point sources of 1.2e4 Lsun in all; its
+# binned SED's bins over the dust table's frequency range
+SPH_OCT = dict(n_particles=100_000, seed=1234, half_pc=0.5, n_ref=32,
+               n_neighbour=32, gas_msun=100.0, dust_to_gas=0.01,
+               luminosity_lsun=1.2e4, binned_bins=250)
+# config 4 as chip_smoke runs it: its 5 Lucy iterations of 1,000,000
+# photons and 1,000,000 imaging photons, with step caps far above what the
+# optically moderate cloud needs (a stalled walk would run into them);
+# the particles, the tree and the image sizes are not cut
+SPH_OCT_CUT = dict(n_photons=1_000_000, n_iterations=5, max_steps=20_000,
+                   n_imaging=1_000_000, imaging_max_steps=20_000)
+# BASELINE.md config 5 (orion_amr, phase 17) on one card: a BoxLib plotfile
+# of 3 levels (refinement 2), each 64^3 cells in 8 fabs of 32^3, over 0.2,
+# 0.1 and 0.05 pc cubes around the origin; gas density rho_c / (1 + (r /
+# r_c)^2) (g/cm^3, pc), dust-to-gas 0.01: tau ~ 100 from the centre
+# outwards and ~ 10 across a finest central cell in the HG stand-in dust
+ORION_AMR = dict(level_widths_pc=(0.2, 0.1, 0.05), fab_cells=32,
+                 rho_c=1e-15, r_c_pc=0.005, dust_to_gas=0.01)
+# config 5 as chip_smoke runs it: its 3 Lucy iterations, each of 131,072
+# photons in as many lanes (one emission, no refill) capped at 500 steps,
+# and 131,072 imaging photons capped at 500 steps (uncut: 1,000,000
+# photons each; fewer imaging steps would spread its fixed host reads
+# over too few for check_imaging's 1.05 per step).
+# The core is thick: on the H100 a first run of 1,000,000 photons at B =
+# 131,072 had emitted 163,842 of them after 3,000 steps (~2,400 steps a
+# photon; PERF.md), and the caps keep the whole script well inside its
+# time limit (at 2,000 and 1,000 steps phase 17 took 159 s of an 885 s
+# run). Lanes alive at a cap are killed and counted in killed_int: at
+# these caps nearly every photon (phase 17 prints the share), so config
+# 5's temperatures and SEDs are not physical; the phase drives the AMR
+# walk, MRW and the forced first interaction on the card and holds the
+# kernels to their plain versions. The levels and fabs are not cut.
+AMR_CUT = dict(n_photons=131_072, n_iterations=3, max_steps=500,
+               n_imaging=131_072, imaging_max_steps=500,
+               batch_size=131_072)
 # the JAX package's yso_thick steps per iteration at B = 4,096
 # (BENCH_r05.json, TPU v5e): a property of the algorithm and the batch
 JAX_YSO_THICK_STEPS = 55580
@@ -231,9 +306,17 @@ WALK_WINDOWS = ((0, 20), (40, 60))
 # and w^2 (9), two cylinders (10 each: b^2 - a (w^2 - ww^2), the root, two
 # roots and two divisions), two z planes (2 each), the move (6) and the
 # nudged find_cell (the landing's w and exclusion, the nudge and its w^2:
-# 17) (cylindrical-polar; each phi wall would add 12). The bound counts
-# this work, whatever the kernel does around it.
-FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120, 'cylindrical': 64}
+# 17) (cylindrical-polar; each phi wall would add 12); the box exit (three
+# differences and divisions, two minima) and the move (6), with the
+# root-box test (6 comparisons) (octree) or the cell's walls (12) and the
+# probe (2) (AMR); the locate of the cell entered comes on top: the
+# octree's descend (3 comparisons a level) and the AMR grid's indexed
+# locate (AMR_LOCATE_FLOPS_PER_LEVEL at each level), counted on the run's
+# own crossings (walk_work). The bound counts this work, whatever the
+# kernel does around it.
+FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120, 'cylindrical': 64,
+                      'octree': 20, 'amr': 28}
+AMR_LOCATE_FLOPS_PER_LEVEL = 6
 # escape_tau.cu's column mode (an XLA while_loop too, not a Pallas kernel)
 ESCAPE_COLUMN_REPLACES = 'hyperion_tpu/transport/raytrace.py:25'
 # phase 13's host time: rounds of the eager column calls, each round's
@@ -904,24 +987,47 @@ def imaging_syncs():
 
 
 @contextlib.contextmanager
-def peel_events():
-    """Count the imaging step's peel events that walk (a call of
+def peel_events(et):
+    """The imaging step's peel events that walk (a call of
     ``imaging.peel_and_bin`` with a group that does not ignore the optical
-    depth); yields a one-item list."""
+    depth) and the escape_tau launches inside each: yields a dict of the
+    events, the launches made inside them and the most inside one event.
+    The launches outside them are the forced first interaction's own walks
+    of emission rays where the emission does not peel (raytracing peels
+    scattered light only): at most one a step (:func:`check_peels`)."""
     from hyperion_tpu_torch.transport import imaging
 
-    count = [0]
+    out = dict(events=0, launches=0, most=0)
     inner = imaging.peel_and_bin
 
     def counted(walk, dt, groups, *args, **kw):
-        count[0] += any(not g.ignore_optical_depth for g in groups)
-        return inner(walk, dt, groups, *args, **kw)
+        before = et.launches
+        res = inner(walk, dt, groups, *args, **kw)
+        if any(not g.ignore_optical_depth for g in groups):
+            out['events'] += 1
+            out['launches'] += et.launches - before
+            out['most'] = max(out['most'], et.launches - before)
+        return res
 
     imaging.peel_and_bin = counted
     try:
-        yield count
+        yield out
     finally:
         imaging.peel_and_bin = inner
+
+
+def check_peels(what, peels, launches, n_steps, forced):
+    """One escape_tau launch in each peel event, and outside the events
+    (of ``launches`` in all over ``n_steps`` imaging steps) at most one a
+    step for the forced first interaction (``forced``), else none."""
+    outside = launches - peels['launches']
+    if peels['most'] > 1 or peels['launches'] != peels['events'] or \
+            outside > (n_steps if forced else 0):
+        raise AssertionError('%s imaging: escape_tau launches %d, %d of them '
+                             'in %d peel events (at most %d in one) over %d '
+                             'steps' % (what, launches, peels['launches'],
+                                        peels['events'], peels['most'],
+                                        n_steps))
 
 
 def check_imaging(what, run, n_photons, syncs, card):
@@ -986,7 +1092,7 @@ def run_slice(dv, et, card):
     dv.launches = 0
     et.launches = 0
     t0 = time.time()
-    with imaging_syncs() as syncs, peel_events() as events:
+    with imaging_syncs() as syncs, peel_events(et) as peels:
         run = run_lucy_model(m, device='cuda')
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -1031,7 +1137,7 @@ def run_slice(dv, et, card):
     n_img = run.imaging.n_steps
     img.update(band_luminosity=band, expected=expected,
                ratio=band / expected, image_sum=float(image.sum()),
-               escape_tau_launches=launches_et, peel_events=events[0],
+               escape_tau_launches=launches_et, peel_events=peels['events'],
                escape_tau_launches_per_step=launches_et / n_img)
     # one launch per peel event, and one per forced first interaction
     # (a refill: at most one per step)
@@ -1039,11 +1145,8 @@ def run_slice(dv, et, card):
           '(%.6e), image sum %.6e, escape_tau launches %d (%.3f per imaging '
           'step) for %d peel events [%s]'
           % (band, band / expected, expected, image.sum(), launches_et,
-             launches_et / n_img, events[0], card))
-    if not events[0] <= launches_et <= events[0] + n_img:
-        raise AssertionError('slice imaging: %d escape_tau launches for %d '
-                             'peel events over %d steps'
-                             % (launches_et, events[0], n_img))
+             launches_et / n_img, peels['events'], card))
+    check_peels('slice', peels, launches_et, n_img, forced=True)
     phase('slice: 4 x 500000 photons and 1000000 imaging photons in %.3f s '
           'wall (run_lucy_model), T %.1f .. %.1f K, deposit_visit launches '
           '%d over %d steps [%s]'
@@ -1416,7 +1519,7 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
     et.launches = 0
     t0 = time.time()
     with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
-            peel_events() as events:
+            peel_events(et) as peels:
         run = run_lucy_model(m, device='cuda', max_steps=max_steps,
                              imaging_max_steps=imaging_max_steps)
     torch.cuda.synchronize()
@@ -1441,18 +1544,16 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
                              % (s80, s20, launches_et))
     n_img = run.imaging.n_steps
     img.update(ratio_80_20=s80 / s20, nuLnu_max=seds.max(axis=1).tolist(),
-               escape_tau_launches=launches_et, peel_events=events[0],
+               escape_tau_launches=launches_et, peel_events=peels['events'],
                escape_tau_launches_per_step=launches_et / n_img,
-               peel_events_per_step=events[0] / n_img)
+               peel_events_per_step=peels['events'] / n_img)
     phase('class2 imaging: 80/20 degree ratio at 0.3 um %.4e, peak nu L_nu '
           'per view %s erg/s, escape_tau launches %d over %d imaging steps: '
           '%.3f per step for %.3f peel events per step [%s]'
           % (s80 / s20, ['%.4e' % v for v in seds.max(axis=1)], launches_et,
-             n_img, launches_et / n_img, events[0] / n_img, card))
+             n_img, launches_et / n_img, peels['events'] / n_img, card))
     # one launch per peel event (class2 has no forced first interaction)
-    if launches_et > events[0]:
-        raise AssertionError('class2 imaging: %d escape_tau launches for %d '
-                             'peel events' % (launches_et, events[0]))
+    check_peels('class2', peels, launches_et, n_img, forced=False)
     if not steps < launches <= 2 * steps:
         raise AssertionError('class2: deposit_visit launches %d vs %d steps'
                              % (launches, steps))
@@ -1640,7 +1741,7 @@ def check_window(kind, window, calls, tables, batch, card):
     n_dust = rt32.shape[1]
     worst64 = worst32 = 0.0
     n_lanes = n_rays = n_views = n_far = max_cross = n_cross_all = 0
-    nbytes = 0
+    nbytes = flops_extra = 0
     groups = {False: [], True: []}     # by whether a call limits the walk
     for call in calls:
         active = call[8]
@@ -1667,8 +1768,14 @@ def check_window(kind, window, calls, tables, batch, card):
                            else 0) for i in range(8)]
         t_max = torch.cat([r[1] for r in rays], dim=1) if limited else None
         ones = torch.ones_like(lanes[7], dtype=torch.bool)
+        visits = torch.zeros(rt64.shape[0], dtype=torch.int64,
+                             device=ones.device)
         ref, n_cross = et.escape_tau_reference(
-            geo64, rt64, *lanes, ones, t_max=t_max, crossings=True)
+            geo64, rt64, *lanes, ones, t_max=t_max, crossings=True,
+            visits=visits)
+        extra_bytes, extra_flops = walk_work(kind, geo64, lanes[7], visits)
+        nbytes += extra_bytes
+        flops_extra += extra_flops
         ref = ref[0]
         k64 = torch.cat([k for _, _, k, _ in group])
         k32 = torch.cat([k for _, _, _, k in group])
@@ -1681,7 +1788,7 @@ def check_window(kind, window, calls, tables, batch, card):
     # every crossing reads one density row and does the crossing's float64
     # operations (FLOPS_PER_CROSSING)
     nbytes += n_cross_all * n_dust * 4
-    flops = n_cross_all * FLOPS_PER_CROSSING[kind]
+    flops = n_cross_all * FLOPS_PER_CROSSING[kind] + flops_extra
     steps = '%d-%d' % (window[0] + 1, window[1])
     if n_lanes == 0:
         raise AssertionError('escape_tau %s: no active lane in the walks of '
@@ -1784,18 +1891,12 @@ def column_calls():
     block: yields a list that gets, per call, the kind of grid and its
     eight lane tensors and t_max (cloned)."""
     from hyperion_tpu_torch.transport import escape_tau as et
-    from hyperion_tpu_torch.transport.gtable import CartesianGeometry
-    from hyperion_tpu_torch.transport.gtable_cylindrical import \
-        CylindricalGeometry
 
     calls = []
     inner = et.EscapeTau.columns
 
     def recording(self, *args, t_max=None):
-        kind = 'cartesian' if isinstance(self.geometry, CartesianGeometry) \
-            else 'cylindrical' if isinstance(self.geometry,
-                                             CylindricalGeometry) \
-            else 'spherical'
+        kind = grid_kind(self.geometry)
         calls.append((kind, [a.clone() for a in args] +
                       [None if t_max is None else t_max.clone()]))
         return inner(self, *args, t_max=t_max)
@@ -1805,6 +1906,58 @@ def column_calls():
         yield calls
     finally:
         et.EscapeTau.columns = inner
+
+
+def grid_kind(geometry):
+    """The name of a geometry's kind of grid, as FLOPS_PER_CROSSING's."""
+    return {'CartesianGeometry': 'cartesian',
+            'SphericalGeometry': 'spherical',
+            'CylindricalGeometry': 'cylindrical',
+            'OctreeGeometry': 'octree',
+            'AMRGeometry': 'amr'}[type(geometry).__name__]
+
+
+def walk_work(kind, geo, start, visits):
+    """The work of the octree's and AMR grid's crossings beyond
+    FLOPS_PER_CROSSING, counted from what the plain walk visited
+    (``visits``, (n_cells,) crossings per cell walked through; ``start``,
+    the rays' first cells). Every crossing into a cell after the first
+    locates the point: in the octree by the descend from the root, 3
+    comparisons a level down to the leaf entered; in the AMR grid by an
+    indexed locate at each level (the offset from the level's corner over
+    its cell size on three axes, AMR_LOCATE_FLOPS_PER_LEVEL), since the
+    fabs of a level tile a box (the kernel's finest-first search tries
+    fabs one by one, its own choice, not counted). Bytes: the tables read
+    once, as far as the walks need them: the octree's nodes on the descend
+    paths to the leaves walked through (a centre and a child index, 28
+    bytes each) and those leaves' walls (48 bytes); the AMR grid's fab
+    tables (68 bytes a fab). (Counted per crossing and level, the
+    descend's reads came to more bytes than a call's measured time can
+    move at the HBM rate, PERF.md: they hit in cache.) Returns (bytes,
+    flops); (0, 0) for the other grids."""
+    import torch
+    if kind not in ('octree', 'amr'):
+        return 0, 0
+    entered = int(visits.sum()) - start.numel()
+    if kind == 'amr':
+        n_levels = int(geo.fab_level.max()) + 1
+        return (68 * geo.n_fabs,
+                AMR_LOCATE_FLOPS_PER_LEVEL * n_levels * entered)
+    n, dev = geo.n_nodes, visits.device
+    depth = torch.zeros(n, dtype=torch.int64, device=dev)
+    parent = torch.zeros(n, dtype=torch.int64, device=dev)
+    kids = geo.children[geo.refined]
+    parent[kids.reshape(-1)] = \
+        torch.nonzero(geo.refined)[:, 0].repeat_interleave(8)
+    for _ in range(geo.max_depth):
+        depth[kids.reshape(-1)] = (depth[geo.refined][:, None] + 1
+                                   ).expand_as(kids).reshape(-1)
+    levels = int((visits * depth).sum()) - int(depth[start].sum())
+    on_path = visits > 0
+    walls = int(on_path.sum())
+    for _ in range(geo.max_depth):
+        on_path[parent[on_path]] = True
+    return 28 * int(on_path.sum()) + 48 * walls, 3 * levels
 
 
 def _given_specific_energy(model, se):
@@ -2129,7 +2282,7 @@ def check_columns(what, kind, calls, tables, card):
     geo64, rt32, rt64 = tables
     walk32, walk64 = et.EscapeTau(geo64, rt32), et.EscapeTau(geo64, rt64)
     n_dust = rt32.shape[1]
-    nbytes = n_far = 0
+    nbytes = n_far = flops_extra = 0
     groups = {False: [], True: []}     # by whether a call limits the walk
     for call in calls:
         c64, active = _f64(call), call[7]
@@ -2162,8 +2315,14 @@ def check_columns(what, kind, calls, tables, card):
                            else 0) for i in range(7)]
         ones = torch.ones_like(lanes[6], dtype=torch.bool)
         t_max = torch.cat(t_max, dim=1) if limited else None
+        visits = torch.zeros(rt64.shape[0], dtype=torch.int64,
+                             device=ones.device)
         ref, n_cross = et.escape_column_reference(
-            geo64, rt64, *lanes, ones, t_max=t_max, crossings=True)
+            geo64, rt64, *lanes, ones, t_max=t_max, crossings=True,
+            visits=visits)
+        extra_bytes, extra_flops = walk_work(kind, geo64, lanes[6], visits)
+        nbytes += extra_bytes
+        flops_extra += extra_flops
         # the float32 plain version: the same widened lanes on the float32
         # density, rounded once
         ref32 = et.escape_column_reference(geo64, rt32, *lanes, ones,
@@ -2182,7 +2341,8 @@ def check_columns(what, kind, calls, tables, card):
     # every crossing reads one density row and does the crossing's float64
     # operations and a multiply-add per dust
     nbytes += n_cross_all * n_dust * 4
-    flops = n_cross_all * (FLOPS_PER_CROSSING[kind] + 2 * n_dust)
+    flops = n_cross_all * (FLOPS_PER_CROSSING[kind] + 2 * n_dust) + \
+        flops_extra
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in calls]
     ends = [torch.cuda.Event(enable_timing=True) for _ in calls]
@@ -2420,22 +2580,15 @@ def class1_cyl_phase(dv, et, card, n_photons, n_iterations, max_steps,
     """Phase 14: BASELINE config 3 (:func:`class1_cyl_model`, the full 200 x
     200 grid, CLASS1_CYL_CUT's photons) through run_lucy_model on the card:
     the Lucy iteration, the imaging iteration with MRW into its SEDs and
-    images, and the raytracing pass. Checks: no geometry kills;
-    killed_int only at the step caps; energy_current the photons emitted;
-    the ISRF's share of the source draws within 3 sigma of its share of
-    the luminosity; temperatures finite and > 0 in dusty cells; SEDs and
-    images finite and >= 0; at the shortest wavelength the 85 degree
-    view's scattered share above the 10 degree one's; at most one
-    escape_tau launch per peel event; no raytraced photon outside the grid
-    or its cell. Then each kernel against its plain version on this run's
-    own calls: deposit_visit on 80 calls of the Lucy iteration (phase 6's
-    method), escape_tau on the imaging steps of WALK_WINDOWS (phase 10's)
-    and escape_column on the raytracing calls (phase 13's). Returns
-    ({kernel: launches}, report)."""
+    images, and the raytracing pass, with :func:`box_grid_run`'s checks and
+    kernels (deposit_visit on 80 calls of the Lucy iteration, escape_tau on
+    the imaging steps of WALK_WINDOWS, escape_column on the raytracing
+    calls), and: the ISRF's share of the source draws within 3 sigma of its
+    share of the luminosity; at the shortest wavelength the 85 degree
+    view's scattered share above the 10 degree one's. Returns ({kernel:
+    launches}, report)."""
     import torch
-    from hyperion_tpu_torch.model import run_lucy_model
-    from hyperion_tpu_torch.model.run import (_density_array,
-                                              build_geometry_tables)
+    from hyperion_tpu_torch.model.run import build_geometry_tables
     from hyperion_tpu_torch.transport.gtable import ESCAPED
     from hyperion_tpu_torch.transport.stable import (EXTERN_SPH,
                                                      build_source_tables,
@@ -2446,35 +2599,11 @@ def class1_cyl_phase(dv, et, card, n_photons, n_iterations, max_steps,
     m = class1_cyl_model(n_photons=n_photons, n_iterations=n_iterations,
                          n_imaging=n_imaging)
     build_s = time.time() - t0
-    n_rows = len(m.sources)
-    dv.launches = et.launches = et.column_launches = 0
-    t0 = time.time()
-    with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
-            peel_events() as events, source_picks(n_rows, dev) as picks, \
-            deposit_calls(dv, 40, 120) as dcalls, \
-            walk_calls(WALK_WINDOWS) as wcalls, column_calls() as ccalls:
-        run = run_lucy_model(m, device='cuda', max_steps=max_steps,
-                             imaging_max_steps=imaging_max_steps)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(deposit_visit=dv.launches, escape_tau=et.launches,
-                    escape_column=et.column_launches)
-    res, img = run.result, run.imaging
-    what = 'class1_cyl'
-    rows = report_iterations(what, run.perf.rows[:len(run.iterations)],
-                             syncs, n_photons, card)
-    temp = res.temperature[0]
-    dusty = run.density0[0] > 0
-    if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
-        raise AssertionError('class1_cyl: temperatures not finite and > 0 in '
-                             'dusty cells')
-    if res.killed_int and res.n_steps < max_steps:
-        raise AssertionError('class1_cyl Lucy: killed_int %d below the cap '
-                             '(%d steps)' % (res.killed_int, res.n_steps))
-    img_row = check_imaging(what, run, n_imaging, img_syncs, card)
-    if img.killed_int and img.n_steps < imaging_max_steps:
-        raise AssertionError('class1_cyl imaging: killed_int %d below the '
-                             'cap (%d steps)' % (img.killed_int, img.n_steps))
+    with source_picks(len(m.sources), dev) as picks:
+        launches, run, out = box_grid_run(
+            'class1_cyl', 'cylindrical', dv, et, card, m, n_photons,
+            n_imaging, max_steps, imaging_max_steps)
+    img = run.imaging
     # the ISRF's share of the draws against its share of the luminosity
     lum = np.array([float(s.luminosity) for s in m.sources])
     i_isrf = next(i for i, s in enumerate(m.sources)
@@ -2488,7 +2617,6 @@ def class1_cyl_phase(dv, et, card, n_photons, n_iterations, max_steps,
     # source and dust emission, then source and dust scattering
     seds = img.peeled[0]['datasets']['seds'][0][0, :, :, 0, -1]
     scat = (seds[2] + seds[3]) / np.maximum(seds.sum(axis=0), 1e-300)
-    ray = img.raytrace
     # where the ISRF's photons start: a million emissions from the engine's
     # float32 tables (those found outside the grid escape at once, as in
     # the JAX package)
@@ -2502,42 +2630,22 @@ def class1_cyl_phase(dv, et, card, n_photons, n_iterations, max_steps,
                            new['ky'], new['kz'])
     from_isrf = st32.type_code[new['source']] == EXTERN_SPH
     isrf_outside = int((from_isrf & (cell == ESCAPED)).sum())
-    out = dict(
-        model_build_s=build_s, wall_s=wall, iterations=rows,
-        lucy_steps=res.n_steps, lucy_killed_int=res.killed_int,
-        lucy_killed_geo=res.killed_geo, imaging=img_row,
-        imaging_killed_int=img.killed_int, launches=launches,
-        peel_events=events[0],
-        escape_tau_launches_per_step=launches['escape_tau'] / img.n_steps,
-        peel_events_per_step=events[0] / img.n_steps,
+    out.update(
+        model_build_s=build_s,
         isrf_share=share, isrf_share_expected=p, isrf_share_sigma=sigma,
         isrf_picks=n_picks, isrf_outside_of_1e6=isrf_outside,
         isrf_emitted_of_1e6=int(from_isrf.sum()),
         scattered_share_shortest=scat.tolist(),
-        raytracing=dict(wall_s=ray['wall'], batches=ray['batches'],
-                        photons=ray['photons'], outside=ray['outside']),
         grid=dict(n_cells=int(np.prod(m.grid.shape)),
                   shape=list(m.grid.shape)),
-        cut=dict(n_photons=n_photons, n_iterations=n_iterations,
-                 max_steps=max_steps, n_imaging=n_imaging,
-                 imaging_max_steps=imaging_max_steps))
-    phase('class1_cyl (%d x %d x %d cells): run_lucy_model in %.3f s (model '
-          'built in %.3f s); Lucy %d steps, killed %d/%d; imaging %d steps, '
-          'killed_int %d; escape_tau %d launches for %d peel events '
-          '(%.3f per step); raytracing %d photons in %d batches, %.3f s, %d '
-          'outside; the ISRF drew %.5f of %d sources (its luminosity share '
-          '%.5f, sigma %.2e); %d of its 1,000,000-draw photons (%d) start '
-          'outside the grid; scattered share at 0.3 um per view (10, 60, 85 '
-          'degrees) %s [%s]'
-          % (*m.grid.shape[::-1], wall, build_s, res.n_steps,
-             res.killed_int, res.killed_geo, img.n_steps, img.killed_int,
-             launches['escape_tau'], events[0],
-             launches['escape_tau'] / img.n_steps, ray['photons'],
-             ray['batches'], ray['wall'], ray['outside'], share, n_picks, p,
-             sigma, isrf_outside, int(from_isrf.sum()),
-             ['%.4f' % v for v in scat], card))
-    if res.killed_geo or ray['outside'] or launches['escape_tau'] > events[0]:
-        raise AssertionError('class1_cyl: %s' % out)
+        cut=dict(out['cut'], n_iterations=n_iterations))
+    phase('class1_cyl (%d x %d x %d cells, model built in %.3f s): the ISRF '
+          'drew %.5f of %d sources (its luminosity share %.5f, sigma %.2e); '
+          '%d of its 1,000,000-draw photons (%d) start outside the grid; '
+          'scattered share at 0.3 um per view (10, 60, 85 degrees) %s [%s]'
+          % (*m.grid.shape[::-1], build_s, share, n_picks, p, sigma,
+             isrf_outside, int(from_isrf.sum()), ['%.4f' % v for v in scat],
+             card))
     if abs(share - p) > 3.0 * sigma:
         raise AssertionError('class1_cyl: the ISRF drew %.5f of the sources, '
                              'its luminosity share is %.5f (sigma %.2e)'
@@ -2546,35 +2654,6 @@ def class1_cyl_phase(dv, et, card, n_photons, n_iterations, max_steps,
         raise AssertionError('class1_cyl: scattered share at 0.3 um of the 85 '
                              'degree view %g, of the 10 degree view %g'
                              % (scat[2], scat[0]))
-    if not all(launches.values()):
-        raise AssertionError('class1_cyl: a kernel was not launched: %s'
-                             % launches)
-
-    # the kernels on this run's own calls
-    n_dust, n_cells = run.density0.shape
-    err = check_calls(dv, dcalls, n_dust, n_cells, dev, 'class1_cyl calls')
-    t = time_calls(dv, dcalls, n_dust, n_cells, dev)
-    t['lanes'] = 'class1_cyl steps'
-    phase('deposit_visit class1_cyl Lucy calls (%d, %d visits only): counts '
-          'and uids equal, max abs energy err %.3g; B=%d n_cells=%d: device '
-          '%.2f us, host %.2f us per call, plain %.4f ms, index_add_ %.4f '
-          'ms, bound %.3f us [%s]'
-          % (len(dcalls), sum(d is None for _, d, _, _ in dcalls), err,
-             t['B'], n_cells, t['device_us'], t['host_us'], t['plain_ms'],
-             t['library_ms'], t['bound_us'], card))
-    geo64 = build_geometry_tables(m.grid, dev, torch.float64)
-    rho64 = _density_array(m, geo64.length_scale, dev, torch.float64)
-    rho32 = _density_array(m, geo64.length_scale, dev, torch.float32)
-    tables = (geo64, rho32.T.contiguous(), rho64.T.contiguous())
-    walks = [check_window('cylindrical', w, wcalls[w], tables,
-                          img.batch_size, card) for w in WALK_WINDOWS]
-    kinds = {k for k, _ in ccalls}
-    if kinds != {'cylindrical'}:
-        raise AssertionError('class1_cyl columns: calls of %s' % kinds)
-    cols = check_columns('class1_cyl raytracing (phase 14)', 'cylindrical',
-                         [c for _, c in ccalls], tables, card)
-    out.update(deposit_visit=dict(max_abs_err=err, timing=t), walks=walks,
-               columns=cols)
     return launches, out
 
 
@@ -2758,6 +2837,620 @@ def cylindrical_kernels(cyl, launches):
              plan=c['plan'])]
 
 
+# ------------------------------- BASELINE configs 4 and 5: octree and AMR --
+
+def sph_particles(n=None, seed=None):
+    """Config 4's SPH particles (cm): 80% in a Plummer sphere of scale
+    radius 0.1 pc, 20% in 10 Gaussian clumps of sigma 0.01 pc whose centres
+    are drawn from N(0, 0.1 pc) per axis, from np.random.default_rng(seed);
+    those outside the +-0.5 pc root cube dropped. Returns (positions (3,
+    n_inside), the clump centres (3, 10), each kept particle's clump (-1 for
+    the Plummer body))."""
+    from hyperion_tpu_torch.util.constants import pc
+    n = SPH_OCT['n_particles'] if n is None else n
+    rng = np.random.default_rng(SPH_OCT['seed'] if seed is None else seed)
+    n_pl = int(0.8 * n)
+    r = 0.1 * pc / np.sqrt(rng.uniform(0.0, 1.0, n_pl) ** (-2.0 / 3.0) - 1.0)
+    v = rng.normal(size=(3, n_pl))
+    plummer = v / np.linalg.norm(v, axis=0) * r
+    centres = rng.normal(0.0, 0.1 * pc, (3, 10))
+    member = np.repeat(np.arange(10), (n - n_pl) // 10)
+    clumps = centres[:, member] + rng.normal(0.0, 0.01 * pc,
+                                             (3, len(member)))
+    p = np.concatenate([plummer, clumps], axis=1)
+    which = np.concatenate([np.full(n_pl, -1), member])
+    keep = (np.abs(p) <= SPH_OCT['half_pc'] * pc).all(axis=0)
+    return p[:, keep], centres, which[keep]
+
+
+def sph_octree_model(n_photons, n_iterations, n_imaging, raytracing=RAYTRACING,
+                     n_pix=128):
+    """BASELINE.md config 4 (sph_octree): an SPH cloud imported into an
+    octree, full thermal RT and raytraced images. The particles of
+    :func:`sph_particles`; each one's kernel sigma half the distance to its
+    32nd neighbour (scipy's cKDTree); 100 Msun of gas shared equally by the
+    100,000 drawn particles, dust-to-gas 0.01; the port's construct_octree
+    (n_ref 32, the exact discretization, the native library) over the +-0.5
+    pc root cube; examples/class2_sed.py's HG dust stand-in; a 1e4 Lsun,
+    20,000 K point source at the origin and two 1e3 Lsun, 10,000 K ones at
+    the centres of the two clumps that keep most particles in the cube;
+    n_iterations Lucy iterations of n_photons; n_imaging imaging photons
+    into peeled SEDs at 0, 45 and 90 degrees (120 wavelengths, 0.1 to
+    3,000 um), an n_pix x n_pix image at 45 degrees of 10 wavelengths (0.5
+    to 500 um) and a binned SED over all directions across the dust table's
+    whole frequency range, forced first interaction off (so that the binned
+    SED holds every photon's light); raytracing with ``raytracing``'s
+    photons. Returns (model, report of the import)."""
+    from scipy.spatial import cKDTree
+    from hyperion_tpu_torch import native
+    from hyperion_tpu_torch.dust import HenyeyGreensteinDust
+    from hyperion_tpu_torch.importers import construct_octree
+    from hyperion_tpu_torch.model import Model
+    from hyperion_tpu_torch.transport.gtable_octree import tree_depth
+    from hyperion_tpu_torch.util.constants import c, lsun, msun, pc
+
+    t0 = time.time()
+    p, centres, which = sph_particles()
+    d32 = cKDTree(p.T).query(p.T, k=SPH_OCT['n_neighbour'] + 1)[0][:, -1]
+    sigma = 0.5 * d32
+    dust_mass = SPH_OCT['gas_msun'] * msun * SPH_OCT['dust_to_gas'] / \
+        SPH_OCT['n_particles']
+    mass = np.full(p.shape[1], dust_mass)
+    half = SPH_OCT['half_pc'] * pc
+    t1 = time.time()
+    grid = construct_octree(0.0, 0.0, 0.0, half, half, half, *p, sigma, mass,
+                            n_ref=SPH_OCT['n_ref'], method='exact')
+    t_tree = time.time() - t1
+    refined = np.asarray(grid.refined, bool)
+    rho = np.asarray(grid['density'][0].array, float)
+    _, halves, children = grid.tree_tables()
+    volumes = 8.0 * halves.prod(axis=1)
+    nu = np.logspace(8, 17, 64)
+    dust = HenyeyGreensteinDust(nu, np.repeat(0.5, 64), np.repeat(400.0, 64),
+                                np.repeat(0.4, 64), np.repeat(0.8, 64))
+    m = Model()
+    m.set_octree_grid(0.0, 0.0, 0.0, half, half, half, refined)
+    m.add_density_grid(rho, dust)
+    s = m.add_point_source()
+    s.luminosity, s.temperature, s.position = 1e4 * lsun, 20000.0, \
+        (0.0, 0.0, 0.0)
+    heaviest = np.argsort(-np.bincount(which[which >= 0], minlength=10))[:2]
+    for i in heaviest:
+        s = m.add_point_source()
+        s.luminosity, s.temperature = 1e3 * lsun, 10000.0
+        s.position = tuple(centres[:, i])
+    sed = m.add_peeled_images(sed=True, image=False)
+    sed.set_viewing_angles([0.0, 45.0, 90.0], [0.0, 0.0, 0.0])
+    sed.set_wavelength_range(120, 0.1, 3000.0)
+    image = m.add_peeled_images(sed=False, image=True)
+    image.set_viewing_angles([45.0], [0.0])
+    image.set_image_size(n_pix, n_pix)
+    image.set_image_limits(-half, half, -half, half)
+    image.set_wavelength_range(10, 0.5, 500.0)
+    binned = m.add_binned_images(sed=True, image=False)
+    binned.set_viewing_bins(1, 1)
+    # the dust table's whole frequency range (micron)
+    binned.set_wavelength_range(SPH_OCT['binned_bins'], c / nu[-1] * 1e4,
+                                c / nu[0] * 1e4)
+    # every imaging photon escapes at its full weight, into the binned SED
+    # (a forced first interaction would keep the light that escapes
+    # without interacting out of it, as in phase 5's binned check)
+    m.set_forced_first_interaction(False)
+    m.set_n_initial_iterations(n_iterations)
+    m.set_raytracing(raytracing is not None)
+    m.set_n_photons(initial=n_photons, imaging=n_imaging,
+                    **(raytracing or {}))
+    m.set_seed(20261017)
+    info = dict(particles_inside=int(p.shape[1]), nodes=int(len(refined)),
+                leaves=int((~refined).sum()),
+                depth=tree_depth(children, refined),
+                smallest_half_width_of_root=float(halves[:, 0].min() /
+                                                  halves[0, 0]),
+                tree_s=t_tree, import_s=time.time() - t0,
+                native=native.available(),
+                particle_dust_mass=float(dust_mass * p.shape[1]),
+                grid_dust_mass=float((rho * volumes)[~refined].sum()))
+    return m, info
+
+
+def write_plotfile(dirname, levels, quantities, stars=()):
+    """Write a BoxLib plotfile: levels = [[(bounds, shape), ...]],
+    quantities = {name: [[array per fab per level]]}, shape (nz, ny, nx);
+    stars (m, x, y, z, r, mdot). A copy of the writer of
+    tests/test_orion_importer.py:13-84."""
+    import os
+    os.makedirs(dirname)
+    names = list(quantities)
+    n_levels = len(levels)
+    with open(os.path.join(dirname, 'Header'), 'w') as f:
+        f.write("HyperCLaw-V1.1\n")
+        f.write("%d\n" % len(names))
+        for q in names:
+            f.write(q + "\n")
+        f.write("3\n")                       # ndim
+        f.write("0.0\n")                     # time
+        f.write("%d\n" % (n_levels - 1))     # finest level
+        f.write("0.0 0.0 0.0\n")
+        f.write("1.0 1.0 1.0\n")
+        f.write(" ".join(["2"] * max(n_levels - 1, 1)) + "\n")
+        f.write(" ".join("((0,0,0) (7,7,7) (0,0,0))"
+                         for _ in range(n_levels)) + "\n")
+        f.write(" ".join(["10"] * n_levels) + "\n")
+        for _ in range(n_levels):
+            f.write("0.125 0.125 0.125\n")
+        f.write("0\n")                       # coordtype
+        f.write("0\n")                       # dummy
+        for ilev, fabs in enumerate(levels):
+            f.write("%d %d 0.0\n" % (ilev, len(fabs)))
+            f.write("10\n")
+            for (bounds, shape) in fabs:
+                f.write("%r %r\n" % (bounds[0], bounds[1]))
+                f.write("%r %r\n" % (bounds[2], bounds[3]))
+                f.write("%r %r\n" % (bounds[4], bounds[5]))
+            f.write("Level_%d/Cell\n" % ilev)
+            _write_multifab(dirname, ilev, fabs, names,
+                            [quantities[q][ilev] for q in names])
+    with open(os.path.join(dirname, 'StarParticles'), 'w') as f:
+        f.write("%d\n" % len(stars))
+        for (m, x, y, z, r, mdot) in stars:
+            row = [m, x, y, z] + [0.0] * 7 + [r, 0.0, 0.0, mdot, 1.0]
+            f.write(" ".join("%r" % v for v in row) + "\n")
+
+
+def _write_multifab(dirname, ilev, fabs, names, arrays_per_name):
+    import os
+    lev_dir = os.path.join(dirname, 'Level_%d' % ilev)
+    os.makedirs(lev_dir, exist_ok=True)
+    offsets = []
+    data_name = 'Cell_D_00000'
+    with open(os.path.join(lev_dir, data_name), 'wb') as fd:
+        for i, (bounds, shape) in enumerate(fabs):
+            nz, ny, nx = shape
+            offsets.append(fd.tell())
+            box = "((0,0,0) (%d,%d,%d) (0,0,0))" % (nx - 1, ny - 1, nz - 1)
+            fd.write(("FAB ((8, (64 11 52 0 1 12 0 1023)),"
+                      "(8, (1 2 3 4 5 6 7 8))) %s %d\n"
+                      % (box, len(names))).encode('ascii'))
+            for arrays in arrays_per_name:
+                fd.write(np.asarray(arrays[i], '>f8').tobytes())
+    with open(os.path.join(lev_dir, 'Cell_H'), 'w') as fh:
+        fh.write("1\n1\n%d\n0\n" % len(names))
+        fh.write("(%d 0\n" % len(fabs))
+        for (bounds, shape) in fabs:
+            nz, ny, nx = shape
+            fh.write("((0,0,0) (%d,%d,%d) (0,0,0))\n"
+                     % (nx - 1, ny - 1, nz - 1))
+        fh.write(")\n")
+        fh.write("%d\n" % len(fabs))
+        for off in offsets:
+            fh.write("FabOnDisk: %s %d\n" % (data_name, off))
+
+
+def orion_levels():
+    """Config 5's levels: 3, refinement 2, each 64^3 cells in 8 fabs of
+    32^3 (its octants): level 0 over a 0.2 pc cube, level 1 over the central
+    0.1 pc, level 2 over the central 0.05 pc, around the origin; and the
+    gas density rho_c / (1 + (r / r_c)^2) at each fab's cell centres.
+    Returns ([[(bounds (cm), (nz, ny, nx))]], [[density]])."""
+    from hyperion_tpu_torch.util.constants import pc
+    levels, dens = [], []
+    for width in ORION_AMR['level_widths_pc']:
+        half = 0.5 * width * pc
+        fabs, rho = [], []
+        for oz in (0, 1):
+            for oy in (0, 1):
+                for ox in (0, 1):
+                    lo = [-half + o * half for o in (ox, oy, oz)]
+                    b = (lo[0], lo[0] + half, lo[1], lo[1] + half, lo[2],
+                         lo[2] + half)
+                    n = ORION_AMR['fab_cells']
+                    fabs.append((b, (n, n, n)))
+                    c = [lo[a] + (np.arange(n) + 0.5) * half / n
+                         for a in range(3)]
+                    z, y, x = np.meshgrid(c[2], c[1], c[0], indexing='ij')
+                    r2 = x ** 2 + y ** 2 + z ** 2
+                    r_c = ORION_AMR['r_c_pc'] * pc
+                    rho.append(ORION_AMR['rho_c'] / (1.0 + r2 / r_c ** 2))
+        levels.append(fabs)
+        dens.append(rho)
+    return levels, dens
+
+
+def orion_amr_model(n_photons, n_iterations, n_imaging, raytracing=RAYTRACING,
+                    n_pix=128):
+    """BASELINE.md config 5 (orion_amr) on one card: an AMR grid from a
+    hydro snapshot. A BoxLib plotfile of :func:`orion_levels`'s density and
+    one StarParticles sink at the centre, written by :func:`write_plotfile`
+    and read back by the port's parse_orion; dust-to-gas 0.01 in
+    examples/class2_sed.py's HG dust stand-in; a 10 Lsun, 4,000 K point
+    source at the sink; MRW with gamma 2; n_iterations Lucy iterations of
+    n_photons; forced first interaction in imaging; n_imaging photons into
+    peeled SEDs at 10, 45 and 80 degrees (120 wavelengths, 0.1 to 3,000 um)
+    and an n_pix x n_pix image at 45 degrees (10 wavelengths, 0.5 to 500
+    um); raytracing with ``raytracing``'s photons. Returns (model, report
+    of the import)."""
+    import shutil
+    from hyperion_tpu_torch.dust import HenyeyGreensteinDust
+    from hyperion_tpu_torch.importers import parse_orion
+    from hyperion_tpu_torch.model import Model
+    from hyperion_tpu_torch.util.constants import lsun, msun, pc
+
+    t0 = time.time()
+    levels, dens = orion_levels()
+    path = OUT / 'orion_amr_plt'
+    shutil.rmtree(path, ignore_errors=True)
+    write_plotfile(str(path), levels, {'density': dens},
+                   stars=[(20.0 * msun, 0.0, 0.0, 0.0, 7e10, 1e-6)])
+    t1 = time.time()
+    amr, stars = parse_orion(str(path), quantities='density')
+    t_parse = time.time() - t1
+    # what was read against what was written
+    if len(amr.levels) != len(levels) or len(stars) != 1 or \
+            (stars[0].x, stars[0].y, stars[0].z) != (0.0, 0.0, 0.0):
+        raise AssertionError('orion_amr: parse_orion read %d levels and %s'
+                             % (len(amr.levels), stars))
+    for level, fabs, rho in zip(amr.levels, levels, dens):
+        if len(level.grids) != len(fabs):
+            raise AssertionError('orion_amr: a level of %d fabs read as %d'
+                                 % (len(fabs), len(level.grids)))
+        for g, (b, shape), r in zip(level.grids, fabs, rho):
+            got = (g.xmin, g.xmax, g.ymin, g.ymax, g.zmin, g.zmax)
+            if got != b or (g.nz, g.ny, g.nx) != shape or \
+                    not np.array_equal(g.quantities['density'], r):
+                raise AssertionError('orion_amr: a fab read as %s %s'
+                                     % (got, (g.nz, g.ny, g.nx)))
+            g.quantities['density'] = g.quantities['density'] * \
+                ORION_AMR['dust_to_gas']
+    nu = np.logspace(8, 17, 64)
+    dust = HenyeyGreensteinDust(nu, np.repeat(0.5, 64), np.repeat(400.0, 64),
+                                np.repeat(0.4, 64), np.repeat(0.8, 64))
+    m = Model()
+    m.set_amr_grid(amr)
+    m.add_density_grid(amr['density'], dust)
+    s = m.add_point_source()
+    s.luminosity, s.temperature = 10.0 * lsun, 4000.0
+    s.position = (stars[0].x, stars[0].y, stars[0].z)
+    sed = m.add_peeled_images(sed=True, image=False)
+    sed.set_viewing_angles([10.0, 45.0, 80.0], [0.0, 0.0, 0.0])
+    sed.set_wavelength_range(120, 0.1, 3000.0)
+    half = 0.5 * ORION_AMR['level_widths_pc'][0] * pc
+    image = m.add_peeled_images(sed=False, image=True)
+    image.set_viewing_angles([45.0], [0.0])
+    image.set_image_size(n_pix, n_pix)
+    image.set_image_limits(-half, half, -half, half)
+    image.set_wavelength_range(10, 0.5, 500.0)
+    m.set_mrw(True, gamma=2.0)
+    m.set_forced_first_interaction(True)
+    m.set_n_initial_iterations(n_iterations)
+    m.set_raytracing(raytracing is not None)
+    m.set_n_photons(initial=n_photons, imaging=n_imaging,
+                    **(raytracing or {}))
+    m.set_seed(20261017)
+    info = dict(levels=len(amr.levels),
+                fabs=sum(len(level.grids) for level in amr.levels),
+                cells=int(amr.n_cells), write_s=t1 - t0, parse_s=t_parse)
+    return m, info
+
+
+@contextlib.contextmanager
+def mrw_jumps():
+    """Count the Lucy steps' MRW jumps (``engine.mrw_jump_update``'s
+    lanes); yields a list that gets one device count per step."""
+    from hyperion_tpu_torch.transport import engine
+
+    counts = []
+    inner = engine.mrw_jump_update
+
+    def counted(dt, mrw, u, mrw_now, *args):
+        counts.append(mrw_now.sum())
+        return inner(dt, mrw, u, mrw_now, *args)
+
+    engine.mrw_jump_update = counted
+    try:
+        yield counts
+    finally:
+        engine.mrw_jump_update = inner
+
+
+@contextlib.contextmanager
+def forced_weights():
+    """Check the forced first interaction's energy factors
+    (``imaging.sample_first_interaction``'s second result) on the device;
+    yields a list that gets, per call, whether all of them are finite and
+    > 0."""
+    import torch
+    from hyperion_tpu_torch.transport import imaging
+
+    seen = []
+    inner = imaging.sample_first_interaction
+
+    def recorded(*args, **kw):
+        tau, w = inner(*args, **kw)
+        seen.append((torch.isfinite(w) & (w > 0)).all())
+        return tau, w
+
+    imaging.sample_first_interaction = recorded
+    try:
+        yield seen
+    finally:
+        imaging.sample_first_interaction = inner
+
+
+def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
+                 max_steps, imaging_max_steps, mrw=False, batch_size=None):
+    """Run a config on the card through run_lucy_model with the recorders
+    of phases 6, 10 and 13 and the launch counts reset just before; the
+    shared checks: killed_geo 0 in every iteration, energy_current the
+    photons emitted, temperatures finite and > 0 in dusty cells, killed_int
+    only at the step caps (the share killed there reported), the SEDs and
+    images finite and >= 0, one escape_tau launch in each peel event
+    (:func:`check_peels`), no raytraced photon outside the grid or its
+    cell, each kernel launched; then each kernel against its plain version
+    on this run's own calls. Returns ({kernel: launches}, run, report)."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.model.run import (_density_array,
+                                              build_geometry_tables)
+
+    dev = torch.device('cuda')
+    dv.launches = et.launches = et.column_launches = 0
+    t0 = time.time()
+    with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
+            peel_events(et) as peels, \
+            deposit_calls(dv, 40, 120) as dcalls, \
+            walk_calls(WALK_WINDOWS) as wcalls, column_calls() as ccalls, \
+            mrw_jumps() as jumps:
+        run = run_lucy_model(model, device='cuda', batch_size=batch_size,
+                             max_steps=max_steps,
+                             imaging_max_steps=imaging_max_steps)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(deposit_visit=dv.launches, escape_tau=et.launches,
+                    escape_column=et.column_launches)
+    res, img, ray = run.result, run.imaging, run.imaging.raytrace
+    rows = report_iterations(what, run.perf.rows[:len(run.iterations)],
+                             syncs, n_photons, card)
+    temp = res.temperature[0]
+    dusty = run.density0[0] > 0
+    if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
+        raise AssertionError('%s: temperatures not finite and > 0 in dusty '
+                             'cells' % what)
+    capped = [r for r in rows if r['killed_int'] and r['steps'] < max_steps]
+    if capped:
+        raise AssertionError('%s Lucy: killed_int below the cap: %s'
+                             % (what, capped))
+    img_row = check_imaging(what, run, n_imaging, img_syncs, card)
+    if img.killed_int and img.n_steps < imaging_max_steps:
+        raise AssertionError('%s imaging: killed_int %d below the cap (%d '
+                             'steps)' % (what, img.killed_int, img.n_steps))
+    n_jumps = int(sum(int(j) for j in jumps))
+    # the share of the photons killed at the step caps: Lucy's over all
+    # its iterations
+    lucy_killed = sum(r['killed_int'] for r in rows) / (n_photons * len(rows))
+    img_killed = img.killed_int / n_imaging
+    out = dict(wall_s=wall, iterations=rows, lucy_steps=res.n_steps,
+               lucy_killed_int=res.killed_int,
+               lucy_killed_geo=res.killed_geo, imaging=img_row,
+               imaging_killed_int=img.killed_int,
+               lucy_killed_int_share=lucy_killed,
+               imaging_killed_int_share=img_killed, launches=launches,
+               peel_events=peels['events'],
+               escape_tau_launches_in_peels=peels['launches'],
+               escape_tau_launches_per_peel_max=peels['most'],
+               mrw_jumps=n_jumps,
+               escape_tau_launches_per_step=launches['escape_tau'] /
+               img.n_steps, peel_events_per_step=peels['events'] /
+               img.n_steps,
+               raytracing=dict(wall_s=ray['wall'], batches=ray['batches'],
+                               photons=ray['photons'],
+                               outside=ray['outside']),
+               cut=dict(n_photons=n_photons, max_steps=max_steps,
+                        n_imaging=n_imaging,
+                        imaging_max_steps=imaging_max_steps))
+    phase('%s: run_lucy_model in %.3f s; Lucy %d steps, killed %d/%d; '
+          'imaging %d steps, killed_int %d; killed at the step caps: %.5f of '
+          'the Lucy photons, %.5f of the imaging photons; escape_tau %d '
+          'launches, %d of them in %d peel events (at most %d in one; the '
+          'others the forced first interaction\'s own walks), %.3f per step; '
+          'raytracing %d photons in %d batches, %.3f s, %d outside; %d MRW '
+          'jumps in the Lucy steps [%s]'
+          % (what, wall, res.n_steps, res.killed_int, res.killed_geo,
+             img.n_steps, img.killed_int, lucy_killed, img_killed,
+             launches['escape_tau'], peels['launches'], peels['events'],
+             peels['most'], launches['escape_tau'] / img.n_steps,
+             ray['photons'], ray['batches'], ray['wall'], ray['outside'],
+             n_jumps, card))
+    if res.killed_geo or ray['outside']:
+        raise AssertionError('%s: %s' % (what, out))
+    check_peels(what, peels, launches['escape_tau'], img.n_steps,
+                model.forced_first_interaction)
+    if mrw and not n_jumps:
+        raise AssertionError('%s: no MRW jump' % what)
+    if not all(launches.values()):
+        raise AssertionError('%s: a kernel was not launched: %s'
+                             % (what, launches))
+
+    # the kernels on this run's own calls
+    n_dust, n_cells = run.density0.shape
+    err = check_calls(dv, dcalls, n_dust, n_cells, dev, '%s calls' % what)
+    t = time_calls(dv, dcalls, n_dust, n_cells, dev)
+    t['lanes'] = '%s steps' % what
+    phase('deposit_visit %s Lucy calls (%d, %d visits only): counts and uids '
+          'equal, max abs energy err %.3g; B=%d n_cells=%d: device %.2f us, '
+          'host %.2f us per call, plain %.4f ms, index_add_ %.4f ms, bound '
+          '%.3f us [%s]'
+          % (what, len(dcalls), sum(d is None for _, d, _, _ in dcalls), err,
+             t['B'], n_cells, t['device_us'], t['host_us'], t['plain_ms'],
+             t['library_ms'], t['bound_us'], card))
+    geo64 = build_geometry_tables(model.grid, dev, torch.float64)
+    rho64 = _density_array(model, geo64.length_scale, dev, torch.float64)
+    rho32 = _density_array(model, geo64.length_scale, dev, torch.float32)
+    tables = (geo64, rho32.T.contiguous(), rho64.T.contiguous())
+    walks = [check_window(kind, w, wcalls[w], tables, img.batch_size, card)
+             for w in WALK_WINDOWS]
+    kinds = {k for k, _ in ccalls}
+    if kinds != {kind}:
+        raise AssertionError('%s columns: calls of %s' % (what, kinds))
+    cols = check_columns('%s raytracing' % what, kind,
+                         [c for _, c in ccalls], tables, card)
+    out.update(deposit_visit=dict(max_abs_err=err, timing=t), walks=walks,
+               columns=cols)
+    return launches, run, out
+
+
+def sph_octree_phase(dv, et, card, n_photons, n_iterations, max_steps,
+                     n_imaging, imaging_max_steps):
+    """Phase 16: BASELINE config 4 (:func:`sph_octree_model`) through
+    run_lucy_model on the card in float32 (:func:`box_grid_run`'s checks
+    and kernels), and: killed_int 0 with every Lucy iteration below its
+    step cap (a walk that stalled would run into it); no photon visit in a
+    refined node, whose specific energy is the dust table's floor; the
+    grid's dust mass at most the particles' inside
+    the cube (+1e-9 relative) and at least 95% of it (kernel mass spills
+    past the faces); the all-direction binned SED over the dust table's
+    frequency range within 3% of the sources' 1.2e4 Lsun (every photon
+    escapes); the native library built and loaded. Returns ({kernel:
+    launches}, report)."""
+    from hyperion_tpu_torch.util.constants import lsun
+
+    t0 = time.time()
+    m, info = sph_octree_model(n_photons, n_iterations, n_imaging)
+    build_s = time.time() - t0
+    phase('sph_octree: %d particles in the cube, %d nodes (%d leaves), '
+          'depth %d (smallest half-width %.6g of the root), tree and density '
+          'in %.3f s, import in %.3f s on the host (native library %s) '
+          '[%s]'
+          % (info['particles_inside'], info['nodes'], info['leaves'],
+             info['depth'], info['smallest_half_width_of_root'],
+             info['tree_s'], info['import_s'],
+             'loaded' if info['native'] else 'NOT loaded', card))
+    if not info['native']:
+        raise AssertionError('sph_octree: the native library was not built '
+                             'and loaded')
+    ratio = info['grid_dust_mass'] / info['particle_dust_mass']
+    if not 0.95 <= ratio <= 1.0 + 1e-9:
+        raise AssertionError('sph_octree: the grid holds %.6f of the '
+                             'particles\' dust mass' % ratio)
+    launches, run, out = box_grid_run(
+        'sph_octree', 'octree', dv, et, card, m, n_photons, n_imaging,
+        max_steps, imaging_max_steps)
+    res, img = run.result, run.imaging
+    if res.killed_int or any(r['steps'] >= max_steps
+                             for r in out['iterations']):
+        raise AssertionError('sph_octree Lucy: killed_int %d, steps %s (cap '
+                             '%d)' % (res.killed_int, [r['steps'] for r in
+                                                       out['iterations']],
+                                      max_steps))
+    # no photon ever sits in a refined node (cells are leaves), and their
+    # specific energy is what a cell without deposits gets: the dust
+    # table's floor (enforce_energy_range, as in the JAX package)
+    refined = np.asarray(m.grid.refined, bool)
+    se = res.specific_energy
+    visits = np.asarray(run.iterations[-1]['n_photons']).reshape(-1)
+    if visits[refined].any() or \
+            (se[:, refined] != se.min(axis=1, keepdims=True)).any():
+        raise AssertionError('sph_octree: refined nodes were visited (%d) or '
+                             'hold specific energy above the floor'
+                             % int(visits[refined].sum()))
+    # seds: (n_stokes, n_orig, n_view, n_ap, n_nu); the one direction bin,
+    # its bins even in log nu over the dust table's 1e8 to 1e17 Hz
+    val = img.binned['datasets']['seds'][0][0, 0, 0, 0, :]
+    dlognu = np.log(1e17 / 1e8) / SPH_OCT['binned_bins']
+    total = float(val.sum()) * dlognu / lsun
+    if abs(total / SPH_OCT['luminosity_lsun'] - 1.0) > 0.03:
+        raise AssertionError('sph_octree: the binned SED holds %.1f Lsun of '
+                             'the sources\' %.0f' % (total,
+                                                     SPH_OCT['luminosity_lsun']))
+    out.update(model_build_s=build_s, import_=info,
+               grid_to_particle_dust_mass=ratio, binned_lsun=total,
+               cut=dict(out['cut'], n_iterations=n_iterations))
+    phase('sph_octree: grid dust mass %.6f of the particles\' in the cube; '
+          'binned SED over all directions %.2f Lsun of the sources\' %.0f '
+          '(%.5f) [%s]'
+          % (ratio, total, SPH_OCT['luminosity_lsun'],
+             total / SPH_OCT['luminosity_lsun'], card))
+    return launches, out
+
+
+def orion_amr_phase(dv, et, card, n_photons, n_iterations, max_steps,
+                    n_imaging, imaging_max_steps, batch_size):
+    """Phase 17: BASELINE config 5 on one card (:func:`orion_amr_model`)
+    through run_lucy_model in float32 (:func:`box_grid_run`'s checks and
+    kernels; killed_int only at a stated step cap: a thick core), and:
+    parse_orion's levels, fabs and density equal to what was written (in
+    :func:`orion_amr_model`); MRW jumps counted and > 0; the forced first
+    interaction's weights finite. Returns ({kernel: launches}, report)."""
+    import torch
+
+    t0 = time.time()
+    m, info = orion_amr_model(n_photons, n_iterations, n_imaging)
+    build_s = time.time() - t0
+    phase('orion_amr: %d levels, %d fabs, %d cells written in %.3f s and '
+          'read by parse_orion in %.3f s, equal to what was written [%s]'
+          % (info['levels'], info['fabs'], info['cells'], info['write_s'],
+             info['parse_s'], card))
+    with forced_weights() as weights:
+        launches, run, out = box_grid_run(
+            'orion_amr', 'amr', dv, et, card, m, n_photons, n_imaging,
+            max_steps, imaging_max_steps, mrw=True, batch_size=batch_size)
+    finite = bool(torch.stack(weights).all()) if weights else False
+    if not finite:
+        raise AssertionError('orion_amr: forced first interaction weights '
+                             'not finite (%d calls)' % len(weights))
+    out.update(model_build_s=build_s, import_=info,
+               forced_weight_calls=len(weights),
+               cut=dict(out['cut'], n_iterations=n_iterations,
+                        batch_size=batch_size))
+    return launches, out
+
+
+def hierarchical_kernels(records, launches):
+    """The kernels line of ``--hierarchical``: each kernel on phases 16's
+    and 17's own calls (config 4's as the headline) and its launches
+    there."""
+    oct_, amr = records
+    t = oct_['deposit_visit']['timing']
+    walks = oct_['walks'] + amr['walks']
+    w, c = oct_['walks'][0], oct_['columns']
+    walk_keys = ('model', 'steps', 'calls', 'views', 'device_us',
+                 'device_us_per_view', 'host_us', 'plain_ms', 'bound_us',
+                 'bound_by', 'longest_walk')
+    col_keys = ('run', 'model', 'calls', 'views', 'B', 'device_us',
+                'host_us', 'plain_ms', 'bound_us', 'bound_by', 'longest_walk')
+    return [
+        dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
+             replaces=REPLACES,
+             launches=sum(launches['deposit_visit'].values()),
+             max_abs_err=max(r['deposit_visit']['max_abs_err']
+                             for r in records),
+             ms=t['device_us'] / 1e3, plain_ms=t['plain_ms'],
+             bound_ms=t['bound_us'] / 1e3, bound_by='bytes',
+             library_ms=t['library_ms'], device_us=t['device_us'],
+             host_us=t['host_us'], bound_us=t['bound_us'],
+             orion_amr=amr['deposit_visit']['timing']),
+        dict(name='escape_tau', route='cuda', source=ESCAPE_TAU_SOURCE,
+             replaces=ESCAPE_TAU_REPLACES,
+             launches=sum(launches['escape_tau'].values()),
+             max_abs_err=max(x['f32_vs_plain32_max_abs_err'] for x in walks),
+             ms=w['device_us'] / 1e3, plain_ms=w['plain_ms'],
+             bound_ms=w['bound_us'] / 1e3, bound_by=w['bound_by'],
+             library_ms=None,
+             f64_max_rel_err=max(x['f64_max_rel_err'] for x in walks),
+             windows=[{k: x[k] for k in walk_keys} for x in walks]),
+        dict(name='escape_column', route='cuda', source=ESCAPE_TAU_SOURCE,
+             replaces=ESCAPE_COLUMN_REPLACES,
+             launches=sum(launches['escape_column'].values()),
+             max_abs_err=max(r['columns']['f32_vs_plain32_max_abs_err']
+                             for r in records),
+             ms=c['device_us'] / 1e3, plain_ms=c['plain_ms'],
+             bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'],
+             library_ms=None,
+             f64_max_rel_err=max(r['columns']['f64_max_rel_err']
+                                 for r in records),
+             calls=[{k: r['columns'][k] for k in col_keys}
+                    for r in records])]
+
+
 def main():
     import argparse
     import torch
@@ -2771,6 +3464,9 @@ def main():
     ap.add_argument('--cylindrical', action='store_true',
                     help='run only phases 1, 2, 14 (with its part of phases '
                     '10 and 13) and 15')
+    ap.add_argument('--hierarchical', action='store_true',
+                    help='run only phases 1, 2, 16 and 17 (BASELINE configs '
+                    '4 and 5, with their parts of phases 6, 10 and 13)')
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2858,6 +3554,19 @@ def main():
         record['sources'] = run_phase(15, sources_phase, card)
         return cyl
 
+    def hierarchical_phases():
+        """Phases 16 and 17; returns their reports."""
+        out = []
+        for n, name, fn, cut in ((16, 'sph_octree', sph_octree_phase,
+                                  SPH_OCT_CUT),
+                                 (17, 'orion_amr', orion_amr_phase, AMR_CUT)):
+            got, rec = run_phase(n, fn, dv, et, card, **cut)
+            for kernel, count in got.items():
+                launches[kernel][name] = count
+            record[name] = rec
+            out.append(rec)
+        return out
+
     def column_kernel(cols):
         """The kernels line's escape_column entry: class2's calls (phase
         11, the full-width raytracing of the main path) as the headline,
@@ -2885,6 +3594,14 @@ def main():
         cyl = cylindrical_phases()
         (OUT / 'cylindrical.json').write_text(json.dumps(record, indent=1))
         kernels = cylindrical_kernels(cyl, launches)
+        print(json.dumps({'kernels': kernels}), flush=True)
+        print(result_line, flush=True)
+        return 0
+
+    if args.hierarchical:
+        boxes = hierarchical_phases()
+        (OUT / 'hierarchical.json').write_text(json.dumps(record, indent=1))
+        kernels = hierarchical_kernels(boxes, launches)
         print(json.dumps({'kernels': kernels}), flush=True)
         print(result_line, flush=True)
         return 0
@@ -2948,7 +3665,14 @@ def main():
     cyl = cylindrical_phases()
     walks = walks + cyl['walks']
     cols = cols + [cyl['columns']]
-    phase('phases 3-15 in %.1f s' % (time.time() - t_start))
+
+    # 16-17. BASELINE configs 4 (octree) and 5 (AMR), with their own calls
+    # of phases 6, 10 and 13's checks
+    boxes = hierarchical_phases()
+    for box in boxes:
+        walks = walks + box['walks']
+        cols = cols + [box['columns']]
+    phase('phases 3-17 in %.1f s' % (time.time() - t_start))
 
     record['launches'] = launches
     record['wall_s'] = time.time() - t_start
@@ -2964,8 +3688,10 @@ def main():
     kernels = [dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
                     replaces=REPLACES,
                     launches=sum(launches['deposit_visit'].values()),
-                    max_abs_err=max(max_err, yso_err,
-                                    cyl['deposit_visit']['max_abs_err']),
+                    max_abs_err=max([max_err, yso_err,
+                                     cyl['deposit_visit']['max_abs_err']] +
+                                    [b['deposit_visit']['max_abs_err']
+                                     for b in boxes]),
                     ms=t['device_us'] / 1e3,
                     plain_ms=t['plain_ms'], bound_ms=t['bound_us'] / 1e3,
                     bound_by='bytes', library_ms=t['library_ms'],
@@ -2978,7 +3704,9 @@ def main():
                     yso_plain_ms=yso_t['plain_ms'],
                     yso_library_ms=yso_t['library_ms'],
                     yso_contention=yso_hot,
-                    class1_cyl=cyl['deposit_visit']['timing']),
+                    class1_cyl=cyl['deposit_visit']['timing'],
+                    sph_octree=boxes[0]['deposit_visit']['timing'],
+                    orion_amr=boxes[1]['deposit_visit']['timing']),
                dict(name='escape_tau', route='cuda', source=ESCAPE_TAU_SOURCE,
                     replaces=ESCAPE_TAU_REPLACES,
                     launches=sum(launches['escape_tau'].values()),

@@ -13,7 +13,9 @@ import torch
 
 from .transport.dtable import DustTables
 from .transport.gtable import CartesianGeometry
+from .transport.gtable_amr import AMRGeometry
 from .transport.gtable_cylindrical import CylindricalGeometry
+from .transport.gtable_octree import OctreeGeometry, node_bounds, tree_depth
 from .transport.gtable_spherical import SphericalGeometry
 from .transport.imaging import PeelGroup
 from .transport.mrw import MRWTables
@@ -33,17 +35,48 @@ def _build(cls, fields, device, dtype):
     return cls(**kw)
 
 
+def _octree_from_numpy(fields, device, dtype):
+    """The port's OctreeGeometry from the JAX one's fields: its walls
+    ``lo`` and ``hi`` from the parents' centres and the root's ``c -+ h``
+    (:func:`node_bounds`), its depth from the tree."""
+    centers = np.asarray(fields['centers'])
+    halves = np.asarray(fields['halves'])
+    children = np.asarray(fields['children']).astype(np.int64)
+    refined = np.asarray(fields['refined'], bool)
+    lo, hi = node_bounds(centers, children, refined, centers[0] - halves[0],
+                         centers[0] + halves[0])
+
+    def f(a):
+        return torch.tensor(a, device=device, dtype=dtype)
+
+    return OctreeGeometry(
+        centers=f(centers), halves=f(halves), lo=f(lo), hi=f(hi),
+        children=torch.tensor(children, device=device),
+        refined=torch.tensor(refined, device=device),
+        volumes=f(np.asarray(fields['volumes'])),
+        max_depth=tree_depth(children, refined),
+        n_nodes=int(fields['n_nodes']),
+        length_scale=float(fields['length_scale']))
+
+
 def tables_from_numpy(dust, sources, geometry, device, dtype):
     """(DustTables, SourceTables, geometry) from dicts of numpy fields of
     the JAX DustTables, SourceTables and CartesianGeometry,
-    SphericalGeometry or CylindricalGeometry (told apart by the radial
-    walls ``rw`` and ``ww``)."""
+    SphericalGeometry, CylindricalGeometry, OctreeGeometry or AMRGeometry
+    (told apart by ``rw``, ``ww``, ``children`` and ``fab_lo``)."""
     sources = dict(sources, energy_total=float(sources['energy_total']))
-    geometry_cls = SphericalGeometry if 'rw' in geometry else \
-        CylindricalGeometry if 'ww' in geometry else CartesianGeometry
+    if 'children' in geometry:
+        geo = _octree_from_numpy(geometry, device, dtype)
+    elif 'fab_lo' in geometry:
+        geometry = dict(geometry, fab_offset=np.asarray(
+            geometry['fab_offset']).astype(np.int64))
+        geo = _build(AMRGeometry, geometry, device, dtype)
+    else:
+        geometry_cls = SphericalGeometry if 'rw' in geometry else \
+            CylindricalGeometry if 'ww' in geometry else CartesianGeometry
+        geo = _build(geometry_cls, geometry, device, dtype)
     return (_build(DustTables, dust, device, dtype),
-            _build(SourceTables, sources, device, dtype),
-            _build(geometry_cls, geometry, device, dtype))
+            _build(SourceTables, sources, device, dtype), geo)
 
 
 def mrw_tables_from_numpy(mrw, device, dtype):

@@ -1,7 +1,8 @@
 """Run a Model through the port and write its .rtout (counterpart of
 ``hyperion_tpu/model/run.py``).
 
-The slice: cartesian, spherical-polar and cylindrical-polar grids; every
+The slice: cartesian, spherical-polar, cylindrical-polar, octree and AMR
+grids; every
 source type (point sources and their collections, spherical sources with
 limb darkening, spots and the re-absorption of photons that hit them,
 luminosity maps with or without an LTE spectrum, external spheres and
@@ -30,10 +31,12 @@ import torch
 
 from ..device import engine_dtype, resolve_device
 from ..grid import (AMRGrid, CartesianGrid, CylindricalPolarGrid,
-                    SphericalPolarGrid)
+                    OctreeGrid, SphericalPolarGrid)
 from ..transport.dtable import build_dust_tables
 from ..transport.gtable import ESCAPED, build_cartesian_geometry
+from ..transport.gtable_amr import build_amr_geometry
 from ..transport.gtable_cylindrical import build_cylindrical_geometry
+from ..transport.gtable_octree import build_octree_geometry
 from ..transport.gtable_spherical import build_spherical_geometry
 from ..transport.lucy import run_lucy
 from ..transport.pda import build_pda_tables
@@ -116,17 +119,23 @@ def _check_slice(model):
                         "a %s.%s" % (type(model).__module__,
                                      type(model).__name__))
     if not isinstance(model.grid, (CartesianGrid, SphericalPolarGrid,
-                                   CylindricalPolarGrid)):
+                                   CylindricalPolarGrid, OctreeGrid,
+                                   AMRGrid)):
+        # (the Voronoi grid)
         refuse("%s" % type(model.grid).__name__, 11)
 
 
 def build_geometry_tables(grid, device, dtype):
-    """The geometry tables of a cartesian, spherical-polar or
-    cylindrical-polar grid."""
+    """The geometry tables of a cartesian, spherical-polar,
+    cylindrical-polar, octree or AMR grid."""
     if isinstance(grid, SphericalPolarGrid):
         return build_spherical_geometry(grid, device, dtype)
     if isinstance(grid, CylindricalPolarGrid):
         return build_cylindrical_geometry(grid, device, dtype)
+    if isinstance(grid, OctreeGrid):
+        return build_octree_geometry(grid, device, dtype)
+    if isinstance(grid, AMRGrid):
+        return build_amr_geometry(grid, device, dtype)
     return build_cartesian_geometry(grid, device, dtype)
 
 

@@ -14,7 +14,8 @@ one to the other.
 For each ray of an active lane, from the lane's cell: the wall ahead, tau
 += (Σ_d chi[i, d] rho[d, cell]) × the segment (limited by the distance left
 when ``t_max`` is given: an inside observer; +inf walks to the edge), the
-move (snapped onto a crossed cartesian wall), until the ray escapes, the
+move (snapped onto a crossed cartesian, octree or AMR wall), until the ray
+escapes, the
 distance is used up, or ``max_steps`` crossings. Rays of lanes that are
 not active get 0.
 
@@ -40,7 +41,9 @@ import torch
 
 from . import _build
 from .gtable import ESCAPED, CartesianGeometry
+from .gtable_amr import AMRGeometry
 from .gtable_cylindrical import CylindricalGeometry
+from .gtable_octree import OctreeGeometry
 from .gtable_spherical import SphericalGeometry
 
 # kernel launches since the last reset, of the tau walk and of the column
@@ -52,7 +55,7 @@ column_launches = 0
 # enum Arg: the grid's part (filled once, the plan by escape_tau_plan, the
 # clock by EscapeTau.block_clock), then the lanes' part (filled at every call)
 _ARGS = ('is_double', 'kind', 'w0', 'w1', 'w2', 'w3', 'w4', 'w5', 'w6', 'w7',
-         'theta_kind', 'n1', 'n2', 'n3', 'rho', 'n_dust', 'smem',
+         'ints', 'n1', 'n2', 'n3', 'aux', 'rho', 'n_dust', 'smem',
          'walls_shared', 'rho_shared', 'smem_col', 'rho_shared_col',
          'big_col', 'max_blocks', 'max_blocks_col', 'counter', 'max_steps',
          'split', 'clock', 'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'cell',
@@ -82,9 +85,11 @@ def column_split(geometry):
 
 
 def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
-          max_steps, t_max):
+          max_steps, t_max, visits):
     """One view of the plain walk, on float64 tensors: (tau, crossings);
-    with ``chi_rows`` None, (the per-dust columns (B, n_dust), crossings)."""
+    with ``chi_rows`` None, (the per-dust columns (B, n_dust), crossings).
+    Each crossing adds one to ``visits`` (n_cells,) at the cell it walks
+    through, where ``visits`` is not None."""
     limited = t_max is not None
     columns = chi_rows is None
     tau = torch.zeros((x.shape[0], rho_t.shape[1]) if columns else x.shape,
@@ -95,6 +100,8 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
     while i < max_steps and bool(active.any()):
         n_cross += active
         cell_safe = cell.clamp_min(0)
+        if visits is not None:
+            visits.index_add_(0, cell_safe, active.to(visits.dtype))
         t_wall, next_cell, ax, wall_coord = geometry.find_wall(
             cell_safe, x, y, z, kx, ky, kz)
         rho_rows = rho_t[cell_safe]
@@ -122,7 +129,7 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
 
 
 def _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
-               active, max_steps, t_max, crossings):
+               active, max_steps, t_max, crossings, visits):
     """The plain walk of every view in turn, widened to float64 (tau, or
     the columns with ``chi_rows`` None)."""
     dtype, V, B = x.dtype, kx.shape[0], x.shape[0]
@@ -134,7 +141,8 @@ def _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
         t_max = t_max.to(torch.float64)
     walks = [_walk(geometry, rho_t, chi_rows, x, y, z, kx[v], ky[v], kz[v],
                    cell, active, max_steps,
-                   None if t_max is None else t_max[v]) for v in range(V)]
+                   None if t_max is None else t_max[v], visits)
+             for v in range(V)]
     if not walks:
         shape = (0, B) if chi_rows is not None else (0, B, rho_t.shape[1])
         out = torch.empty(shape, dtype=dtype, device=x.device)
@@ -147,31 +155,33 @@ def _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
 
 def escape_tau_reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz,
                          cell, active, max_steps=100000, t_max=None,
-                         crossings=False):
+                         crossings=False, visits=None):
     """The plain PyTorch walk, the JAX loop with the port's geometry (its
     float64 tables), one view after another: ``rho_t`` (n_cells, n_dust),
     ``chi_rows`` (B, n_dust), ``x``, ``y``, ``z``, ``cell`` (B,) int64,
     ``active`` (B,) bool, ``kx``, ``ky``, ``kz`` (V, B), ``t_max`` (V, B)
     or None. Float32 inputs are widened to float64 for the walk. Returns
     tau (V, B) in the lanes' type, and with ``crossings`` also the (V, B)
-    int64 count of cells each ray walked through. Reads ``any(active)`` on
-    the host once per crossing."""
+    int64 count of cells each ray walked through. ``visits``, an int64
+    (n_cells,) tensor or None, gets one added per crossing at the cell
+    walked through. Reads ``any(active)`` on the host once per crossing."""
     return _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
-                      active, max_steps, t_max, crossings)
+                      active, max_steps, t_max, crossings, visits)
 
 
 def escape_column_reference(geometry, rho_t, x, y, z, kx, ky, kz, cell,
                             active, max_steps=100000, t_max=None,
-                            crossings=False):
+                            crossings=False, visits=None):
     """The plain PyTorch column walk, the JAX package's
     ``escape_column_walk`` (``hyperion_tpu/transport/raytrace.py:25``) with
     the port's geometry: the per-dust column density Σ rho[cell, d] × the
     segment along each ray, on the same crossings as
     :func:`escape_tau_reference` (whose arguments it takes, without chi
     rows). Returns (V, B, n_dust) in the lanes' type, and with
-    ``crossings`` also the (V, B) int64 crossing counts."""
+    ``crossings`` also the (V, B) int64 crossing counts; ``visits`` as
+    there."""
     return _reference(geometry, rho_t, None, x, y, z, kx, ky, kz, cell,
-                      active, max_steps, t_max, crossings)
+                      active, max_steps, t_max, crossings, visits)
 
 
 def _lane_error(name, t, dtype, shape, device):
@@ -188,8 +198,9 @@ class EscapeTau:
     ``t_max`` of shape (V, B) (an unlimited view in a limited call takes
     +inf).
 
-    ``geometry`` is a CartesianGeometry, SphericalGeometry or
-    CylindricalGeometry of float64 tables (``build_geometry_tables(grid, device, torch.float64)``) and
+    ``geometry`` is a CartesianGeometry, SphericalGeometry,
+    CylindricalGeometry, OctreeGeometry or AMRGeometry of float64 tables
+    (``build_geometry_tables(grid, device, torch.float64)``) and
     ``rho_t`` the (n_cells, n_dust) density the step keeps, float32 or
     float64, on one device; the lanes take the density's type. On CUDA the
     tables are checked, the kernel's plan made (shared memory, resident
@@ -217,6 +228,8 @@ class EscapeTau:
         first_wall = geometry.rw if isinstance(geometry, SphericalGeometry) \
             else geometry.xw if isinstance(geometry, CartesianGeometry) \
             else geometry.ww if isinstance(geometry, CylindricalGeometry) \
+            else geometry.lo if isinstance(geometry, OctreeGeometry) \
+            else geometry.fab_lo if isinstance(geometry, AMRGeometry) \
             else None
         if first_wall is not None and first_wall.dtype != torch.float64:
             raise ValueError("escape_tau walks in float64: give it the grid's "
@@ -237,33 +250,55 @@ class EscapeTau:
         """Check the grid's tables, keep them alive, fill the grid's part of
         the argument block and make the kernel's plan with ``lib``."""
         geometry, rho_t = self.geometry, self.rho_t
+        # the kernel's grid sizes (n1, n2, n3, aux): the octree and AMR
+        # grids' flat cell rides in i1 (n2 = n3 = 1)
+        ints, aux, t_eps, rw1 = None, 0, 0.0, 0.0
         if isinstance(geometry, SphericalGeometry):
             kind = 1
             walls = [geometry.rw, geometry.rw2, geometry.cos_tw,
                      -geometry.cos_tw, geometry.cos2_tw, geometry.sin_pw,
                      geometry.cos_pw, geometry.phi_w]
-            theta_kind = geometry.theta_kind.to(torch.int32).contiguous()
+            ints = geometry.theta_kind.to(torch.int32)
             t_eps, rw1 = float(geometry.t_eps), float(geometry.rw[1])
+            sizes = (geometry.n1, geometry.n2, geometry.n3)
         elif isinstance(geometry, CylindricalGeometry):
             # (csrc/escape_tau.cu's wall_len: w[3] and w[4] unused; the
             # exclusion's second term, eps_floor, rides in rw1's place)
             kind = 2
             walls = [geometry.ww, geometry.ww2, geometry.zw, None, None,
                      geometry.sin_pw, geometry.cos_pw, geometry.phi_w]
-            theta_kind = None
             t_eps, rw1 = float(geometry.t_eps), float(geometry.eps_floor)
+            sizes = (geometry.n1, geometry.n2, geometry.n3)
         elif isinstance(geometry, CartesianGeometry):
             kind = 0
             walls = [geometry.xw, geometry.yw, geometry.zw]
-            theta_kind, t_eps, rw1 = None, 0.0, 0.0
+            sizes = (geometry.n1, geometry.n2, geometry.n3)
+        elif isinstance(geometry, OctreeGeometry):
+            # the nodes' walls and centres, the children, the depth
+            kind = 3
+            walls = [geometry.lo, geometry.hi, geometry.centers]
+            ints = geometry.children.to(torch.int32)
+            aux, sizes = geometry.max_depth, (geometry.n_nodes, 1, 1)
+        elif isinstance(geometry, AMRGeometry):
+            # the fabs' bounds and cell sizes, the probe scale; their cell
+            # counts, offsets and the finest-first search order
+            kind = 4
+            walls = [geometry.fab_lo, geometry.fab_dx, geometry.min_dx]
+            order = torch.as_tensor(geometry.search_order(),
+                                    device=geometry.fab_n.device)
+            ints = torch.cat([geometry.fab_n.reshape(-1).to(torch.int32),
+                              geometry.fab_offset.to(torch.int32), order])
+            aux, sizes = geometry.n_fabs, (geometry.n_cells, 1, 1)
         else:
             raise NotImplementedError(
-                "escape_tau walks cartesian, spherical-polar and "
-                "cylindrical-polar grids, not %s: ROADMAP.md queue 1 item 11"
-                % type(geometry).__name__)
+                "escape_tau walks cartesian, spherical-polar, "
+                "cylindrical-polar, octree and AMR grids, not %s: ROADMAP.md "
+                "queue 1 item 11" % type(geometry).__name__)
+        if ints is not None:
+            ints = ints.contiguous()
         walls = [None if w is None else w.contiguous() for w in walls]
         walls += [None] * (8 - len(walls))
-        for w in (w for w in walls if w is not None):
+        for w in (w for w in walls + [ints] if w is not None):
             if w.device != self.device:
                 raise ValueError("escape_tau: the grid's walls are on %s, the "
                                  "density on %s" % (w.device, self.device))
@@ -276,7 +311,7 @@ class EscapeTau:
         self._counter = torch.zeros(COUNTER_WORDS, dtype=torch.int32,
                                     device=self.device)
         # keep the tables alive while the kernel may read them
-        self._tables = walls + [theta_kind]
+        self._tables = walls + [ints]
         fn, fn_col = lib.escape_tau, lib.escape_column
         if fn.argtypes is None:
             lib.escape_tau_plan.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
@@ -293,10 +328,10 @@ class EscapeTau:
                 raise RuntimeError("escape_tau: the library's %s is %d, the "
                                    "wrapper's %d" % (what, theirs, ours))
         ptrs = [0 if w is None else w.data_ptr() for w in walls]
+        n1, n2, n3 = sizes
         grid = dict(is_double=int(self.dtype == torch.float64), kind=kind,
-                    theta_kind=0 if theta_kind is None else
-                    theta_kind.data_ptr(), n1=geometry.n1, n2=geometry.n2,
-                    n3=geometry.n3, rho=rho_t.data_ptr(), n_dust=self.n_dust,
+                    ints=0 if ints is None else ints.data_ptr(), n1=n1, n2=n2,
+                    n3=n3, aux=aux, rho=rho_t.data_ptr(), n_dust=self.n_dust,
                     counter=self._counter.data_ptr(),
                     max_steps=self.max_steps, split=column_split(geometry),
                     **{'w%d' % k: p for k, p in enumerate(ptrs)})

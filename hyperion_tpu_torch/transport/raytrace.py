@@ -27,7 +27,9 @@ import numpy as np
 import torch
 
 from .gtable import ESCAPED, CartesianGeometry
+from .gtable_amr import AMRGeometry
 from .gtable_cylindrical import CylindricalGeometry
+from .gtable_octree import OctreeGeometry
 from .gtable_spherical import SphericalGeometry
 from .imaging import Provenance, origin_index
 from .stable import N_EMIT_EXTRA, emit_packets, per_row
@@ -238,7 +240,16 @@ def sample_position_in_cell(geometry, cell, u):
     """A random position inside each cell from the uniforms ``u`` (3, B)
     (ref random_position_cell): exact on cartesian cells; uniform in r^3,
     cos(theta) and phi on spherical-polar ones, and in w^2, z and phi on
-    cylindrical-polar ones."""
+    cylindrical-polar ones; uniform in an octree leaf's or an AMR cell's
+    box (the geometry's ``position_in_cell``)."""
+    if isinstance(geometry, (OctreeGeometry, AMRGeometry)):
+        return geometry.position_in_cell(cell, u)
+    if not isinstance(geometry, (CartesianGeometry, SphericalGeometry,
+                                 CylindricalGeometry)):
+        raise NotImplementedError(
+            "positions in the cells of %s are not in the port yet (the "
+            "Voronoi grid): ROADMAP.md queue 1 item 11"
+            % type(geometry).__name__)
     i1, i2, i3 = geometry.decode(cell)
     if isinstance(geometry, CartesianGeometry):
         xw, yw, zw = geometry.xw, geometry.yw, geometry.zw
@@ -256,18 +267,13 @@ def sample_position_in_cell(geometry, cell, u):
                                            geometry.phi_w[i3])
         st_ = torch.sqrt((1.0 - mu * mu).clamp_min(0.0))
         return r * st_ * torch.cos(phi), r * st_ * torch.sin(phi), r * mu
-    if isinstance(geometry, CylindricalGeometry):
-        w2_lo = geometry.ww[i1] ** 2
-        w2_hi = geometry.ww[i1 + 1] ** 2
-        w = torch.sqrt(w2_lo + u[0] * (w2_hi - w2_lo))
-        zc = geometry.zw[i2] + u[1] * (geometry.zw[i2 + 1] - geometry.zw[i2])
-        phi = geometry.phi_w[i3] + u[2] * (geometry.phi_w[i3 + 1] -
-                                           geometry.phi_w[i3])
-        return w * torch.cos(phi), w * torch.sin(phi), zc
-    raise NotImplementedError(
-        "positions in the cells of %s are not in the port yet (the octree, "
-        "AMR and Voronoi grids): ROADMAP.md queue 1 item 11"
-        % type(geometry).__name__)
+    w2_lo = geometry.ww[i1] ** 2
+    w2_hi = geometry.ww[i1 + 1] ** 2
+    w = torch.sqrt(w2_lo + u[0] * (w2_hi - w2_lo))
+    zc = geometry.zw[i2] + u[1] * (geometry.zw[i2 + 1] - geometry.zw[i2])
+    phi = geometry.phi_w[i3] + u[2] * (geometry.phi_w[i3 + 1] -
+                                       geometry.phi_w[i3])
+    return w * torch.cos(phi), w * torch.sin(phi), zc
 
 
 class RaytraceAccum:

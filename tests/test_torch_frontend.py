@@ -44,6 +44,7 @@ def frontend(package):
         CartesianGrid=grid.CartesianGrid,
         SphericalPolarGrid=grid.SphericalPolarGrid,
         CylindricalPolarGrid=grid.CylindricalPolarGrid,
+        OctreeGrid=grid.OctreeGrid, AMRGrid=grid.AMRGrid,
         PointSource=sources.PointSource,
         PointSourceCollection=sources.PointSourceCollection,
         SphericalSource=sources.SphericalSource,
@@ -177,10 +178,72 @@ def class2_model(package, n_r=24, n_t=8, n_photons=200, iterations=1,
     return m
 
 
+def octree_model(package, n_photons=2000):
+    """tests/test_octree.py's two-level octree (the root and its first
+    child refined) with dust in the leaves, a point source and a map
+    source over the nodes, and a peeled SED."""
+    F = frontend(package)
+    refined = np.array([True, True] + [False] * 15)
+    m = F.Model()
+    m.set_octree_grid(0.0, 0.0, 0.0, 10 * F.au, 10 * F.au, 10 * F.au,
+                      refined)
+    rho = np.where(refined, 0.0, np.linspace(1e-18, 3e-18, 17))
+    m.add_density_grid(rho, F.IsotropicDust(
+        np.logspace(8, 17, 10), np.repeat(0.4, 10), np.repeat(40.0, 10)))
+    s = m.add_point_source(name='star')
+    s.luminosity, s.temperature = F.lsun, 6000.0
+    s.position = (1.0 * F.au, -2.0 * F.au, 0.5 * F.au)
+    mp = m.add_map_source(name='map')
+    mp.luminosity, mp.temperature = 0.1 * F.lsun, 3000.0
+    mp.map = np.where(refined, 0.0, np.arange(17.0))
+    sed = m.add_peeled_images(sed=True, image=False)
+    sed.set_viewing_angles([30.0], [10.0])
+    sed.set_wavelength_range(8, 0.3, 1000.0)
+    m.set_n_initial_iterations(1)
+    m.set_n_photons(initial=n_photons, imaging=n_photons)
+    return m
+
+
+def amr_model(package, n_photons=2000):
+    """A two-level AMR grid (a coarse fab and two finer ones) with a
+    density per fab, a point source and a peeled SED."""
+    F = frontend(package)
+    amr = F.AMRGrid()
+    scale = 10 * F.au
+    for level, fabs in enumerate([[((-1.0, 1.0) * 3, (4, 4, 4))],
+                                  [((-0.5, 0.0, -0.5, 0.5, -0.5, 0.5),
+                                    (2, 4, 4)),
+                                   ((0.0, 0.5, -0.5, 0.5, -0.5, 0.5),
+                                    (2, 4, 4))]]):
+        lev = amr.add_level()
+        for b, n in fabs:
+            g = lev.add_grid()
+            g.xmin, g.xmax, g.ymin, g.ymax, g.zmin, g.zmax = \
+                (v * scale for v in b)
+            g.nx, g.ny, g.nz = n
+            g.quantities['density'] = np.full(n[::-1], 1e-18 * (level + 1))
+    m = F.Model()
+    m.set_amr_grid(amr)
+    m.add_density_grid(amr['density'], F.IsotropicDust(
+        np.logspace(8, 17, 10), np.repeat(0.4, 10), np.repeat(40.0, 10)))
+    s = m.add_point_source(name='star')
+    s.luminosity, s.temperature = F.lsun, 6000.0
+    s.position = (0.0, 0.0, 0.0)
+    sed = m.add_peeled_images(sed=True, image=False)
+    sed.set_viewing_angles([60.0], [0.0])
+    sed.set_wavelength_range(8, 0.3, 1000.0)
+    m.set_mrw(True, gamma=2.0)
+    m.set_n_initial_iterations(1)
+    m.set_n_photons(initial=n_photons, imaging=n_photons)
+    return m
+
+
 MODELS = {'tutorial': lambda pkg: tutorial_model(pkg, n=8, n_photons=3000,
                                                  iterations=1),
           'two_dusts_collection': two_dust_model,
-          'class2_yso': class2_model}
+          'class2_yso': class2_model,
+          'octree_with_map': octree_model,
+          'amr_two_levels': amr_model}
 
 # attributes that name the writing package or the time of writing
 _UNCOMPARED = ('python_version', 'date_started', 'date_ended')
@@ -244,6 +307,39 @@ def test_model_run_rtout_reads_alike(tmp_path):
     t = np.asarray(grids[0]['temperature'].array)
     assert t.shape == (2,) + m.grid.shape
     assert np.isfinite(t).all() and (t > 0).all()
+
+
+@pytest.mark.parametrize('make', [octree_model, amr_model],
+                         ids=['octree', 'amr'])
+def test_box_grid_models_run_and_read_alike(make, tmp_path):
+    """An octree model (with a map source) and an AMR model (with MRW) run
+    through the port's Model.run on the CPU; both packages' ModelOutput
+    read the same quantities back, in the grid's own layout (the octree's
+    flat nodes, the AMR grid's level_*/grid_* datasets), and the peeled
+    SED."""
+    m = make('port')
+    m.write(str(tmp_path / 'm.rtin'))
+    m.run(device='cpu', batch_size=1024)
+    readers = [frontend(pkg).ModelOutput(str(tmp_path / 'm.rtout'))
+               for pkg in PACKAGES]
+    grids = [r.get_quantities() for r in readers]
+    t = [g['temperature'] for g in grids]
+    if make is octree_model:
+        assert sorted(grids[0].quantities) == sorted(grids[1].quantities)
+        a, b = (np.asarray(x.array) for x in t)
+        np.testing.assert_array_equal(a, b)
+        assert a.shape == (1, 17) and (a[0, ~m.grid.refined] > 0).all()
+    else:
+        assert len(t[0].levels) == len(t[1].levels) == 2
+        for la, lb in zip(t[0].levels, t[1].levels):
+            for ga, gb in zip(la.grids, lb.grids):
+                a, b = (np.asarray(g.quantities['temperature'])
+                        for g in (ga, gb))
+                np.testing.assert_array_equal(a, b)
+                assert (a > 0).all()
+    seds = [r.get_sed(inclination=0, aperture=-1).val for r in readers]
+    np.testing.assert_array_equal(seds[0], seds[1])
+    assert np.isfinite(seds[0]).all() and (seds[0] > 0).any()
 
 
 def test_yso_model_runs_on_the_cpu(tmp_path):
@@ -342,6 +438,17 @@ def test_port_imports_neither_jax_nor_hyperion_tpu():
             hyperion_tpu_torch.__path__, 'hyperion_tpu_torch.')]
         for name in names:
             importlib.import_module(name)
+        # the JAX-free host modules: the importers and the native library
+        for sub in ('importers', 'importers.sph', 'importers.orion',
+                    'native'):
+            assert 'hyperion_tpu_torch.' + sub in names, sub
+        from hyperion_tpu_torch import native
+        from hyperion_tpu_torch.importers import construct_octree
+        rng = np.random.default_rng(0)
+        p = rng.normal(0.0, 0.3, (3, 300))
+        g = construct_octree(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, *p,
+                             np.full(300, 0.05), np.full(300, 1.0), n_ref=16)
+        assert len(g.refined) > 1 and native.available()
         from hyperion_tpu_torch.dust import IsotropicDust
         from hyperion_tpu_torch.model import Model, run_lucy_model
         m = Model()
@@ -388,6 +495,12 @@ def test_no_source_of_the_port_imports_hyperion_tpu():
     files = sorted((REPO / 'hyperion_tpu_torch').rglob('*.py')) + \
         [REPO / 'chip_smoke.py']
     assert len(files) > 40
+    # the JAX-free host modules are among them
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {'hyperion_tpu_torch/importers/sph.py',
+            'hyperion_tpu_torch/importers/orion.py',
+            'hyperion_tpu_torch/importers/__init__.py',
+            'hyperion_tpu_torch/native/__init__.py'} <= names
     for path in files:
         for name in _imports_of(path):
             assert name.split('.')[0] not in ('jax', 'hyperion_tpu'), \
