@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. the card and the software: name and power limit, torch, CUDA, nvcc;
-2. build the deposit_visit and escape_tau kernels from
+2. build the deposit_visit, escape_tau and voronoi_locate kernels from
    hyperion_tpu_torch/transport/csrc, one nvcc per source, all at once;
 3. the kernel against its plain PyTorch version, counts and uids equal and
    float32 energies within rtol 1e-4 of a float64 plain run (the kernel's
@@ -164,14 +164,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
    printed): the plotfile read back equal to what was written, no geometry
    kills, killed_int only at the step caps, MRW jumps counted and > 0,
    the forced first interaction's weights finite and > 0, and the checks
-   and kernels of phase 16.
+   and kernels of phase 16;
+18. config 4's cloud on a Voronoi mesh (voronoi_cloud_model: VORONOI_CLOUD's
+   50,000 sites drawn from config 4's particles, tessellated by the port's
+   VoronoiGrid, equal gas mass per cell, config 4's sources and outputs) at
+   VORONOI_CUT's photons (3 Lucy iterations and the imaging iteration of
+   1,000,000 each) through run_lucy_model: phase 16's checks, the volumes
+   partitioning the box and the grid's dust mass the one given, the
+   locate kernel launched on the main path and equal to its plain version
+   on every call of 40 Lucy steps and of the raytracing pass's positions,
+   its lanes at the cap, the kernels of phases 6, 10 (escape_tau kind 5)
+   and 13 on this run's own calls; then the lattice oracle of
+   tests/test_torch_voronoi.py on the card at 16^3 sites and 1,000,000
+   photons (VORONOI_LATTICE).
 
 ``--raytracing`` runs phases 1, 2, 4, 8 and 11-13 alone; ``--cylindrical``
 phases 1, 2, 14 (with its parts of phases 6, 10 and 13) and 15;
-``--hierarchical`` phases 1, 2, 16 and 17.
+``--hierarchical`` phases 1, 2, 16 and 17; ``--voronoi`` phases 1, 2 and
+18.
 
 Each kernel's launch count is reset just before and read just after each
-main-path run (phases 4, 8, 9, 11, 12, 14, 16 and 17); the kernels line
+main-path run (phases 4, 8, 9, 11, 12, 14, 16, 17 and 18); the kernels line
 sums them.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
@@ -204,18 +217,21 @@ TUTORIAL = (125000, 32768, 1)
 # tail sets their count, so phases 8, 9 and 14 run cut, to keep the whole
 # script well inside its 1,200 s on the slowest hosts seen (phases 3-17
 # took 884.6 s on one H100 machine and 1,115.5 s on another with the cuts
-# before these, PERF.md): fewer iterations first, then fewer photons (or,
-# for class2 and class1_cyl, step caps); grid, dust, densities, star and
-# MRW stay as given.
+# before these; with phase 18, phases 3-18 took 759.7 s with these cuts,
+# PERF.md): fewer iterations first, then fewer
+# photons (or, for class2 and class1_cyl, step caps); grid, dust,
+# densities, star and MRW stay as given.
 # bench.py:103-195, yso_thick: the run_lucy arguments, and the photons and
 # iterations chip_smoke runs (bench.py: 2 x 2,000,000, some 58,000 steps
 # each; 1 x 50,000 takes ~12,600, 1 x 20,000 ~8,400, at 10-16 ms a step on
-# the H100; --yso-thick-photons runs it at bench size)
+# the H100; --yso-thick-photons runs it at bench size; 5,000 photons took
+# as long as 10,000, 8,385 steps in 82.3 s: the diffusion tail sets it)
 YSO_THICK = dict(batch_size=4096, mrw_gamma=1.0, n_mrw_max=100000,
                  n_reabs_max=100, max_steps=100000)
 YSO_THICK_CUT = dict(n_photons=10_000, n_iterations=1)
 # examples/class2_sed.py as chip_smoke runs it: its 200,000 photons, 1 of
-# its 5 iterations, capped at 4,000 steps. The diffusion tail (photons deep
+# its 5 iterations, capped at 4,000 steps (41.9 s of phase 8's 70.3 s on
+# the H100). The diffusion tail (photons deep
 # in the disk's inner rim, whose innermost shells are too thin for MRW
 # jumps) is heavy: on the H100 145-155 of the 200,000 photons were still
 # alive at 8,000 steps, and the iteration's occupancy was 5% at B = 50,000
@@ -229,7 +245,9 @@ CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=4000,
 # full 200 x 200 x 1 auto grid and every density component and source, with
 # the photons cut so that the phase stays near a minute and a half on the
 # card: 1 Lucy iteration of 100,000 photons capped at 2,500 steps (uncut,
-# the counts of examples/class2_sed.py: 5 iterations of 200,000) and
+# the counts of examples/class2_sed.py: 5 iterations of 200,000; at a
+# 2,000-step cap the iteration's fixed host reads came to 1.051 per step,
+# over report_iterations' 1.05) and
 # 50,000 imaging photons capped at 1,500 steps (uncut: 500,000; at 1,250
 # the imaging's fixed host reads, its tables' and the raytracing pass's,
 # came to 1.050 per step, over check_imaging's 1.05); the raytracing
@@ -251,8 +269,8 @@ SPH_OCT = dict(n_particles=100_000, seed=1234, half_pc=0.5, n_ref=32,
                luminosity_lsun=1.2e4, binned_bins=250)
 # config 4 as chip_smoke runs it: its 5 Lucy iterations of 1,000,000
 # photons and 1,000,000 imaging photons, with step caps far above what the
-# optically moderate cloud needs (a stalled walk would run into them);
-# the particles, the tree and the image sizes are not cut
+# optically moderate cloud needs (a stalled walk would run into them); the
+# particles, the tree and the image sizes are not cut
 SPH_OCT_CUT = dict(n_photons=1_000_000, n_iterations=5, max_steps=20_000,
                    n_imaging=1_000_000, imaging_max_steps=20_000)
 # BASELINE.md config 5 (orion_amr, phase 17) on one card: a BoxLib plotfile
@@ -315,8 +333,45 @@ WALK_WINDOWS = ((0, 20), (40, 60))
 # own crossings (walk_work). The bound counts this work, whatever the
 # kernel does around it.
 FLOPS_PER_CROSSING = {'cartesian': 25, 'spherical': 120, 'cylindrical': 64,
-                      'octree': 20, 'amr': 28}
+                      'octree': 20, 'amr': 28, 'voronoi': 18}
 AMR_LOCATE_FLOPS_PER_LEVEL = 6
+# a Voronoi crossing (gtable_voronoi.py find_wall): the box exit (three
+# differences, divisions and clamps, two minima), the escape test and the
+# move (18 above); for each neighbour read, the normal (3), k . n (5) and
+# its test (1); for each neighbour whose bisector faces the ray (k . n > 0,
+# the plain walk's ``facing`` count), the midpoint (6), (m - p) . n (8),
+# the division, the clamp and the argmin's comparison (3) on top
+VORONOI_FLOPS_PER_NEIGHBOUR = 9
+VORONOI_FLOPS_PER_FACING = 17
+# the owner walk (voronoi_locate.cu): per lane the box test (6) and the
+# lattice index (3 x 3, locate only) and the start's d2 (8); per neighbour
+# read its d2 (8) and the comparison (1); per row read the move's test (1)
+LOCATE_FLOPS_PER_LANE = 8
+LOCATE_FLOPS_LATTICE = 15
+LOCATE_FLOPS_PER_NEIGHBOUR = 9
+VORONOI_LOCATE_SOURCE = 'hyperion_tpu_torch/transport/csrc/voronoi_locate.cu'
+# an XLA fori_loop with its lattice start, not a Pallas kernel
+VORONOI_LOCATE_REPLACES = 'hyperion_tpu/transport/gtable_voronoi.py:49'
+# phase 18 (voronoi_cloud): config 4's cloud meshed as a moving-mesh code
+# meshes it (Hyperion on AREPO's Voronoi cells is what Powderday runs,
+# Narayanan et al. 2021, ApJS 252, 12): VORONOI_CLOUD['n_sites'] sites
+# drawn from config 4's particles inside the +-0.5 pc cube
+# (np.random.default_rng(seed)), equal gas mass per cell, 100 Msun in all
+# at dust-to-gas 0.01 (density m / V), config 4's three point sources and
+# outputs (cloud_setup). The tessellation (scipy's Qhull on the sites and
+# their six mirror images, on the host) took 54.2-63.9 s at 50,000 sites
+# on the card's hosts (PERF.md section 4); above 90 s the phase is to drop
+# to 32,768 sites.
+VORONOI_CLOUD = dict(n_sites=50_000, seed=4321)
+# phase 18 as chip_smoke runs it: 3 Lucy iterations of 1,000,000 photons
+# and 1,000,000 imaging photons, with step caps far above what the
+# moderate cloud needs (a walk that went astray would run into them)
+VORONOI_CUT = dict(n_photons=1_000_000, n_iterations=3, max_steps=20_000,
+                   n_imaging=1_000_000, imaging_max_steps=20_000)
+# phase 18's lattice oracle (tests/test_torch_voronoi.py's, on the card):
+# a Voronoi grid on the centres of an n^3 lattice against the cartesian
+# n^3 grid, one Lucy iteration of n_photons each
+VORONOI_LATTICE = dict(n=16, n_photons=1_000_000)
 # escape_tau.cu's column mode (an XLA while_loop too, not a Pallas kernel)
 ESCAPE_COLUMN_REPLACES = 'hyperion_tpu/transport/raytrace.py:25'
 # phase 13's host time: rounds of the eager column calls, each round's
@@ -1768,12 +1823,12 @@ def check_window(kind, window, calls, tables, batch, card):
                            else 0) for i in range(8)]
         t_max = torch.cat([r[1] for r in rays], dim=1) if limited else None
         ones = torch.ones_like(lanes[7], dtype=torch.bool)
-        visits = torch.zeros(rt64.shape[0], dtype=torch.int64,
-                             device=ones.device)
+        visits, facing = walk_counters(kind, rt64.shape[0], ones.device)
         ref, n_cross = et.escape_tau_reference(
             geo64, rt64, *lanes, ones, t_max=t_max, crossings=True,
-            visits=visits)
-        extra_bytes, extra_flops = walk_work(kind, geo64, lanes[7], visits)
+            visits=visits, facing=facing)
+        extra_bytes, extra_flops = walk_work(kind, geo64, lanes[7], visits,
+                                             facing)
         nbytes += extra_bytes
         flops_extra += extra_flops
         ref = ref[0]
@@ -1914,28 +1969,50 @@ def grid_kind(geometry):
             'SphericalGeometry': 'spherical',
             'CylindricalGeometry': 'cylindrical',
             'OctreeGeometry': 'octree',
-            'AMRGeometry': 'amr'}[type(geometry).__name__]
+            'AMRGeometry': 'amr',
+            'VoronoiGeometry': 'voronoi'}[type(geometry).__name__]
 
 
-def walk_work(kind, geo, start, visits):
-    """The work of the octree's and AMR grid's crossings beyond
+def walk_counters(kind, n_cells, device):
+    """The plain walk's counters for walk_work: ``visits`` (n_cells,) and,
+    on a Voronoi grid, ``facing`` (0-d; else None)."""
+    import torch
+    visits = torch.zeros(n_cells, dtype=torch.int64, device=device)
+    facing = torch.zeros((), dtype=torch.int64, device=device) \
+        if kind == 'voronoi' else None
+    return visits, facing
+
+
+def walk_work(kind, geo, start, visits, facing=None):
+    """The work of the octree's, AMR and Voronoi grids' crossings beyond
     FLOPS_PER_CROSSING, counted from what the plain walk visited
     (``visits``, (n_cells,) crossings per cell walked through; ``start``,
-    the rays' first cells). Every crossing into a cell after the first
+    the rays' first cells; ``facing``, the neighbours facing the ray summed
+    over the Voronoi crossings). Every crossing into a cell after the first
     locates the point: in the octree by the descend from the root, 3
     comparisons a level down to the leaf entered; in the AMR grid by an
     indexed locate at each level (the offset from the level's corner over
     its cell size on three axes, AMR_LOCATE_FLOPS_PER_LEVEL), since the
     fabs of a level tile a box (the kernel's finest-first search tries
-    fabs one by one, its own choice, not counted). Bytes: the tables read
-    once, as far as the walks need them: the octree's nodes on the descend
-    paths to the leaves walked through (a centre and a child index, 28
-    bytes each) and those leaves' walls (48 bytes); the AMR grid's fab
-    tables (68 bytes a fab). (Counted per crossing and level, the
-    descend's reads came to more bytes than a call's measured time can
-    move at the HBM rate, PERF.md: they hit in cache.) Returns (bytes,
-    flops); (0, 0) for the other grids."""
+    fabs one by one, its own choice, not counted); a Voronoi crossing
+    reads the neighbours of the cell walked through, VORONOI_FLOPS_PER_
+    NEIGHBOUR each (the normal and its test), and VORONOI_FLOPS_PER_FACING
+    more for each that faces the ray (its crossing distance). Bytes: the
+    tables read once, as far as the walks need them: the octree's nodes on
+    the descend paths to the leaves walked through (a centre and a child
+    index, 28 bytes each) and those leaves' walls (48 bytes); the AMR
+    grid's fab tables (68 bytes a fab); the Voronoi rows of the cells
+    walked through up to their first -1 (4 bytes an id) and the sites of
+    those cells and of their neighbours (24 bytes each). (Counted per
+    crossing and level, the descend's reads came to more bytes than a
+    call's measured time can move at the HBM rate, PERF.md: they hit in
+    cache.) Returns (bytes, flops); (0, 0) for the other grids."""
     import torch
+    if kind == 'voronoi':
+        return voronoi_table_bytes(geo, visits, 24), \
+            VORONOI_FLOPS_PER_NEIGHBOUR * int(
+                (visits * (geo.neigh >= 0).sum(dim=1)).sum()) + \
+            VORONOI_FLOPS_PER_FACING * int(facing)
     if kind not in ('octree', 'amr'):
         return 0, 0
     entered = int(visits.sum()) - start.numel()
@@ -1958,6 +2035,20 @@ def walk_work(kind, geo, start, visits):
     for _ in range(geo.max_depth):
         on_path[parent[on_path]] = True
     return 28 * int(on_path.sum()) + 48 * walls, 3 * levels
+
+
+def voronoi_table_bytes(geo, rows_read, site_bytes):
+    """The bytes of a Voronoi grid's tables that walks reading the
+    neighbour rows of the cells where ``rows_read`` (n_cells,) > 0 touch,
+    each read once: each row up to its first -1 (4 bytes an id) and the
+    sites of those cells and their neighbours (``site_bytes`` each)."""
+    on = rows_read > 0
+    n_nb = (geo.neigh[on] >= 0).sum(dim=1)
+    ids = int((n_nb + 1).clamp_max(geo.neigh.shape[1]).sum())
+    touched = on.clone()
+    nb = geo.neigh[on]
+    touched[nb[nb >= 0].long()] = True
+    return 4 * ids + site_bytes * int(touched.sum())
 
 
 def _given_specific_energy(model, se):
@@ -2315,12 +2406,12 @@ def check_columns(what, kind, calls, tables, card):
                            else 0) for i in range(7)]
         ones = torch.ones_like(lanes[6], dtype=torch.bool)
         t_max = torch.cat(t_max, dim=1) if limited else None
-        visits = torch.zeros(rt64.shape[0], dtype=torch.int64,
-                             device=ones.device)
+        visits, facing = walk_counters(kind, rt64.shape[0], ones.device)
         ref, n_cross = et.escape_column_reference(
             geo64, rt64, *lanes, ones, t_max=t_max, crossings=True,
-            visits=visits)
-        extra_bytes, extra_flops = walk_work(kind, geo64, lanes[6], visits)
+            visits=visits, facing=facing)
+        extra_bytes, extra_flops = walk_work(kind, geo64, lanes[6], visits,
+                                             facing)
         nbytes += extra_bytes
         flops_extra += extra_flops
         # the float32 plain version: the same widened lanes on the float32
@@ -2863,53 +2954,27 @@ def sph_particles(n=None, seed=None):
     return p[:, keep], centres, which[keep]
 
 
-def sph_octree_model(n_photons, n_iterations, n_imaging, raytracing=RAYTRACING,
-                     n_pix=128):
-    """BASELINE.md config 4 (sph_octree): an SPH cloud imported into an
-    octree, full thermal RT and raytraced images. The particles of
-    :func:`sph_particles`; each one's kernel sigma half the distance to its
-    32nd neighbour (scipy's cKDTree); 100 Msun of gas shared equally by the
-    100,000 drawn particles, dust-to-gas 0.01; the port's construct_octree
-    (n_ref 32, the exact discretization, the native library) over the +-0.5
-    pc root cube; examples/class2_sed.py's HG dust stand-in; a 1e4 Lsun,
-    20,000 K point source at the origin and two 1e3 Lsun, 10,000 K ones at
-    the centres of the two clumps that keep most particles in the cube;
-    n_iterations Lucy iterations of n_photons; n_imaging imaging photons
-    into peeled SEDs at 0, 45 and 90 degrees (120 wavelengths, 0.1 to
-    3,000 um), an n_pix x n_pix image at 45 degrees of 10 wavelengths (0.5
-    to 500 um) and a binned SED over all directions across the dust table's
-    whole frequency range, forced first interaction off (so that the binned
-    SED holds every photon's light); raytracing with ``raytracing``'s
-    photons. Returns (model, report of the import)."""
-    from scipy.spatial import cKDTree
-    from hyperion_tpu_torch import native
+def cloud_setup(m, rho, centres, which, n_photons, n_iterations, n_imaging,
+                raytracing, n_pix):
+    """Config 4's dust, sources and outputs on the model ``m`` whose grid
+    (over the +-0.5 pc cube) holds the dust density ``rho``: the HG dust
+    stand-in of examples/class2_sed.py; a 1e4 Lsun, 20,000 K point source
+    at the origin and two 1e3 Lsun, 10,000 K ones at the centres of the two
+    clumps with most particles (``centres``, each particle's clump in
+    ``which``); n_iterations Lucy iterations of n_photons; n_imaging
+    imaging photons into peeled SEDs at 0, 45 and 90 degrees (120
+    wavelengths, 0.1 to 3,000 um), an n_pix x n_pix image at 45 degrees of
+    10 wavelengths (0.5 to 500 um) and a binned SED over all directions
+    across the dust table's whole frequency range, forced first
+    interaction off (so that the binned SED holds every photon's light);
+    raytracing with ``raytracing``'s photons."""
     from hyperion_tpu_torch.dust import HenyeyGreensteinDust
-    from hyperion_tpu_torch.importers import construct_octree
-    from hyperion_tpu_torch.model import Model
-    from hyperion_tpu_torch.transport.gtable_octree import tree_depth
-    from hyperion_tpu_torch.util.constants import c, lsun, msun, pc
+    from hyperion_tpu_torch.util.constants import c, lsun, pc
 
-    t0 = time.time()
-    p, centres, which = sph_particles()
-    d32 = cKDTree(p.T).query(p.T, k=SPH_OCT['n_neighbour'] + 1)[0][:, -1]
-    sigma = 0.5 * d32
-    dust_mass = SPH_OCT['gas_msun'] * msun * SPH_OCT['dust_to_gas'] / \
-        SPH_OCT['n_particles']
-    mass = np.full(p.shape[1], dust_mass)
     half = SPH_OCT['half_pc'] * pc
-    t1 = time.time()
-    grid = construct_octree(0.0, 0.0, 0.0, half, half, half, *p, sigma, mass,
-                            n_ref=SPH_OCT['n_ref'], method='exact')
-    t_tree = time.time() - t1
-    refined = np.asarray(grid.refined, bool)
-    rho = np.asarray(grid['density'][0].array, float)
-    _, halves, children = grid.tree_tables()
-    volumes = 8.0 * halves.prod(axis=1)
     nu = np.logspace(8, 17, 64)
     dust = HenyeyGreensteinDust(nu, np.repeat(0.5, 64), np.repeat(400.0, 64),
                                 np.repeat(0.4, 64), np.repeat(0.8, 64))
-    m = Model()
-    m.set_octree_grid(0.0, 0.0, 0.0, half, half, half, refined)
     m.add_density_grid(rho, dust)
     s = m.add_point_source()
     s.luminosity, s.temperature, s.position = 1e4 * lsun, 20000.0, \
@@ -2941,6 +3006,64 @@ def sph_octree_model(n_photons, n_iterations, n_imaging, raytracing=RAYTRACING,
     m.set_n_photons(initial=n_photons, imaging=n_imaging,
                     **(raytracing or {}))
     m.set_seed(20261017)
+
+
+def binned_lsun(img):
+    """The binned SED over all directions of config 4's outputs
+    (:func:`cloud_setup`) in Lsun: its bins even in log nu over the dust
+    table's 1e8 to 1e17 Hz."""
+    from hyperion_tpu_torch.util.constants import lsun
+    # seds: (n_stokes, n_orig, n_view, n_ap, n_nu); the one direction bin
+    val = img.binned['datasets']['seds'][0][0, 0, 0, 0, :]
+    dlognu = np.log(1e17 / 1e8) / SPH_OCT['binned_bins']
+    return float(val.sum()) * dlognu / lsun
+
+
+def sph_octree_model(n_photons, n_iterations, n_imaging, raytracing=RAYTRACING,
+                     n_pix=128):
+    """BASELINE.md config 4 (sph_octree): an SPH cloud imported into an
+    octree, full thermal RT and raytraced images. The particles of
+    :func:`sph_particles`; each one's kernel sigma half the distance to its
+    32nd neighbour (scipy's cKDTree); 100 Msun of gas shared equally by the
+    100,000 drawn particles, dust-to-gas 0.01; the port's construct_octree
+    (n_ref 32, the exact discretization, the native library) over the +-0.5
+    pc root cube; examples/class2_sed.py's HG dust stand-in; a 1e4 Lsun,
+    20,000 K point source at the origin and two 1e3 Lsun, 10,000 K ones at
+    the centres of the two clumps that keep most particles in the cube;
+    n_iterations Lucy iterations of n_photons; n_imaging imaging photons
+    into peeled SEDs at 0, 45 and 90 degrees (120 wavelengths, 0.1 to
+    3,000 um), an n_pix x n_pix image at 45 degrees of 10 wavelengths (0.5
+    to 500 um) and a binned SED over all directions across the dust table's
+    whole frequency range, forced first interaction off (so that the binned
+    SED holds every photon's light); raytracing with ``raytracing``'s
+    photons. Returns (model, report of the import)."""
+    from scipy.spatial import cKDTree
+    from hyperion_tpu_torch import native
+    from hyperion_tpu_torch.importers import construct_octree
+    from hyperion_tpu_torch.model import Model
+    from hyperion_tpu_torch.transport.gtable_octree import tree_depth
+    from hyperion_tpu_torch.util.constants import msun, pc
+
+    t0 = time.time()
+    p, centres, which = sph_particles()
+    d32 = cKDTree(p.T).query(p.T, k=SPH_OCT['n_neighbour'] + 1)[0][:, -1]
+    sigma = 0.5 * d32
+    dust_mass = SPH_OCT['gas_msun'] * msun * SPH_OCT['dust_to_gas'] / \
+        SPH_OCT['n_particles']
+    mass = np.full(p.shape[1], dust_mass)
+    half = SPH_OCT['half_pc'] * pc
+    t1 = time.time()
+    grid = construct_octree(0.0, 0.0, 0.0, half, half, half, *p, sigma, mass,
+                            n_ref=SPH_OCT['n_ref'], method='exact')
+    t_tree = time.time() - t1
+    refined = np.asarray(grid.refined, bool)
+    rho = np.asarray(grid['density'][0].array, float)
+    _, halves, children = grid.tree_tables()
+    volumes = 8.0 * halves.prod(axis=1)
+    m = Model()
+    m.set_octree_grid(0.0, 0.0, 0.0, half, half, half, refined)
+    cloud_setup(m, rho, centres, which, n_photons, n_iterations, n_imaging,
+                raytracing, n_pix)
     info = dict(particles_inside=int(p.shape[1]), nodes=int(len(refined)),
                 leaves=int((~refined).sum()),
                 depth=tree_depth(children, refined),
@@ -3177,7 +3300,8 @@ def forced_weights():
 
 
 def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
-                 max_steps, imaging_max_steps, mrw=False, batch_size=None):
+                 max_steps, imaging_max_steps, mrw=False, batch_size=None,
+                 more_kernels=None):
     """Run a config on the card through run_lucy_model with the recorders
     of phases 6, 10 and 13 and the launch counts reset just before; the
     shared checks: killed_geo 0 in every iteration, energy_current the
@@ -3186,13 +3310,18 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     images finite and >= 0, one escape_tau launch in each peel event
     (:func:`check_peels`), no raytraced photon outside the grid or its
     cell, each kernel launched; then each kernel against its plain version
-    on this run's own calls. Returns ({kernel: launches}, run, report)."""
+    on this run's own calls. ``more_kernels``: {name: module} of other
+    kernels whose ``launches`` count is reset and read with these. Returns
+    ({kernel: launches}, run, report)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
     from hyperion_tpu_torch.model.run import (_density_array,
                                               build_geometry_tables)
 
     dev = torch.device('cuda')
+    more_kernels = more_kernels or {}
+    for mod in more_kernels.values():
+        mod.launches = 0
     dv.launches = et.launches = et.column_launches = 0
     t0 = time.time()
     with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
@@ -3206,7 +3335,9 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(deposit_visit=dv.launches, escape_tau=et.launches,
-                    escape_column=et.column_launches)
+                    escape_column=et.column_launches,
+                    **{name: mod.launches
+                       for name, mod in more_kernels.items()})
     res, img, ray = run.result, run.imaging, run.imaging.raytrace
     rows = report_iterations(what, run.perf.rows[:len(run.iterations)],
                              syncs, n_photons, card)
@@ -3311,8 +3442,6 @@ def sph_octree_phase(dv, et, card, n_photons, n_iterations, max_steps,
     frequency range within 3% of the sources' 1.2e4 Lsun (every photon
     escapes); the native library built and loaded. Returns ({kernel:
     launches}, report)."""
-    from hyperion_tpu_torch.util.constants import lsun
-
     t0 = time.time()
     m, info = sph_octree_model(n_photons, n_iterations, n_imaging)
     build_s = time.time() - t0
@@ -3352,11 +3481,7 @@ def sph_octree_phase(dv, et, card, n_photons, n_iterations, max_steps,
         raise AssertionError('sph_octree: refined nodes were visited (%d) or '
                              'hold specific energy above the floor'
                              % int(visits[refined].sum()))
-    # seds: (n_stokes, n_orig, n_view, n_ap, n_nu); the one direction bin,
-    # its bins even in log nu over the dust table's 1e8 to 1e17 Hz
-    val = img.binned['datasets']['seds'][0][0, 0, 0, 0, :]
-    dlognu = np.log(1e17 / 1e8) / SPH_OCT['binned_bins']
-    total = float(val.sum()) * dlognu / lsun
+    total = binned_lsun(img)
     if abs(total / SPH_OCT['luminosity_lsun'] - 1.0) > 0.03:
         raise AssertionError('sph_octree: the binned SED holds %.1f Lsun of '
                              'the sources\' %.0f' % (total,
@@ -3451,6 +3576,425 @@ def hierarchical_kernels(records, launches):
                     for r in records])]
 
 
+# ------------------- phase 18: config 4's cloud on a Voronoi mesh (voronoi) --
+
+@contextlib.contextmanager
+def locate_calls(first, last):
+    """Record the locate kernel's calls (``VoronoiLocate.locate`` and
+    ``walk_from`` with their cells) made inside the block: those of Lucy
+    steps ``first`` to ``last`` (from 0) of the first Lucy iteration, and
+    those of the raytracing pass's dust batches (the positions in cells);
+    yields {'lucy': calls, 'raytracing': calls, 'locators': the
+    VoronoiLocate objects made}, each call (locator, start or None, x, y,
+    z, cells), cloned."""
+    from hyperion_tpu_torch.transport import engine, raytrace
+    from hyperion_tpu_torch.transport import voronoi_locate as vl
+
+    rec = dict(lucy=[], raytracing=[], locators=[])
+    state = dict(where=None, made=0)
+    cls = vl.VoronoiLocate
+    inner = (cls.__init__, cls.locate, cls.walk_from, engine.make_lucy_step,
+             raytrace.raytrace_dust_batch)
+
+    def init(self, geo):
+        inner[0](self, geo)
+        rec['locators'].append(self)
+
+    def keep(self, start, x, y, z, cells):
+        if state['where'] is not None:
+            rec[state['where']].append(
+                (self, None if start is None else start.clone(), x.clone(),
+                 y.clone(), z.clone(), cells.clone()))
+        return cells
+
+    def locate(self, x, y, z):
+        return keep(self, None, x, y, z, inner[1](self, x, y, z))
+
+    def walk_from(self, start, x, y, z):
+        return keep(self, start, x, y, z, inner[2](self, start, x, y, z))
+
+    def make(*args, **kw):
+        step = inner[3](*args, **kw)
+        state['made'] += 1
+        first_iteration = state['made'] == 1
+
+        def counted(carry, generator):
+            if first_iteration and first <= carry.n_steps < last:
+                state['where'] = 'lucy'
+            try:
+                step(carry, generator)
+            finally:
+                state['where'] = None
+        return counted
+
+    def dust(*args, **kw):
+        state['where'] = 'raytracing'
+        try:
+            return inner[4](*args, **kw)
+        finally:
+            state['where'] = None
+
+    cls.__init__, cls.locate, cls.walk_from = init, locate, walk_from
+    engine.make_lucy_step, raytrace.raytrace_dust_batch = make, dust
+    try:
+        yield rec
+    finally:
+        cls.__init__, cls.locate, cls.walk_from = inner[:3]
+        engine.make_lucy_step, raytrace.raytrace_dust_batch = inner[3:]
+
+
+def check_locate(what, calls, card):
+    """The locate kernel on recorded calls of the main path: the run's own
+    cells and a relaunch's equal to the plain version's on every lane;
+    the lanes at the cap by the plain version; then its times: device
+    (CUDA events, each call behind a sleep), host (eager calls before the
+    synchronise), the plain version's, and the bound (lanes read and cells
+    written once, the lattice entries, neighbour rows and sites that the
+    plain walks read, once; the walks' operations, LOCATE_FLOPS_*, in the
+    sites' type)."""
+    import torch
+    from hyperion_tpu_torch.transport import voronoi_locate as vl
+
+    if not calls:
+        raise AssertionError('voronoi_locate %s: no call recorded' % what)
+    geo = calls[0][0].geo
+    n_nb = (geo.neigh >= 0).sum(dim=1)
+    elem = geo.sites.element_size()
+    fp_rate = FP64_FLOPS if elem == 8 else FP32_FLOPS
+    n_lanes = n_ne = n_cap = rows_read = nbrs_read = nbytes = flops = 0
+    for loc, start, x, y, z, cells in calls:
+        visits = torch.zeros(geo.n_cells, dtype=torch.int64, device=x.device)
+        B = x.shape[0]
+        if start is None:
+            ref, cap = vl.locate_reference(loc.geo, x, y, z, visits=visits,
+                                           at_cap=True)
+            inside = vl.inside_box(loc.geo, x, y, z)
+            lattice = vl.lattice_index(loc.geo, x, y, z)[inside]
+            nbytes += 4 * int(torch.unique(lattice).numel())
+            flops += LOCATE_FLOPS_LATTICE * B
+        else:
+            ref, cap = vl.owner_walk_reference(
+                loc.geo.sites, loc.geo.neigh, start, x, y, z,
+                loc.geo.walk_steps, visits)
+            nbytes += 8 * B
+        again = loc.locate(x, y, z) if start is None else \
+            loc.walk_from(start, x, y, z)
+        n_ne += int((cells != ref).sum() + (again != ref).sum())
+        n_cap += int(cap.sum())
+        n_lanes += B
+        rows = int(visits.sum())
+        nbrs = int((visits * n_nb).sum())
+        rows_read += rows
+        nbrs_read += nbrs
+        flops += LOCATE_FLOPS_PER_LANE * B + rows + \
+            LOCATE_FLOPS_PER_NEIGHBOUR * nbrs
+        nbytes += (3 * elem + 8) * B + \
+            voronoi_table_bytes(geo, visits, 3 * elem)
+
+    def launch(call):
+        loc, start, x, y, z, _ = call
+        return loc.locate(x, y, z) if start is None else \
+            loc.walk_from(start, x, y, z)
+
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in calls]
+    for rep in range(2):
+        for a, b, call in zip(starts, ends, calls):
+            torch.cuda._sleep(1_000_000)
+            a.record()
+            launch(call)
+            b.record()
+        torch.cuda.synchronize()
+    device_us = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e3
+    t0 = time.perf_counter()
+    for call in calls:
+        launch(call)
+    host_us = (time.perf_counter() - t0) * 1e6 / len(calls)
+    torch.cuda.synchronize()
+    some = calls[:10]
+    t0 = time.perf_counter()
+    for loc, start, x, y, z, _ in some:
+        if start is None:
+            vl.locate_reference(loc.geo, x, y, z)
+        else:
+            vl.owner_walk_reference(loc.geo.sites, loc.geo.neigh, start, x,
+                                    y, z, loc.geo.walk_steps)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(some)
+    t_bytes = nbytes / len(calls) / HBM_BYTES_PER_S * 1e6
+    t_ops = flops / len(calls) / fp_rate * 1e6
+    out = dict(run=what, calls=len(calls), lanes=n_lanes,
+               lanes_per_call=n_lanes / len(calls), mismatched=n_ne,
+               plain_at_cap=n_cap, rows_per_lane=rows_read / n_lanes,
+               neighbours_per_lane=nbrs_read / n_lanes,
+               walk_steps=geo.walk_steps, K=int(geo.neigh.shape[1]),
+               dtype=str(geo.sites.dtype), device_us=device_us / len(calls),
+               host_us=host_us, plain_ms=plain_ms,
+               bound_us=max(t_bytes, t_ops),
+               bound_by='bytes' if t_bytes >= t_ops else 'operations',
+               bytes_per_call=nbytes / len(calls),
+               flops_per_call=flops / len(calls))
+    phase('voronoi_locate %s (%d calls, %d lanes, %s sites, walk_steps %d, '
+          'K %d): %d cells differ from the plain version (the run\'s and a '
+          'relaunch\'s); %d lanes at the cap; %.3f rows and %.2f neighbours '
+          'read a lane; device %.2f us per call, host %.2f us per call, '
+          'plain %.3f ms, bound %.3f us (%s: %.0f bytes, %.0f flops per '
+          'call) [%s]'
+          % (what, len(calls), n_lanes, out['dtype'], geo.walk_steps,
+             out['K'], n_ne, n_cap, out['rows_per_lane'],
+             out['neighbours_per_lane'], out['device_us'], host_us,
+             plain_ms, out['bound_us'], out['bound_by'],
+             out['bytes_per_call'], out['flops_per_call'], card))
+    if n_ne:
+        raise AssertionError('voronoi_locate %s: the kernel against its '
+                             'plain version: %s' % (what, out))
+    return out
+
+
+def voronoi_cloud_model(n_sites, n_photons, n_iterations, n_imaging,
+                        raytracing=RAYTRACING, n_pix=128):
+    """Phase 18's model (voronoi_cloud): ``n_sites`` sites drawn from
+    config 4's particles inside the +-0.5 pc cube
+    (VORONOI_CLOUD['seed']), tessellated by the port's VoronoiGrid, equal
+    gas mass per cell (SPH_OCT's 100 Msun in all, dust-to-gas 0.01, the
+    dust density m / V), config 4's sources and outputs (:func:`cloud_setup`).
+    Returns (model, report of the mesh)."""
+    from hyperion_tpu_torch.model import Model
+    from hyperion_tpu_torch.transport.gtable_voronoi import dense_neighbours
+    from hyperion_tpu_torch.util.constants import msun, pc
+
+    p, centres, which = sph_particles()
+    rng = np.random.default_rng(VORONOI_CLOUD['seed'])
+    pick = np.sort(rng.choice(p.shape[1], n_sites, replace=False))
+    sites, which = p[:, pick], which[pick]
+    half = SPH_OCT['half_pc'] * pc
+    m = Model()
+    m.set_voronoi_grid(*sites, xmin=-half, xmax=half, ymin=-half, ymax=half,
+                       zmin=-half, zmax=half)
+    t0 = time.time()
+    volumes = m.grid.volumes
+    t_tess = time.time() - t0
+    dust_mass = SPH_OCT['gas_msun'] * msun * SPH_OCT['dust_to_gas']
+    rho = np.where(volumes > 0, dust_mass / n_sites / np.maximum(volumes,
+                                                                 1e-300), 0)
+    cloud_setup(m, rho, centres, which, n_photons, n_iterations, n_imaging,
+                raytracing, n_pix)
+    _, counts = dense_neighbours(m.grid)
+    info = dict(sites=n_sites, tessellation_s=t_tess,
+                min_neighbours=int(counts.min()),
+                max_neighbours=int(counts.max()),
+                mean_neighbours=float(counts.mean()),
+                empty_cells=int((volumes <= 0).sum()),
+                volume_of_box=float(volumes.sum() / (2 * half) ** 3),
+                dust_mass=dust_mass,
+                grid_dust_mass=float((rho * volumes).sum()))
+    return m, info
+
+
+def voronoi_lattice_check(card, n, n_photons):
+    """tests/test_torch_voronoi.py's lattice oracle on the card: the
+    Voronoi grid on the centres of an n^3 lattice over [-1, 1]^3 (cm) has
+    the cartesian n^3 grid's cells; one Lucy iteration of n_photons on
+    each through transport.lucy.run_lucy in float32, the same gray
+    absorbing medium (tau 2.4 across) and point source: the specific
+    energies' totals within 0.02 and the 95th percentile of |log10 ratio|
+    below 0.08, nothing killed."""
+    import torch
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.grid import CartesianGrid, VoronoiGrid
+    from hyperion_tpu_torch.sources import PointSource
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+    from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
+    from hyperion_tpu_torch.transport.gtable_voronoi import \
+        build_voronoi_geometry
+    from hyperion_tpu_torch.transport.lucy import run_lucy
+    from hyperion_tpu_torch.transport.stable import build_source_tables
+
+    dev, f32 = torch.device('cuda'), torch.float32
+    walls = np.linspace(-1.0, 1.0, n + 1)
+    c = 0.5 * (walls[1:] + walls[:-1])
+    zz, yy, xx = np.meshgrid(c, c, c, indexing='ij')
+    t0 = time.time()
+    vgrid = VoronoiGrid(xx.ravel(), yy.ravel(), zz.ravel(), xmin=-1.,
+                        xmax=1., ymin=-1., ymax=1., zmin=-1., zmax=1.)
+    vgeo = build_voronoi_geometry(vgrid, dev, f32)
+    t_tess = time.time() - t0
+    dust = IsotropicDust(np.logspace(5, 18, 16), np.repeat(0.4, 16),
+                         np.repeat(1.0, 16))
+    dt = build_dust_tables([dust], dev, f32)
+    src = PointSource(luminosity=1.0, temperature=4000.0,
+                      position=(0.07, -0.03, 0.02))
+    fields, walls_s = {}, {}
+    for name, geo in (('vor', vgeo), ('car', build_cartesian_geometry(
+            CartesianGrid(walls, walls, walls), dev, f32))):
+        st = build_source_tables([src], dev, f32,
+                                 length_scale=geo.length_scale)
+        density = torch.full((1, geo.n_cells), 1.2 * geo.length_scale,
+                             dtype=f32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        t1 = time.time()
+        res = run_lucy(geo, dt, st, density, gen, n_photons=n_photons,
+                       n_iterations=1, batch_size=131_072, verbose=False)
+        walls_s[name] = time.time() - t1
+        if res.killed_geo or res.killed_int:
+            raise AssertionError('voronoi lattice %s: killed %d/%d'
+                                 % (name, res.killed_int, res.killed_geo))
+        fields[name] = np.asarray(res.specific_energy[0], float)
+    i, j, k = (np.clip(np.searchsorted(walls, q) - 1, 0, n - 1)
+               for q in (xx.ravel(), yy.ravel(), zz.ravel()))
+    vse = np.zeros(n ** 3)
+    vse[(k * n + j) * n + i] = fields['vor']
+    cse = fields['car']
+    total = float(vse.sum() / cse.sum())
+    p95 = float(np.percentile(np.abs(np.log10(vse / cse)), 95))
+    out = dict(n=n, photons=n_photons, tessellation_s=t_tess,
+               total_ratio=total, p95_abs_log10_ratio=p95,
+               lucy_s=walls_s)
+    phase('voronoi lattice oracle: %d^3 sites (tessellated in %.3f s) '
+          'against the cartesian %d^3 grid, %d photons each: total ratio '
+          '%.5f, 95th percentile of |log10 ratio| %.4f; Lucy %.3f s '
+          '(Voronoi) and %.3f s (cartesian) [%s]'
+          % (n, t_tess, n, n_photons, total, p95, walls_s['vor'],
+             walls_s['car'], card))
+    if not ((vse > 0).all() and (cse > 0).all() and abs(total - 1) < 0.02
+            and p95 < 0.08):
+        raise AssertionError('voronoi lattice oracle: %s' % out)
+    return out
+
+
+def voronoi_cloud_phase(dv, et, card, n_sites, n_photons, n_iterations,
+                        max_steps, n_imaging, imaging_max_steps):
+    """Phase 18: config 4's cloud on a Voronoi mesh
+    (:func:`voronoi_cloud_model`) through run_lucy_model on the card in
+    float32 (:func:`box_grid_run`'s checks and kernels: killed_geo 0,
+    energy_current the photons emitted, the SEDs and images finite and >=
+    0, one escape_tau launch in each peel event, no raytraced photon
+    outside its cell; deposit_visit on 80 Lucy calls, escape_tau kind 5 on
+    the walks of imaging steps 1-20 and 41-60 and escape_column on every
+    column call against their plain versions), and: killed_int 0 with
+    every Lucy iteration below its step cap; the cells' volumes partition
+    the box and the grid's dust mass, the cells' summed rho V from the
+    engine's own volumes, is the 1 Msun given; the binned SED within 3%
+    of the sources' 1.2e4 Lsun; the locate kernel launched on the main
+    path, its cells equal to the plain version's on every call of Lucy
+    steps 41-80 and of the raytracing pass's positions (:func:`check_locate`),
+    and its lanes at the cap counted; then the lattice oracle
+    (:func:`voronoi_lattice_check`). Returns ({kernel: launches},
+    report)."""
+    import torch
+    from hyperion_tpu_torch.model.run import build_geometry_tables
+    from hyperion_tpu_torch.transport import voronoi_locate as vl
+
+    t0 = time.time()
+    m, info = voronoi_cloud_model(n_sites, n_photons, n_iterations,
+                                  n_imaging)
+    build_s = time.time() - t0
+    geo = build_geometry_tables(m.grid, torch.device('cuda'), torch.float64)
+    vol = geo.volumes.cpu().numpy() * geo.length_scale ** 3
+    rho = np.asarray(m.grid['density'][0].array, float)
+    mass_ratio = float((rho * vol).sum()) / info['dust_mass']
+    phase('voronoi_cloud: %d sites tessellated in %.3f s on the host (%d to '
+          '%d neighbours, mean %.2f; %d empty cells), model in %.3f s; the '
+          'volumes sum to %.9f of the box; grid dust mass %.9f of the %.3g '
+          'g given [%s]'
+          % (n_sites, info['tessellation_s'], info['min_neighbours'],
+             info['max_neighbours'],
+             info['mean_neighbours'], info['empty_cells'], build_s,
+             info['volume_of_box'], mass_ratio, info['dust_mass'], card))
+    if abs(info['volume_of_box'] - 1) > 1e-6 or abs(mass_ratio - 1) > 1e-6 \
+            or info['empty_cells']:
+        raise AssertionError('voronoi_cloud: the mesh: %s, mass ratio %r'
+                             % (info, mass_ratio))
+    with locate_calls(40, 80) as lcalls:
+        launches, run, out = box_grid_run(
+            'voronoi_cloud', 'voronoi', dv, et, card, m, n_photons,
+            n_imaging, max_steps, imaging_max_steps,
+            more_kernels=dict(voronoi_locate=vl))
+    engine_locators = [loc for loc in lcalls['locators'] if loc._cuda and
+                       loc.dtype == torch.float32]
+    at_cap = sum(loc.lanes_at_cap() for loc in engine_locators)
+    res, img = run.result, run.imaging
+    if res.killed_int or any(r['steps'] >= max_steps
+                             for r in out['iterations']):
+        raise AssertionError('voronoi_cloud Lucy: killed_int %d, steps %s '
+                             '(cap %d)' % (res.killed_int,
+                                           [r['steps'] for r in
+                                            out['iterations']], max_steps))
+    total = binned_lsun(img)
+    phase('voronoi_cloud: binned SED over all directions %.2f Lsun of the '
+          'sources\' %.0f (%.5f); voronoi_locate %d launches on the main '
+          'path, %d lanes at the cap (walk_steps %d) [%s]'
+          % (total, SPH_OCT['luminosity_lsun'],
+             total / SPH_OCT['luminosity_lsun'], launches['voronoi_locate'],
+             at_cap, geo.walk_steps, card))
+    if abs(total / SPH_OCT['luminosity_lsun'] - 1.0) > 0.03:
+        raise AssertionError('voronoi_cloud: the binned SED holds %.1f Lsun '
+                             'of the sources\' %.0f'
+                             % (total, SPH_OCT['luminosity_lsun']))
+    locate = [check_locate('voronoi_cloud Lucy steps 41-80', lcalls['lucy'],
+                           card),
+              check_locate('voronoi_cloud raytracing positions',
+                           lcalls['raytracing'], card)]
+    lattice = voronoi_lattice_check(card, **VORONOI_LATTICE)
+    out.update(model_build_s=build_s, mesh=info,
+               grid_to_given_dust_mass=mass_ratio, binned_lsun=total,
+               locate=locate, locate_lanes_at_cap=at_cap, lattice=lattice,
+               cut=dict(out['cut'], n_iterations=n_iterations,
+                        n_sites=n_sites))
+    return launches, out
+
+
+def voronoi_kernels(vor, launches):
+    """The kernels line of ``--voronoi``: each kernel on phase 18's own
+    calls and its launches there."""
+    t = vor['deposit_visit']['timing']
+    w, c = vor['walks'][0], vor['columns']
+    return [
+        dict(name='deposit_visit', route='cuda', source=KERNEL_SOURCE,
+             replaces=REPLACES, launches=launches['deposit_visit'],
+             max_abs_err=vor['deposit_visit']['max_abs_err'],
+             ms=t['device_us'] / 1e3, plain_ms=t['plain_ms'],
+             bound_ms=t['bound_us'] / 1e3, bound_by='bytes',
+             library_ms=t['library_ms']),
+        dict(name='escape_tau', route='cuda', source=ESCAPE_TAU_SOURCE,
+             replaces=ESCAPE_TAU_REPLACES, launches=launches['escape_tau'],
+             max_abs_err=max(x['f32_vs_plain32_max_abs_err']
+                             for x in vor['walks']),
+             ms=w['device_us'] / 1e3, plain_ms=w['plain_ms'],
+             bound_ms=w['bound_us'] / 1e3, bound_by=w['bound_by'],
+             library_ms=None,
+             f64_max_rel_err=max(x['f64_max_rel_err'] for x in vor['walks'])),
+        dict(name='escape_column', route='cuda', source=ESCAPE_TAU_SOURCE,
+             replaces=ESCAPE_COLUMN_REPLACES,
+             launches=launches['escape_column'],
+             max_abs_err=c['f32_vs_plain32_max_abs_err'],
+             ms=c['device_us'] / 1e3, plain_ms=c['plain_ms'],
+             bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'],
+             library_ms=None, f64_max_rel_err=c['f64_max_rel_err']),
+        locate_kernel(vor, launches['voronoi_locate'])]
+
+
+def locate_kernel(vor, n_launches):
+    """The kernels line's voronoi_locate entry: phase 18's Lucy calls as
+    the headline, the raytracing positions' beside them. Its max_abs_err
+    counts the cells that differ from the plain version's."""
+    loc = vor['locate'][0]
+    return dict(
+        name='voronoi_locate', route='cuda', source=VORONOI_LOCATE_SOURCE,
+        replaces=VORONOI_LOCATE_REPLACES, launches=n_launches,
+        max_abs_err=float(max(r['mismatched'] for r in vor['locate'])),
+        ms=loc['device_us'] / 1e3, plain_ms=loc['plain_ms'],
+        bound_ms=loc['bound_us'] / 1e3, bound_by=loc['bound_by'],
+        library_ms=None, device_us=loc['device_us'], host_us=loc['host_us'],
+        bound_us=loc['bound_us'], lanes_at_cap=vor['locate_lanes_at_cap'],
+        calls=[{k: r[k] for k in ('run', 'calls', 'lanes_per_call',
+                                  'device_us', 'host_us', 'plain_ms',
+                                  'bound_us', 'bound_by', 'rows_per_lane',
+                                  'plain_at_cap')}
+               for r in vor['locate']])
+
+
 def main():
     import argparse
     import torch
@@ -3467,6 +4011,10 @@ def main():
     ap.add_argument('--hierarchical', action='store_true',
                     help='run only phases 1, 2, 16 and 17 (BASELINE configs '
                     '4 and 5, with their parts of phases 6, 10 and 13)')
+    ap.add_argument('--voronoi', action='store_true',
+                    help='run only phases 1, 2 and 18 (config 4\'s cloud on '
+                    'a Voronoi mesh, with its parts of phases 6, 10 and 13 '
+                    'and the locate kernel)')
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3492,9 +4040,9 @@ def main():
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}})
 
-    # 2. build both libraries, one nvcc each, at once
+    # 2. build the libraries, one nvcc each, all at once
     t0 = time.time()
-    libs = _build.build('deposit_visit', 'escape_tau')
+    libs = _build.build('deposit_visit', 'escape_tau', 'voronoi_locate')
     phase('built %s in %.2f s' % (', '.join(lib.name for lib in libs),
                                   time.time() - t0))
 
@@ -3511,7 +4059,8 @@ def main():
 
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda)
-    launches = dict(deposit_visit={}, escape_tau={}, escape_column={})
+    launches = dict(deposit_visit={}, escape_tau={}, escape_column={},
+                    voronoi_locate={})
 
     def run_phase(n, fn, *a, **kw):
         t0 = time.time()
@@ -3567,6 +4116,15 @@ def main():
             out.append(rec)
         return out
 
+    def voronoi_phase():
+        """Phase 18; returns its report."""
+        got, vor = run_phase(18, voronoi_cloud_phase, dv, et, card,
+                             VORONOI_CLOUD['n_sites'], **VORONOI_CUT)
+        for kernel, count in got.items():
+            launches[kernel]['voronoi_cloud'] = count
+        record['voronoi_cloud'] = vor
+        return vor
+
     def column_kernel(cols):
         """The kernels line's escape_column entry: class2's calls (phase
         11, the full-width raytracing of the main path) as the headline,
@@ -3602,6 +4160,15 @@ def main():
         boxes = hierarchical_phases()
         (OUT / 'hierarchical.json').write_text(json.dumps(record, indent=1))
         kernels = hierarchical_kernels(boxes, launches)
+        print(json.dumps({'kernels': kernels}), flush=True)
+        print(result_line, flush=True)
+        return 0
+
+    if args.voronoi:
+        vor = voronoi_phase()
+        (OUT / 'voronoi.json').write_text(json.dumps(record, indent=1))
+        kernels = voronoi_kernels(vor, {k: v['voronoi_cloud']
+                                        for k, v in launches.items()})
         print(json.dumps({'kernels': kernels}), flush=True)
         print(result_line, flush=True)
         return 0
@@ -3672,7 +4239,13 @@ def main():
     for box in boxes:
         walks = walks + box['walks']
         cols = cols + [box['columns']]
-    phase('phases 3-17 in %.1f s' % (time.time() - t_start))
+
+    # 18. config 4's cloud on a Voronoi mesh, with its own calls of phases
+    # 6, 10 and 13's checks and of the locate kernel
+    vor = voronoi_phase()
+    walks = walks + vor['walks']
+    cols = cols + [vor['columns']]
+    phase('phases 3-18 in %.1f s' % (time.time() - t_start))
 
     record['launches'] = launches
     record['wall_s'] = time.time() - t_start
@@ -3691,7 +4264,7 @@ def main():
                     max_abs_err=max([max_err, yso_err,
                                      cyl['deposit_visit']['max_abs_err']] +
                                     [b['deposit_visit']['max_abs_err']
-                                     for b in boxes]),
+                                     for b in boxes + [vor]]),
                     ms=t['device_us'] / 1e3,
                     plain_ms=t['plain_ms'], bound_ms=t['bound_us'] / 1e3,
                     bound_by='bytes', library_ms=t['library_ms'],
@@ -3706,7 +4279,8 @@ def main():
                     yso_contention=yso_hot,
                     class1_cyl=cyl['deposit_visit']['timing'],
                     sph_octree=boxes[0]['deposit_visit']['timing'],
-                    orion_amr=boxes[1]['deposit_visit']['timing']),
+                    orion_amr=boxes[1]['deposit_visit']['timing'],
+                    voronoi_cloud=vor['deposit_visit']['timing']),
                dict(name='escape_tau', route='cuda', source=ESCAPE_TAU_SOURCE,
                     replaces=ESCAPE_TAU_REPLACES,
                     launches=sum(launches['escape_tau'].values()),
@@ -3725,7 +4299,8 @@ def main():
                         'device_us_per_view', 'host_us', 'plain_ms',
                         'bound_us', 'bound_by', 'longest_walk')}
                         for w in walks]),
-               column_kernel(cols)]
+               column_kernel(cols),
+               locate_kernel(vor, sum(launches['voronoi_locate'].values()))]
     record['kernels'] = kernels
     (OUT / 'results.json').write_text(json.dumps(record, indent=1))
     print(json.dumps({'kernels': kernels}), flush=True)

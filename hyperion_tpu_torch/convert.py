@@ -17,6 +17,7 @@ from .transport.gtable_amr import AMRGeometry
 from .transport.gtable_cylindrical import CylindricalGeometry
 from .transport.gtable_octree import OctreeGeometry, node_bounds, tree_depth
 from .transport.gtable_spherical import SphericalGeometry
+from .transport.gtable_voronoi import VoronoiGeometry
 from .transport.imaging import PeelGroup
 from .transport.mrw import MRWTables
 from .transport.stable import SourceTables
@@ -62,8 +63,9 @@ def _octree_from_numpy(fields, device, dtype):
 def tables_from_numpy(dust, sources, geometry, device, dtype):
     """(DustTables, SourceTables, geometry) from dicts of numpy fields of
     the JAX DustTables, SourceTables and CartesianGeometry,
-    SphericalGeometry, CylindricalGeometry, OctreeGeometry or AMRGeometry
-    (told apart by ``rw``, ``ww``, ``children`` and ``fab_lo``)."""
+    SphericalGeometry, CylindricalGeometry, OctreeGeometry, AMRGeometry or
+    VoronoiGeometry (told apart by ``rw``, ``ww``, ``children``, ``fab_lo``
+    and ``neigh``)."""
     sources = dict(sources, energy_total=float(sources['energy_total']))
     if 'children' in geometry:
         geo = _octree_from_numpy(geometry, device, dtype)
@@ -71,6 +73,8 @@ def tables_from_numpy(dust, sources, geometry, device, dtype):
         geometry = dict(geometry, fab_offset=np.asarray(
             geometry['fab_offset']).astype(np.int64))
         geo = _build(AMRGeometry, geometry, device, dtype)
+    elif 'neigh' in geometry:
+        geo = _build(VoronoiGeometry, geometry, device, dtype)
     else:
         geometry_cls = SphericalGeometry if 'rw' in geometry else \
             CylindricalGeometry if 'ww' in geometry else CartesianGeometry

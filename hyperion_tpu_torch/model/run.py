@@ -1,8 +1,8 @@
 """Run a Model through the port and write its .rtout (counterpart of
 ``hyperion_tpu/model/run.py``).
 
-The slice: cartesian, spherical-polar, cylindrical-polar, octree and AMR
-grids; every
+The slice: cartesian, spherical-polar, cylindrical-polar, octree, AMR and
+Voronoi grids; every
 source type (point sources and their collections, spherical sources with
 limb darkening, spots and the re-absorption of photons that hit them,
 luminosity maps with or without an LTE spectrum, external spheres and
@@ -30,14 +30,15 @@ import numpy as np
 import torch
 
 from ..device import engine_dtype, resolve_device
-from ..grid import (AMRGrid, CartesianGrid, CylindricalPolarGrid,
-                    OctreeGrid, SphericalPolarGrid)
+from ..grid import (AMRGrid, CylindricalPolarGrid, OctreeGrid,
+                    SphericalPolarGrid, VoronoiGrid)
 from ..transport.dtable import build_dust_tables
 from ..transport.gtable import ESCAPED, build_cartesian_geometry
 from ..transport.gtable_amr import build_amr_geometry
 from ..transport.gtable_cylindrical import build_cylindrical_geometry
 from ..transport.gtable_octree import build_octree_geometry
 from ..transport.gtable_spherical import build_spherical_geometry
+from ..transport.gtable_voronoi import build_voronoi_geometry
 from ..transport.lucy import run_lucy
 from ..transport.pda import build_pda_tables
 from ..transport.stable import POINT, SPHERE, build_source_tables
@@ -109,25 +110,18 @@ def bool2bytes(value):
 
 
 def _check_slice(model):
-    """Refuse what the port does not run yet, naming its ROADMAP item."""
-    def refuse(what, item):
-        raise NotImplementedError("%s is not in the port yet: ROADMAP.md "
-                                  "queue 1 item %s" % (what, item))
-
+    """Refuse a model that is not the port's (every grid of the JAX
+    package runs on one device; ``Model.run`` refuses multi-device runs,
+    naming their ROADMAP.md item)."""
     if not isinstance(model, Model):
         raise TypeError("the port runs a hyperion_tpu_torch.model.Model, not "
                         "a %s.%s" % (type(model).__module__,
                                      type(model).__name__))
-    if not isinstance(model.grid, (CartesianGrid, SphericalPolarGrid,
-                                   CylindricalPolarGrid, OctreeGrid,
-                                   AMRGrid)):
-        # (the Voronoi grid)
-        refuse("%s" % type(model.grid).__name__, 11)
 
 
 def build_geometry_tables(grid, device, dtype):
     """The geometry tables of a cartesian, spherical-polar,
-    cylindrical-polar, octree or AMR grid."""
+    cylindrical-polar, octree, AMR or Voronoi grid."""
     if isinstance(grid, SphericalPolarGrid):
         return build_spherical_geometry(grid, device, dtype)
     if isinstance(grid, CylindricalPolarGrid):
@@ -136,6 +130,8 @@ def build_geometry_tables(grid, device, dtype):
         return build_octree_geometry(grid, device, dtype)
     if isinstance(grid, AMRGrid):
         return build_amr_geometry(grid, device, dtype)
+    if isinstance(grid, VoronoiGrid):
+        return build_voronoi_geometry(grid, device, dtype)
     return build_cartesian_geometry(grid, device, dtype)
 
 

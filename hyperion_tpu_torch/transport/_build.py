@@ -18,9 +18,11 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
-# flags of one source on top of NVCC_FLAGS: escape_tau keeps a*b + c as two
-# roundings, as PyTorch's element-wise kernels do (see its source note)
-EXTRA_FLAGS = {'escape_tau': ['-fmad=false']}
+# flags of one source on top of NVCC_FLAGS: escape_tau and voronoi_locate
+# keep a*b + c as two roundings, as PyTorch's element-wise kernels do (see
+# their source notes)
+EXTRA_FLAGS = {'escape_tau': ['-fmad=false'],
+               'voronoi_locate': ['-fmad=false']}
 
 _loaded = {}
 

@@ -31,14 +31,14 @@ from .gtable import ESCAPED
 from .mrw import sample_min09
 from .sampling import (interp_loglog, isotropic_direction, random_exp,
                        rotate_direction, sample_quantile_rows)
-from .stable import (N_EMIT_EXTRA, emit_packets, nearest_source_intersection,
-                     pick_sources)
+from .stable import (emit_extra_rows, emit_packets,
+                     nearest_source_intersection, pick_sources)
 
 # rows of the per-step uniform draw: refill (emission), the step, then the
 # sphere emission's and the MRW move's, then for map, box and beam sources
-# the N_EMIT_EXTRA rows of stable.E_* from U_EM_EXTRA; a step draws only the
-# rows its model uses, so a point-source model without MRW draws the first
-# 15
+# the rows of stable.E_* from U_EM_EXTRA (stable.emit_extra_rows); a step
+# draws only the rows its model uses, so a point-source model without MRW
+# draws the first 15
 (U_SRC, U_EM_NU, U_EM_MU, U_EM_PHI, U_EM_TAU,
  U_CHECK, U_DUST, U_COIN, U_BIN, U_XI, U_DIR_MU, U_DIR_PHI, U_MU, U_PHI,
  U_TAU,
@@ -216,16 +216,16 @@ def mrw_jump_update(dt, mrw, u, mrw_now, x, y, z, energy, chi, d_close,
 
 def emit_options(geometry, dt, st, jnu_var_id, jnu_var_frac, se_rho):
     """``(n_extra, kw)``: the rows of extra uniforms that the source rows
-    draw from (0 or N_EMIT_EXTRA) and :func:`~.stable.emit_packets`'
-    keywords besides them: the geometry for map cells, and for LTE spectra
-    the context of the dust emissivity (``se_rho`` None: zero, the first
-    iteration's uniform dust pick)."""
+    draw from (:func:`~.stable.emit_extra_rows`) and
+    :func:`~.stable.emit_packets`' keywords besides them: the geometry for
+    map cells, and for LTE spectra the context of the dust emissivity
+    (``se_rho`` None: zero, the first iteration's uniform dust pick)."""
     kw = dict(geometry=geometry)
     if st.has_lte:
         kw['lte_ctx'] = (dt, jnu_var_id, jnu_var_frac,
                          torch.zeros_like(jnu_var_frac) if se_rho is None
                          else se_rho)
-    return (N_EMIT_EXTRA if st.has_extra else 0), kw
+    return emit_extra_rows(st, geometry), kw
 
 
 def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,

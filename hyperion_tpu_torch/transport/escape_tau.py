@@ -14,8 +14,8 @@ one to the other.
 For each ray of an active lane, from the lane's cell: the wall ahead, tau
 += (Σ_d chi[i, d] rho[d, cell]) × the segment (limited by the distance left
 when ``t_max`` is given: an inside observer; +inf walks to the edge), the
-move (snapped onto a crossed cartesian, octree or AMR wall), until the ray
-escapes, the
+move (snapped onto a crossed cartesian, octree or AMR wall; a Voronoi
+crossing steps to the neighbour's index), until the ray escapes, the
 distance is used up, or ``max_steps`` crossings. Rays of lanes that are
 not active get 0.
 
@@ -45,6 +45,7 @@ from .gtable_amr import AMRGeometry
 from .gtable_cylindrical import CylindricalGeometry
 from .gtable_octree import OctreeGeometry
 from .gtable_spherical import SphericalGeometry
+from .gtable_voronoi import VoronoiGeometry
 
 # kernel launches since the last reset, of the tau walk and of the column
 # mode; chip_smoke.py reads them to show that the main path ran the kernel
@@ -85,11 +86,14 @@ def column_split(geometry):
 
 
 def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
-          max_steps, t_max, visits):
-    """One view of the plain walk, on float64 tensors: (tau, crossings);
-    with ``chi_rows`` None, (the per-dust columns (B, n_dust), crossings).
+          max_steps, t_max, visits, facing=None):
+    """The plain walk of independent rays, on float64 tensors: (tau,
+    crossings); with ``chi_rows`` None, (the per-dust columns (B, n_dust),
+    crossings).
     Each crossing adds one to ``visits`` (n_cells,) at the cell it walks
-    through, where ``visits`` is not None."""
+    through, where ``visits`` is not None, and to ``facing`` (a 0-d int64
+    tensor, on a Voronoi grid) the count of that cell's neighbours whose
+    bisector faces the ray, where ``facing`` is not None."""
     limited = t_max is not None
     columns = chi_rows is None
     tau = torch.zeros((x.shape[0], rho_t.shape[1]) if columns else x.shape,
@@ -102,6 +106,9 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
         cell_safe = cell.clamp_min(0)
         if visits is not None:
             visits.index_add_(0, cell_safe, active.to(visits.dtype))
+        if facing is not None:
+            facing += (geometry.facing_neighbours(cell_safe, kx, ky, kz) *
+                       active).sum()
         t_wall, next_cell, ax, wall_coord = geometry.find_wall(
             cell_safe, x, y, z, kx, ky, kz)
         rho_rows = rho_t[cell_safe]
@@ -129,59 +136,57 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
 
 
 def _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
-               active, max_steps, t_max, crossings, visits):
-    """The plain walk of every view in turn, widened to float64 (tau, or
-    the columns with ``chi_rows`` None)."""
+               active, max_steps, t_max, crossings, visits, facing=None):
+    """The plain walk of every view at once, its V x B rays one batch of
+    independent lanes (view-major), widened to float64 (tau, or the
+    columns with ``chi_rows`` None)."""
     dtype, V, B = x.dtype, kx.shape[0], x.shape[0]
-    rho_t, x, y, z, kx, ky, kz = (
-        a.to(torch.float64) for a in (rho_t, x, y, z, kx, ky, kz))
+    f64 = torch.float64
+    rays = [a.to(f64).repeat(V) for a in (x, y, z)] + \
+        [k.to(f64).reshape(-1) for k in (kx, ky, kz)]
     if chi_rows is not None:
-        chi_rows = chi_rows.to(torch.float64)
+        chi_rows = chi_rows.to(f64).repeat(V, 1)
     if t_max is not None:
-        t_max = t_max.to(torch.float64)
-    walks = [_walk(geometry, rho_t, chi_rows, x, y, z, kx[v], ky[v], kz[v],
-                   cell, active, max_steps,
-                   None if t_max is None else t_max[v], visits)
-             for v in range(V)]
-    if not walks:
-        shape = (0, B) if chi_rows is not None else (0, B, rho_t.shape[1])
-        out = torch.empty(shape, dtype=dtype, device=x.device)
-        n_cross = torch.empty((0, B), dtype=torch.int64, device=x.device)
-    else:
-        out = torch.stack([w[0] for w in walks]).to(dtype)
-        n_cross = torch.stack([w[1] for w in walks])
+        t_max = t_max.to(f64).reshape(-1)
+    out, n_cross = _walk(geometry, rho_t.to(f64), chi_rows, *rays,
+                         cell.repeat(V), active.repeat(V), max_steps, t_max,
+                         visits, facing)
+    out = out.reshape((V, B) + out.shape[1:]).to(dtype)
+    n_cross = n_cross.reshape(V, B)
     return (out, n_cross) if crossings else out
 
 
 def escape_tau_reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz,
                          cell, active, max_steps=100000, t_max=None,
-                         crossings=False, visits=None):
+                         crossings=False, visits=None, facing=None):
     """The plain PyTorch walk, the JAX loop with the port's geometry (its
-    float64 tables), one view after another: ``rho_t`` (n_cells, n_dust),
+    float64 tables), all views at once: ``rho_t`` (n_cells, n_dust),
     ``chi_rows`` (B, n_dust), ``x``, ``y``, ``z``, ``cell`` (B,) int64,
     ``active`` (B,) bool, ``kx``, ``ky``, ``kz`` (V, B), ``t_max`` (V, B)
     or None. Float32 inputs are widened to float64 for the walk. Returns
     tau (V, B) in the lanes' type, and with ``crossings`` also the (V, B)
     int64 count of cells each ray walked through. ``visits``, an int64
     (n_cells,) tensor or None, gets one added per crossing at the cell
-    walked through. Reads ``any(active)`` on the host once per crossing."""
+    walked through; ``facing``, a 0-d int64 tensor or None, on a Voronoi
+    grid gets the count of the neighbours of that cell whose bisector faces
+    the ray. Reads ``any(active)`` on the host once per crossing."""
     return _reference(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell,
-                      active, max_steps, t_max, crossings, visits)
+                      active, max_steps, t_max, crossings, visits, facing)
 
 
 def escape_column_reference(geometry, rho_t, x, y, z, kx, ky, kz, cell,
                             active, max_steps=100000, t_max=None,
-                            crossings=False, visits=None):
+                            crossings=False, visits=None, facing=None):
     """The plain PyTorch column walk, the JAX package's
     ``escape_column_walk`` (``hyperion_tpu/transport/raytrace.py:25``) with
     the port's geometry: the per-dust column density Σ rho[cell, d] × the
     segment along each ray, on the same crossings as
     :func:`escape_tau_reference` (whose arguments it takes, without chi
     rows). Returns (V, B, n_dust) in the lanes' type, and with
-    ``crossings`` also the (V, B) int64 crossing counts; ``visits`` as
-    there."""
+    ``crossings`` also the (V, B) int64 crossing counts; ``visits`` and
+    ``facing`` as there."""
     return _reference(geometry, rho_t, None, x, y, z, kx, ky, kz, cell,
-                      active, max_steps, t_max, crossings, visits)
+                      active, max_steps, t_max, crossings, visits, facing)
 
 
 def _lane_error(name, t, dtype, shape, device):
@@ -199,7 +204,8 @@ class EscapeTau:
     +inf).
 
     ``geometry`` is a CartesianGeometry, SphericalGeometry,
-    CylindricalGeometry, OctreeGeometry or AMRGeometry of float64 tables
+    CylindricalGeometry, OctreeGeometry, AMRGeometry or VoronoiGeometry of
+    float64 tables
     (``build_geometry_tables(grid, device, torch.float64)``) and
     ``rho_t`` the (n_cells, n_dust) density the step keeps, float32 or
     float64, on one device; the lanes take the density's type. On CUDA the
@@ -230,6 +236,7 @@ class EscapeTau:
             else geometry.ww if isinstance(geometry, CylindricalGeometry) \
             else geometry.lo if isinstance(geometry, OctreeGeometry) \
             else geometry.fab_lo if isinstance(geometry, AMRGeometry) \
+            else geometry.sites if isinstance(geometry, VoronoiGeometry) \
             else None
         if first_wall is not None and first_wall.dtype != torch.float64:
             raise ValueError("escape_tau walks in float64: give it the grid's "
@@ -250,8 +257,8 @@ class EscapeTau:
         """Check the grid's tables, keep them alive, fill the grid's part of
         the argument block and make the kernel's plan with ``lib``."""
         geometry, rho_t = self.geometry, self.rho_t
-        # the kernel's grid sizes (n1, n2, n3, aux): the octree and AMR
-        # grids' flat cell rides in i1 (n2 = n3 = 1)
+        # the kernel's grid sizes (n1, n2, n3, aux): the octree, AMR and
+        # Voronoi grids' flat cell rides in i1 (n2 = n3 = 1)
         ints, aux, t_eps, rw1 = None, 0, 0.0, 0.0
         if isinstance(geometry, SphericalGeometry):
             kind = 1
@@ -289,11 +296,17 @@ class EscapeTau:
             ints = torch.cat([geometry.fab_n.reshape(-1).to(torch.int32),
                               geometry.fab_offset.to(torch.int32), order])
             aux, sizes = geometry.n_fabs, (geometry.n_cells, 1, 1)
+        elif isinstance(geometry, VoronoiGeometry):
+            # the sites and the box; the neighbour table and its row length
+            kind = 5
+            walls = [geometry.sites, torch.cat([geometry.box_lo,
+                                                geometry.box_hi])]
+            ints = geometry.neigh.to(torch.int32)
+            aux, sizes = geometry.neigh.shape[1], (geometry.n_cells, 1, 1)
         else:
-            raise NotImplementedError(
-                "escape_tau walks cartesian, spherical-polar, "
-                "cylindrical-polar, octree and AMR grids, not %s: ROADMAP.md "
-                "queue 1 item 11" % type(geometry).__name__)
+            raise TypeError("escape_tau walks cartesian, spherical-polar, "
+                            "cylindrical-polar, octree, AMR and Voronoi "
+                            "grids, not %s" % type(geometry).__name__)
         if ints is not None:
             ints = ints.contiguous()
         walls = [None if w is None else w.contiguous() for w in walls]

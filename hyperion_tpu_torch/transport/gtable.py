@@ -19,8 +19,20 @@ from .sampling import searchsorted_right
 ESCAPED = -1
 
 
+def position_uniforms(geometry, first, rest):
+    """The (geometry.POSITION_ROWS, B) uniforms of a position in one of the
+    geometry's cells: the three rows ``first``, then, on a grid that takes
+    more (the Voronoi grid's rejection trials), the rows it needs from the
+    front of ``rest``."""
+    n_more = geometry.POSITION_ROWS - 3
+    return torch.cat([first, rest[:n_more]]) if n_more else first
+
+
 @dataclass
 class CartesianGeometry:
+    # the uniforms a position in one of its cells takes (position_uniforms)
+    POSITION_ROWS = 3
+
     xw: torch.Tensor
     yw: torch.Tensor
     zw: torch.Tensor

@@ -25,6 +25,9 @@ from .gtable import ESCAPED
 
 @dataclass
 class AMRGeometry:
+    # the uniforms a position in one of its cells takes (position_uniforms)
+    POSITION_ROWS = 3
+
     fab_lo: torch.Tensor      # (F, 3) engine units
     fab_hi: torch.Tensor      # (F, 3)
     fab_n: torch.Tensor       # (F, 3) int32 cells per axis

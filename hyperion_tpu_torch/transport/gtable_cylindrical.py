@@ -27,6 +27,9 @@ from .sampling import searchsorted_right
 
 @dataclass
 class CylindricalGeometry:
+    # the uniforms a position in one of its cells takes (position_uniforms)
+    POSITION_ROWS = 3
+
     ww: torch.Tensor          # (n1+1,) cylindrical-radius walls (engine units)
     ww2: torch.Tensor         # ww^2
     zw: torch.Tensor          # (n2+1,) z walls

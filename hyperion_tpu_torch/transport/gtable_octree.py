@@ -31,6 +31,9 @@ from .gtable import ESCAPED
 
 @dataclass
 class OctreeGeometry:
+    # the uniforms a position in one of its cells takes (position_uniforms)
+    POSITION_ROWS = 3
+
     centers: torch.Tensor   # (n_nodes, 3) engine units
     halves: torch.Tensor    # (n_nodes, 3)
     lo: torch.Tensor        # (n_nodes, 3) lower walls: a parent's centre or

@@ -27,6 +27,9 @@ from .sampling import searchsorted_right
 
 @dataclass
 class SphericalGeometry:
+    # the uniforms a position in one of its cells takes (position_uniforms)
+    POSITION_ROWS = 3
+
     rw: torch.Tensor          # (n1+1,) radial walls (engine units)
     rw2: torch.Tensor         # rw^2
     cos_tw: torch.Tensor      # (n2+1,) cos(theta walls), descending

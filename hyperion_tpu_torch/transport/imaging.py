@@ -48,8 +48,9 @@ ORIG_DUST_SCAT = 3
 
 # rows of the per-step uniform draw: the refill's (with the forced first
 # interaction's), the step's, then the sphere emission's and the MRW
-# move's, then for map, box and beam sources the N_EMIT_EXTRA rows of
-# stable.E_* from U_EM_EXTRA; a step draws only the rows its model uses
+# move's, then for map, box and beam sources the rows of stable.E_* from
+# U_EM_EXTRA (stable.emit_extra_rows); a step draws only the rows its model
+# uses
 (U_SRC, U_EM_NU, U_EM_MU, U_EM_PHI, U_EM_TAU, U_FFI,
  U_DUST, U_COIN, U_BIN, U_XI, U_DIR_MU, U_DIR_PHI, U_MU, U_PHI, U_TAU,
  U_EM_CAP, U_EM_CAP_PHI, U_EM_OUT, U_EM_OUT_PHI,

@@ -33,11 +33,11 @@ import torch
 
 from .engine import select_dust, update_optical_constants
 from .ffi import sample_first_interaction
-from .gtable import ESCAPED
+from .gtable import ESCAPED, position_uniforms
 from .imaging import PeelAccum, Provenance, peel_and_bin
 from .raytrace import sample_position_in_cell
 from .sampling import isotropic_direction, random_exp
-from .stable import N_EMIT_EXTRA, emit_packets, \
+from .stable import emit_extra_rows, emit_packets, \
     nearest_source_intersection, per_row, pick_sources
 from .stokes import sample_scatter_stokes
 
@@ -50,7 +50,9 @@ from .stokes import sample_scatter_stokes
  U_DUST_PICK, U_CELL, U_POS_X, U_POS_Y, U_POS_Z, U_DIR_MU, U_DIR_PHI,
  U_DUST, U_MU, U_PHI, U_TAU) = range(21)
 N_UNIFORMS = 21
-# then, for map, box and beam sources, the N_EMIT_EXTRA rows of stable.E_*
+# then, for map, box and beam sources, the rows of stable.E_*
+# (stable.emit_extra_rows); on a Voronoi grid the dust pass's positions take
+# the rows after those too (gtable.position_uniforms)
 U_EM_EXTRA = N_UNIFORMS
 
 
@@ -244,7 +246,9 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
     n_inter_max = int(config['n_inter_max'])
     kill_on_scatter = bool(config['kill_on_scatter'])
     sphere = st.has_sphere
-    n_extra = N_EMIT_EXTRA if mode == 'source' and st.has_extra else 0
+    n_extra = emit_extra_rows(st, geometry) if mode == 'source' else 0
+    # the dust pass's position uniforms after U_POS_X-U_POS_Z
+    n_pos = geometry.POSITION_ROWS - 3 if mode == 'dust' else 0
     lanes = {}
 
     def consts(B, device):
@@ -308,8 +312,10 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
                                         torch.searchsorted(cell_cdf[d], uc),
                                         cell_pick)
             cell_new = cell_pick.clamp(0, n_cells - 1)
+            u_pos = position_uniforms(geometry, u[U_POS_X:U_POS_Z + 1],
+                                      u[N_UNIFORMS + n_extra:])
             x, y, z = (a.contiguous() for a in sample_position_in_cell(
-                geometry, cell_new, u[U_POS_X:U_POS_Z + 1]))
+                geometry, cell_new, u_pos))
             kx, ky, kz = isotropic_direction(u[U_DIR_MU], u[U_DIR_PHI])
             e_new = mean_prob[d_pick]
             reproc = torch.ones_like(can)
@@ -393,8 +399,8 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
     def step(carry, generator):
         p0 = carry.packets
         B = p0.x.shape[0]
-        u = torch.rand((N_UNIFORMS + n_extra, B), generator=generator,
-                       device=p0.x.device, dtype=dtype)
+        u = torch.rand((N_UNIFORMS + n_extra + n_pos, B),
+                       generator=generator, device=p0.x.device, dtype=dtype)
         if (carry.budget > 0 and (carry.n_alive * 4 <= 3 * B or
                                   carry.n_alive == 0)) or carry.n_pending:
             refill(carry, u)

@@ -26,21 +26,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .gtable import ESCAPED, CartesianGeometry
+from .gtable import ESCAPED, CartesianGeometry, position_uniforms
 from .gtable_amr import AMRGeometry
 from .gtable_cylindrical import CylindricalGeometry
 from .gtable_octree import OctreeGeometry
 from .gtable_spherical import SphericalGeometry
+from .gtable_voronoi import VoronoiGeometry
 from .imaging import Provenance, origin_index
-from .stable import N_EMIT_EXTRA, emit_packets, per_row
+from .stable import emit_extra_rows, emit_packets, per_row
 
 # rows of a source batch's uniforms: the source pick, the frequency (drawn,
 # not used), the direction, then the stellar surface's point and direction;
-# for maps, boxes and beams then the N_EMIT_EXTRA rows of stable.E_*
+# for maps, boxes and beams then the rows of stable.E_*
+# (stable.emit_extra_rows)
 U_SRC, U_NU, U_MU, U_PHI, U_CAP, U_CAP_PHI, U_OUT, U_OUT_PHI = range(8)
 U_EXTRA = 8
 # rows of a dust batch's uniforms: the emitting (dust, cell), then the
-# position in the cell
+# position in the cell (geometry.POSITION_ROWS rows)
 U_CELL, U_POS = 0, 1
 
 
@@ -237,19 +239,18 @@ def build_raytrace_tables_mono(dusts, sources, frequencies, specific_energy,
 
 
 def sample_position_in_cell(geometry, cell, u):
-    """A random position inside each cell from the uniforms ``u`` (3, B)
-    (ref random_position_cell): exact on cartesian cells; uniform in r^3,
-    cos(theta) and phi on spherical-polar ones, and in w^2, z and phi on
-    cylindrical-polar ones; uniform in an octree leaf's or an AMR cell's
-    box (the geometry's ``position_in_cell``)."""
-    if isinstance(geometry, (OctreeGeometry, AMRGeometry)):
+    """A random position inside each cell from the uniforms ``u``
+    (geometry.POSITION_ROWS, B) (ref random_position_cell): exact on
+    cartesian cells; uniform in r^3, cos(theta) and phi on spherical-polar
+    ones, and in w^2, z and phi on cylindrical-polar ones; uniform in an
+    octree leaf's or an AMR cell's box; a Voronoi cell's bounding-box
+    rejection from 12 uniforms (the geometry's ``position_in_cell``)."""
+    if isinstance(geometry, (OctreeGeometry, AMRGeometry, VoronoiGeometry)):
         return geometry.position_in_cell(cell, u)
     if not isinstance(geometry, (CartesianGeometry, SphericalGeometry,
                                  CylindricalGeometry)):
-        raise NotImplementedError(
-            "positions in the cells of %s are not in the port yet (the "
-            "Voronoi grid): ROADMAP.md queue 1 item 11"
-            % type(geometry).__name__)
+        raise TypeError("positions in the cells of %s"
+                        % type(geometry).__name__)
     i1, i2, i3 = geometry.decode(cell)
     if isinstance(geometry, CartesianGeometry):
         xw, yw, zw = geometry.xw, geometry.yw, geometry.zw
@@ -406,10 +407,10 @@ def _peel_batch(walk, rt, groups, accums, x, y, z, cell, active, spec, prov,
 def raytrace_source_batch(walk, geometry, st, rt, groups, accums, u, n_active,
                           scale, sphere):
     """One batch of source photons from the uniforms ``u`` (8, B), or (8 +
-    N_EMIT_EXTRA, B) for map, box and beam rows: emitted, peeled into
-    ``accums`` with the energy ``scale`` each (the sources' luminosity over
-    the photon count; the source pick already weighs each source by its
-    share). ``sphere``: whether a row emits from a sphere's surface
+    ``stable.emit_extra_rows``, B) for map, box and beam rows: emitted,
+    peeled into ``accums`` with the energy ``scale`` each (the sources'
+    luminosity over the photon count; the source pick already weighs each
+    source by its share). ``sphere``: whether a row emits from a sphere's surface
     (``st.has_sphere``). Returns the count (a device tensor) of the
     batch's photons emitted outside the grid, which peel nothing."""
     B = u.shape[1]
@@ -470,9 +471,9 @@ def dust_emission_spectra(rt, var_log, specific_energy, d_sel, cell):
 def raytrace_dust_batch(walk, geometry, rt, var_log, groups, accums,
                         specific_energy, u, n_active, scale):
     """One batch of the grid's thermal photons from the uniforms ``u``
-    (4, B): a (dust, cell) picked on the luminosity CDF, a position in the
-    cell, the emissivity spectrum of its state, peeled into ``accums`` with
-    the energy ``scale`` each. Returns the count (a device tensor) of the
+    (1 + geometry.POSITION_ROWS, B): a (dust, cell) picked on the
+    luminosity CDF, a position in the cell, the emissivity spectrum of its
+    state, peeled into ``accums`` with the energy ``scale`` each. Returns the count (a device tensor) of the
     batch's photons placed outside their cell's bounds (beyond the
     geometry self-check's tolerance, ``in_cell_tol``), whose walks start
     from that cell all the same."""
@@ -483,7 +484,8 @@ def raytrace_dust_batch(walk, geometry, rt, var_log, groups, accums,
     d_sel = flat // n_cells
     cell = flat % n_cells
     x, y, z = (a.contiguous() for a in sample_position_in_cell(
-        geometry, cell, u[U_POS:U_POS + 3]))
+        geometry, cell, position_uniforms(geometry, u[U_POS:U_POS + 3],
+                                          u[U_POS + 3:])))
     active = torch.arange(B, device=x.device) < n_active
     spec = dust_emission_spectra(rt, var_log, specific_energy, d_sel, cell)
     no = torch.zeros_like(active)
@@ -522,7 +524,7 @@ def run_raytracing(walk, geometry, st, rt, var_grids, groups,
                              "LTE spectrum")
         scale = float(st.energy_total) / n_ray_sources
         sphere = st.has_sphere
-        n_rows = U_EXTRA + (N_EMIT_EXTRA if st.has_extra else 0)
+        n_rows = U_EXTRA + emit_extra_rows(st, geometry)
         for start in range(0, n_ray_sources, batch_size):
             b = min(batch_size, n_ray_sources - start)
             u = torch.rand((n_rows, batch_size), generator=generator,
@@ -536,8 +538,8 @@ def run_raytracing(walk, geometry, st, rt, var_grids, groups,
                                               dtype=dtype, device=device))
         for start in range(0, n_ray_dust, batch_size):
             b = min(batch_size, n_ray_dust - start)
-            u = torch.rand((4, batch_size), generator=generator,
-                           device=device, dtype=dtype)
+            u = torch.rand((U_POS + geometry.POSITION_ROWS, batch_size),
+                           generator=generator, device=device, dtype=dtype)
             outside += raytrace_dust_batch(walk, geometry, rt, var_log,
                                            groups, accums, specific_energy,
                                            u, b, scale)

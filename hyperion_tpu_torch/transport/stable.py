@@ -24,6 +24,7 @@ from ..sources import (ExternalBoxSource, ExternalSphericalSource, MapSource,
                        SphericalSource)
 from ..util.functions import B_nu, planck_nu_range
 from .dtable import _cdf_loglog
+from .gtable import position_uniforms
 from .sampling import (isotropic_direction, quantile_grid, quantile_table,
                        rotate_direction, sample_quantile_rows)
 
@@ -39,10 +40,21 @@ PLANE_PARALLEL = 7
 # plane-parallel and LTE rows draw from (:func:`emit_packets`' ``u_extra``):
 # the map's cell and the position in it, the position in the box, the
 # beam's disk (radius, azimuth), the LTE spectrum's dust, var bin and
-# quantile
+# quantile; on a Voronoi grid a map's position takes the rows after these
+# too (:func:`emit_extra_rows`)
 (E_MAP, E_MAP_X, E_MAP_Y, E_MAP_Z, E_BOX_X, E_BOX_Y, E_BOX_Z, E_PP_R,
  E_PP_PHI, E_LTE_DUST, E_LTE_BIN, E_LTE_XI) = range(12)
 N_EMIT_EXTRA = 12
+
+
+def emit_extra_rows(st, geometry):
+    """The rows of ``u_extra`` that the source rows draw from: 0 without
+    map, box or beam rows, else N_EMIT_EXTRA, and for a map on a grid whose
+    positions take more than 3 uniforms (the Voronoi grid) the rest of
+    them after those (``gtable.position_uniforms``). (reads the device)"""
+    if not st.has_extra:
+        return 0
+    return N_EMIT_EXTRA + (geometry.POSITION_ROWS - 3 if st.has_map else 0)
 
 
 @dataclass
@@ -377,8 +389,9 @@ def emit_packets(st, u_src, u_nu, u_mu, u_phi, u_sphere=None, src=None,
                 map_cell = torch.where(mrow == i, torch.searchsorted(
                     st.map_cdf[i], u_map), map_cell)
             map_cell = map_cell.clamp(0, n_cells - 1)
-            mx, my, mz = sample_position_in_cell(geometry, map_cell,
-                                                 e[E_MAP_X:E_MAP_Z + 1])
+            u_pos = position_uniforms(geometry, e[E_MAP_X:E_MAP_Z + 1],
+                                      e[N_EMIT_EXTRA:])
+            mx, my, mz = sample_position_in_cell(geometry, map_cell, u_pos)
             in_map = code == MAP
             x = torch.where(in_map, mx, x)
             y = torch.where(in_map, my, y)
