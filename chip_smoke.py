@@ -1993,8 +1993,9 @@ def walk_work(kind, geo, start, visits, facing=None):
     comparisons a level down to the leaf entered; in the AMR grid by an
     indexed locate at each level (the offset from the level's corner over
     its cell size on three axes, AMR_LOCATE_FLOPS_PER_LEVEL), since the
-    fabs of a level tile a box (the kernel's finest-first search tries
-    fabs one by one, its own choice, not counted); a Voronoi crossing
+    fabs of a level tile a box (the kernel's indexed locate also visits
+    the finer levels that do not hold the point: its own work, not
+    counted); a Voronoi crossing
     reads the neighbours of the cell walked through, VORONOI_FLOPS_PER_
     NEIGHBOUR each (the normal and its test), and VORONOI_FLOPS_PER_FACING
     more for each that faces the ray (its crossing distance). Bytes: the

@@ -56,7 +56,8 @@ column_launches = 0
 # enum Arg: the grid's part (filled once, the plan by escape_tau_plan, the
 # clock by EscapeTau.block_clock), then the lanes' part (filled at every call)
 _ARGS = ('is_double', 'kind', 'w0', 'w1', 'w2', 'w3', 'w4', 'w5', 'w6', 'w7',
-         'ints', 'n1', 'n2', 'n3', 'aux', 'rho', 'n_dust', 'smem',
+         'ints', 'n1', 'n2', 'n3', 'aux', 'levels', 'index_len', 'rho',
+         'n_dust', 'smem',
          'walls_shared', 'rho_shared', 'smem_col', 'rho_shared_col',
          'big_col', 'max_blocks', 'max_blocks_col', 'counter', 'max_steps',
          'split', 'clock', 'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'cell',
@@ -189,6 +190,75 @@ def escape_column_reference(geometry, rho_t, x, y, z, kx, ky, kz, cell,
                       active, max_steps, t_max, crossings, visits, facing)
 
 
+def kernel_tables(geometry):
+    """The grid's part of the kernel's arguments, as ``EscapeTau`` binds
+    them: (kind, the 8 float64 wall tables (None where unused), the int32
+    table or None, (n1, n2, n3), aux, levels, index_len, t_eps, rw1)
+    (csrc/escape_tau.cu's enum Arg, wall_len and ints_len)."""
+    # the kernel's grid sizes (n1, n2, n3, aux): the octree, AMR and
+    # Voronoi grids have n2 = n3 = 1 (the octree's and Voronoi grid's
+    # flat cell rides in i1; the AMR crossing carries its fab and the
+    # cell's indices there); the AMR grid's levels and index length
+    ints, aux, t_eps, rw1 = None, 0, 0.0, 0.0
+    levels = index_len = 0
+    if isinstance(geometry, SphericalGeometry):
+        kind = 1
+        walls = [geometry.rw, geometry.rw2, geometry.cos_tw,
+                 -geometry.cos_tw, geometry.cos2_tw, geometry.sin_pw,
+                 geometry.cos_pw, geometry.phi_w]
+        ints = geometry.theta_kind.to(torch.int32)
+        t_eps, rw1 = float(geometry.t_eps), float(geometry.rw[1])
+        sizes = (geometry.n1, geometry.n2, geometry.n3)
+    elif isinstance(geometry, CylindricalGeometry):
+        # (csrc/escape_tau.cu's wall_len: w[3] and w[4] unused; the
+        # exclusion's second term, eps_floor, rides in rw1's place)
+        kind = 2
+        walls = [geometry.ww, geometry.ww2, geometry.zw, None, None,
+                 geometry.sin_pw, geometry.cos_pw, geometry.phi_w]
+        t_eps, rw1 = float(geometry.t_eps), float(geometry.eps_floor)
+        sizes = (geometry.n1, geometry.n2, geometry.n3)
+    elif isinstance(geometry, CartesianGeometry):
+        kind = 0
+        walls = [geometry.xw, geometry.yw, geometry.zw]
+        sizes = (geometry.n1, geometry.n2, geometry.n3)
+    elif isinstance(geometry, OctreeGeometry):
+        # the nodes' walls and centres, the children, the depth
+        kind = 3
+        walls = [geometry.lo, geometry.hi, geometry.centers]
+        ints = geometry.children.to(torch.int32)
+        aux, sizes = geometry.max_depth, (geometry.n_nodes, 1, 1)
+    elif isinstance(geometry, AMRGeometry):
+        # the fabs' bounds and cell sizes, the probe scale, the levels'
+        # lattices; the fabs' cell counts and offsets, the level index
+        kind = 4
+        lattices, index = geometry.level_index()
+        dev = geometry.fab_n.device
+        walls = [geometry.fab_lo, geometry.fab_dx, geometry.min_dx,
+                 torch.as_tensor(lattices, dtype=torch.float64,
+                                 device=dev)]
+        ints = torch.cat([geometry.fab_n.reshape(-1).to(torch.int32),
+                          geometry.fab_offset.to(torch.int32),
+                          torch.as_tensor(index, device=dev)])
+        aux, sizes = geometry.n_fabs, (geometry.n_cells, 1, 1)
+        levels, index_len = len(lattices), len(index)
+    elif isinstance(geometry, VoronoiGeometry):
+        # the sites and the box; the neighbour table and its row length
+        kind = 5
+        walls = [geometry.sites, torch.cat([geometry.box_lo,
+                                            geometry.box_hi])]
+        ints = geometry.neigh.to(torch.int32)
+        aux, sizes = geometry.neigh.shape[1], (geometry.n_cells, 1, 1)
+    else:
+        raise TypeError("escape_tau walks cartesian, spherical-polar, "
+                        "cylindrical-polar, octree, AMR and Voronoi "
+                        "grids, not %s" % type(geometry).__name__)
+    if ints is not None:
+        ints = ints.contiguous()
+    walls = [None if w is None else w.contiguous() for w in walls]
+    walls += [None] * (8 - len(walls))
+    return kind, walls, ints, sizes, aux, levels, index_len, t_eps, rw1
+
+
 def _lane_error(name, t, dtype, shape, device):
     return ValueError(
         "escape_tau: %s must be a contiguous %s tensor of shape %s on %s; "
@@ -257,60 +327,8 @@ class EscapeTau:
         """Check the grid's tables, keep them alive, fill the grid's part of
         the argument block and make the kernel's plan with ``lib``."""
         geometry, rho_t = self.geometry, self.rho_t
-        # the kernel's grid sizes (n1, n2, n3, aux): the octree, AMR and
-        # Voronoi grids' flat cell rides in i1 (n2 = n3 = 1)
-        ints, aux, t_eps, rw1 = None, 0, 0.0, 0.0
-        if isinstance(geometry, SphericalGeometry):
-            kind = 1
-            walls = [geometry.rw, geometry.rw2, geometry.cos_tw,
-                     -geometry.cos_tw, geometry.cos2_tw, geometry.sin_pw,
-                     geometry.cos_pw, geometry.phi_w]
-            ints = geometry.theta_kind.to(torch.int32)
-            t_eps, rw1 = float(geometry.t_eps), float(geometry.rw[1])
-            sizes = (geometry.n1, geometry.n2, geometry.n3)
-        elif isinstance(geometry, CylindricalGeometry):
-            # (csrc/escape_tau.cu's wall_len: w[3] and w[4] unused; the
-            # exclusion's second term, eps_floor, rides in rw1's place)
-            kind = 2
-            walls = [geometry.ww, geometry.ww2, geometry.zw, None, None,
-                     geometry.sin_pw, geometry.cos_pw, geometry.phi_w]
-            t_eps, rw1 = float(geometry.t_eps), float(geometry.eps_floor)
-            sizes = (geometry.n1, geometry.n2, geometry.n3)
-        elif isinstance(geometry, CartesianGeometry):
-            kind = 0
-            walls = [geometry.xw, geometry.yw, geometry.zw]
-            sizes = (geometry.n1, geometry.n2, geometry.n3)
-        elif isinstance(geometry, OctreeGeometry):
-            # the nodes' walls and centres, the children, the depth
-            kind = 3
-            walls = [geometry.lo, geometry.hi, geometry.centers]
-            ints = geometry.children.to(torch.int32)
-            aux, sizes = geometry.max_depth, (geometry.n_nodes, 1, 1)
-        elif isinstance(geometry, AMRGeometry):
-            # the fabs' bounds and cell sizes, the probe scale; their cell
-            # counts, offsets and the finest-first search order
-            kind = 4
-            walls = [geometry.fab_lo, geometry.fab_dx, geometry.min_dx]
-            order = torch.as_tensor(geometry.search_order(),
-                                    device=geometry.fab_n.device)
-            ints = torch.cat([geometry.fab_n.reshape(-1).to(torch.int32),
-                              geometry.fab_offset.to(torch.int32), order])
-            aux, sizes = geometry.n_fabs, (geometry.n_cells, 1, 1)
-        elif isinstance(geometry, VoronoiGeometry):
-            # the sites and the box; the neighbour table and its row length
-            kind = 5
-            walls = [geometry.sites, torch.cat([geometry.box_lo,
-                                                geometry.box_hi])]
-            ints = geometry.neigh.to(torch.int32)
-            aux, sizes = geometry.neigh.shape[1], (geometry.n_cells, 1, 1)
-        else:
-            raise TypeError("escape_tau walks cartesian, spherical-polar, "
-                            "cylindrical-polar, octree, AMR and Voronoi "
-                            "grids, not %s" % type(geometry).__name__)
-        if ints is not None:
-            ints = ints.contiguous()
-        walls = [None if w is None else w.contiguous() for w in walls]
-        walls += [None] * (8 - len(walls))
+        kind, walls, ints, sizes, aux, levels, index_len, t_eps, rw1 = \
+            kernel_tables(geometry)
         for w in (w for w in walls + [ints] if w is not None):
             if w.device != self.device:
                 raise ValueError("escape_tau: the grid's walls are on %s, the "
@@ -344,7 +362,8 @@ class EscapeTau:
         n1, n2, n3 = sizes
         grid = dict(is_double=int(self.dtype == torch.float64), kind=kind,
                     ints=0 if ints is None else ints.data_ptr(), n1=n1, n2=n2,
-                    n3=n3, aux=aux, rho=rho_t.data_ptr(), n_dust=self.n_dust,
+                    n3=n3, aux=aux, levels=levels, index_len=index_len,
+                    rho=rho_t.data_ptr(), n_dust=self.n_dust,
                     counter=self._counter.data_ptr(),
                     max_steps=self.max_steps, split=column_split(geometry),
                     **{'w%d' % k: p for k, p in enumerate(ptrs)})
@@ -363,8 +382,9 @@ class EscapeTau:
     def plan(self):
         """The kernel's plan (CUDA only): shared-memory bytes of a block and
         what lives there, for the tau walk and for the column mode
-        (``big_col``: its blocks of kBigBlock threads with the density past
-        48 KB), and the resident blocks of each mode's kernel."""
+        (``big_col``: its blocks of big_block(kind) threads with the
+        density past 48 KB), and the resident blocks of each mode's
+        kernel."""
         a = {k: int(self._args[_ARGS.index(k)]) for k in _ARGS[:_LANES]}
         return dict(
             smem=a['smem'], walls_shared=bool(a['walls_shared']),

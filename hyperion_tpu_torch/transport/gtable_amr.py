@@ -8,7 +8,9 @@ is located by a point-in-fab test over every fab, the finest level winning
 (the reference's per-level locate_grid/find_position_in_grid recursion), and
 a wall crossing exits the cell's box, probes half a finest cell past the
 crossed wall and locates the probe, as in the JAX package. Coarse cells
-covered by finer fabs are never entered.
+covered by finer fabs are never entered. The walk kernel locates through
+an index per level instead (``level_index``, built on the host from these
+tables), whose plain version ``locate_indexed`` gives ``_locate``'s cell.
 
 Flat cell index: fab_offset + (k * ny + j) * nx + i, fabs ordered
 level-major (level 1 first), the on-disk level_*/grid_* layout. Wall
@@ -21,6 +23,12 @@ import numpy as np
 import torch
 
 from .gtable import ESCAPED
+
+# the indexed locate (AMRGeometry.level_index): at most this many bins an
+# axis on a level's lattice, and the least margin, in bin widths, within
+# which a point near a bin's edge takes the level's fringe list
+LEVEL_BINS = 8
+LEVEL_MARGIN = 1e-9
 
 
 @dataclass
@@ -177,15 +185,137 @@ class AMRGeometry:
         return (x0 + u[0] * (x1 - x0), y0 + u[1] * (y1 - y0),
                 z0 + u[2] * (z1 - z0))
 
-    def search_order(self):
-        """The fabs in the order of the finest-first search: levels from the
-        finest down, each level's fabs in index order. The first fab in
-        this order that holds a point is the one :meth:`_locate`'s argmax
-        picks (the highest level, and the first fab of it on a tie), so a
-        search that stops there gives the same cell (csrc/escape_tau.cu's
-        AMR crossing searches so)."""
+    def level_index(self):
+        """The index of the fabs by level that the indexed locate walks
+        (:meth:`locate_indexed`, and csrc/escape_tau.cu's AMR crossing),
+        built on the host from the geometry's own tables. Each level, from
+        the finest down, gets the box of its fabs and a uniform lattice of
+        at most LEVEL_BINS bins an axis (about one bin per fab across);
+        each bin the level's fabs that reach more than half the margin into
+        it, in index order (its core list); and the level the list of all
+        its fabs in index order (its fringe list). A point more than the
+        margin inside a bin can be held only by a fab of that bin's core
+        list; a point within the margin of a bin's edge or of the level's
+        box takes the fringe list; a point farther out than the margin is
+        held by no fab of the level. The margin, in bin widths, is far
+        above the rounding of the point's bin and of the fab test's
+        quotient, so the first fab of the list that holds the point is the
+        one that :meth:`_locate`'s argmax picks.
+
+        Returns (levels (L, 8) float64: the box's low corner, the inverse
+        bin widths and the margin in bin widths per level; ints (int32): per
+        level the bins an axis, where its bins' list starts are, where its
+        fringe list starts and ends (8 words, the offsets into ``ints``);
+        then each level's list starts (its bins' + 1, offsets into
+        ``ints``), the core lists and the fringe lists)."""
+        lo = self.fab_lo.double().cpu().numpy()
+        dx = self.fab_dx.double().cpu().numpy()
+        n = self.fab_n.cpu().numpy().astype(np.float64)
+        # a fab's extent as the fab test sees it (lo + n dx) and as given
+        hi = np.maximum(self.fab_hi.double().cpu().numpy(), lo + n * dx)
         level = self.fab_level.cpu().numpy()
-        return np.lexsort((np.arange(len(level)), -level)).astype(np.int32)
+        eps = float(torch.finfo(self.fab_lo.dtype).eps)
+        scale = max(float(np.abs(lo).max()), float(np.abs(hi).max()), 1.0)
+        levels = sorted(set(level.tolist()), reverse=True)
+        L = len(levels)
+        head = np.zeros((L, 8), np.int64)
+        floats = np.zeros((L, 8), np.float64)
+        starts, core, fringe = [], [], []
+        for li, lev in enumerate(levels):
+            fabs = np.nonzero(level == lev)[0]
+            box_lo, box_hi = lo[fabs].min(axis=0), hi[fabs].max(axis=0)
+            extent = box_hi - box_lo
+            smallest = (hi[fabs] - lo[fabs]).min(axis=0)
+            nb = np.clip(np.rint(extent / smallest), 1, LEVEL_BINS) \
+                .astype(np.int64)
+            width = extent / nb
+            margin = max(LEVEL_MARGIN, 64.0 * eps * scale / width.min())
+            floats[li, :3] = box_lo
+            floats[li, 3:6] = 1.0 / width
+            floats[li, 6] = margin
+            head[li, :3] = nb
+            head[li, 3] = len(starts)
+            # the fabs that reach more than half the margin into each bin
+            shrink = 0.5 * margin * width
+            ib = np.stack(np.meshgrid(*[np.arange(m) for m in nb[::-1]],
+                                      indexing='ij')[::-1], -1).reshape(-1, 3)
+            b_lo = box_lo + ib * width + shrink
+            b_hi = box_lo + (ib + 1) * width - shrink
+            inside = ((lo[fabs][None] < b_hi[:, None]) &
+                      (hi[fabs][None] > b_lo[:, None])).all(axis=-1)
+            for row in inside:
+                starts.append(len(core))
+                core.extend(fabs[row].tolist())
+            starts.append(len(core))
+            head[li, 4] = len(fringe)
+            fringe.extend(fabs.tolist())
+            head[li, 5] = len(fringe)
+        # offsets into the one int32 table: the heads, the starts, the core
+        # lists, the fringe lists
+        at_starts = 8 * L
+        at_core = at_starts + len(starts)
+        at_fringe = at_core + len(core)
+        head[:, 3] += at_starts
+        head[:, 4:6] += at_fringe
+        ints = np.concatenate([head.reshape(-1),
+                               np.asarray(starts, np.int64) + at_core,
+                               np.asarray(core, np.int64),
+                               np.asarray(fringe, np.int64)]).astype(np.int32)
+        return floats, ints
+
+    def locate_indexed(self, x, y, z, kx, ky, kz):
+        """The plain version of the kernel's indexed locate: the levels from
+        the finest down (:meth:`level_index`), at each the point's bin and
+        its list, the fabs of the list tested in order with the fab test of
+        :meth:`_axis_index` and the first that holds the point taken.
+        Returns the flat cell ids (ESCAPED where no fab holds the point),
+        those of :meth:`_locate`."""
+        floats, ints = self.level_index()
+        dev = x.device
+        floats = torch.as_tensor(floats, dtype=x.dtype, device=dev)
+        ints = torch.as_tensor(ints, dtype=torch.int64, device=dev)
+        nf = self.fab_n.long()
+        p, k = (x, y, z), (kx, ky, kz)
+        cell = torch.full(x.shape, ESCAPED, dtype=torch.int64, device=dev)
+        done = torch.zeros(x.shape, dtype=torch.bool, device=dev)
+        for li in range(floats.shape[0]):
+            head = ints[8 * li:8 * li + 8]
+            margin = floats[li, 6]
+            far = torch.zeros_like(done)
+            near = torch.zeros_like(done)
+            b = []
+            for a in range(3):
+                u = (p[a] - floats[li, a]) * floats[li, 3 + a]
+                nb = head[a]
+                far = far | (u < -margin) | (u > nb + margin)
+                fl = torch.floor(u)
+                fr = u - fl
+                near = near | (fr <= margin) | (fr >= 1.0 - margin) | \
+                    (fl < 0) | (fl >= nb)
+                b.append(fl.clamp(0, int(nb) - 1).long())
+            look = ~done & ~far
+            binid = (b[2] * head[1] + b[1]) * head[0] + b[0]
+            first = torch.where(near, head[4], ints[head[3] + binid])
+            last = torch.where(near, head[5], ints[head[3] + binid + 1])
+            for e in range(int((last - first).max()) if look.any() else 0):
+                try_ = look & (first + e < last)
+                fab = torch.where(try_, ints[torch.where(try_, first + e,
+                                                         0)], 0)
+                idx, ok = [], try_
+                for a in range(3):
+                    lo_a = self.fab_lo[fab, a]
+                    dx_a = self.fab_dx[fab, a]
+                    i = torch.floor((p[a] - lo_a) / dx_a).to(torch.int32)
+                    on_wall = (lo_a + i * dx_a) == p[a]
+                    i = torch.where(on_wall & (k[a] < 0), i - 1, i)
+                    ok = ok & (i >= 0) & (i < self.fab_n[fab, a])
+                    idx.append(i.long())
+                c = self.fab_offset[fab] + (idx[2] * nf[fab, 1] + idx[1]) * \
+                    nf[fab, 0] + idx[0]
+                cell = torch.where(ok, c, cell)
+                done = done | ok
+                look = look & ~ok
+        return cell
 
 
 def build_amr_geometry(grid, device, dtype):

@@ -2,33 +2,38 @@
 """Time an earlier escape_column design beside the current one on one card,
 on the column calls the raytracing pass makes.
 
-    git archive 45020ac hyperion_tpu_torch | tar -x -C _checkout/old
+    git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
     python3 scripts/escape_column_ab.py --old _checkout/old [--se-dir DIR] \
+        [--models class2,quickstart,class1_cyl,orion_amr] \
         [--variant NAME=CONSTANT=VALUE[,CONSTANT=VALUE...] ...]
 
-``--old`` is a directory holding an earlier ``hyperion_tpu_torch/`` (commit
-45020ac: each warp walks 32 lanes at a time, in lane order), loaded under
-another package name (scripts/escape_tau_ab.py's ``load_old``). The calls
-are those of chip_smoke.py's phase 11 (class2 raytracing, B = 50,000, 3
-views) and phase 12 (b) (the quickstart's monochromatic raytracing, B =
-125,000, 1 view), recorded with ``chip_smoke.column_calls`` from
-run_lucy_model with the Monte-Carlo imaging photons cut (the raytracing
-pass draws from its own generator, so its calls are phase 11's and 12's).
-They start from phase 8's and phase 4's specific energies: computed here
-(1 Lucy iteration of 200,000 photons capped at 8,000 steps; 4 of
-500,000), or read from ``--se-dir`` (``class2_specific_energy.npy`` and
-``quickstart_specific_energy.npy``, as chip_smoke.py writes them), and
-written there when absent. For each run it prints:
+``--old`` is a directory holding an earlier ``hyperion_tpu_torch/`` whose
+``EscapeTau`` has a block clock (commit 98bb6b9, before the AMR and
+cylindrical crossings were redesigned, or a later one), loaded under
+another package name (scripts/escape_tau_ab.py's ``load_old``). The
+calls of ``class2`` and ``quickstart`` are those of chip_smoke.py's phase
+11 (class2 raytracing, B = 50,000, 3 views) and phase 12 (b) (the
+quickstart's monochromatic raytracing, B = 125,000, 1 view), recorded with
+``chip_smoke.column_calls`` from run_lucy_model with the Monte-Carlo
+imaging photons cut (the raytracing pass draws from its own generator, so
+its calls are phase 11's and 12's). They start from phase 8's and phase
+4's specific energies: computed here (1 Lucy iteration of 200,000 photons
+capped at 8,000 steps; 4 of 500,000), or read from ``--se-dir``
+(``class2_specific_energy.npy`` and ``quickstart_specific_energy.npy``, as
+chip_smoke.py writes them), and written there when absent. Those of
+``class1_cyl`` and ``orion_amr`` are the raytracing calls of phases 14
+(BASELINE config 3) and 17 (config 5), from the phase's own Lucy
+iterations (scripts/escape_tau_ab.py's ``record_phase``). For each run it
+prints:
 
 - the ray lengths: the plain float64 walk's crossings, their mean,
   percentiles and the share of rays above each K;
 - the K sweep: both designs with ``max_steps`` = K, the walks cut short:
   device us per call (the time of the first K crossings of every ray);
 - the block end times on the call with the most crossings (each block's
-  start and end from ``%globaltimer``: the current design's
-  ``EscapeTau.block_clock``, the old one's from a copy of its source with
-  the clock read added, built into hyperion_tpu_torch/_build/): the share
-  of the call after the first block ends, when the card is not full;
+  start and end from ``%globaltimer``, ``EscapeTau.block_clock`` of each
+  design): the share of the call after the first block ends, when the
+  card is not full;
 - turns (old, then each variant, then the variants again in reverse,
   then old): device us per call (each call behind a
   ``torch.cuda._sleep``, CUDA events) and host us per call (each of
@@ -37,14 +42,17 @@ written there when absent. For each run it prints:
   design must give the same columns, to the bit. A variant is a copy of
   the current source with the named ``constexpr int`` constants set to
   other values (``kColumnChunkRays``, ``kColumnMinBlocks``,
-  ``kBigBlock``); ``new`` (the source as it is) is always the first. Each
+  ``kBigBlock``, ``kBigBlockLean``, ``kTauMinBlocks``); ``new`` (the
+  source as it is) is always the first. Each
   variant's registers and spills are read from ``-Xptxas -v``;
 - the longest column ray of class2 alone (old and new): us per crossing;
-- the escape_tau walks of imaging steps 41-60 (chip_smoke.record_walks)
-  in turns, device and host us per call as above; and
-  escape_tau_cycles.py's SM cycles per crossing of the tau walk's longest
-  ray beside that ray's us per crossing times the SM clock that
-  ``nvidia-smi --query-gpu=clocks.sm`` reports while it runs.
+- for class2 and the quickstart, the escape_tau walks of imaging steps
+  41-60 (chip_smoke.record_walks) in turns, device and host us per call
+  as above; and, with class2, escape_tau_cycles.py's SM cycles per
+  crossing of the tau walk's longest ray beside that ray's us per
+  crossing times the SM clock that ``nvidia-smi --query-gpu=clocks.sm``
+  reports while it runs (scripts/escape_tau_ab.py times the walks of
+  class1_cyl and orion_amr).
 
 Prints the card and one JSON object per part, and writes
 chip_smoke_out/escape_column_ab.json unless --out names another file.
@@ -68,27 +76,12 @@ sys.path.insert(0, str(ROOT / 'scripts'))
 
 import chip_smoke as cs  # noqa: E402
 import escape_tau_ab as ab  # noqa: E402
+import escape_tau_cycles as cyc  # noqa: E402
 
 ORDER = ['old', 'new', 'new', 'old']
 K_SWEEP = (16, 32, 64, 128, 273)
 # eager calls timed on the host clock per design and turn, at least
 HOST_CALLS = 2000
-# the clock read added to the old design's walk kernel: the block's start at
-# its entry and its end after its last __syncthreads
-OLD_CLOCK = [
-    ('  extern __shared__ __align__(16) unsigned char smem[];\n'
-     '  Tables<L> g;\n',
-     '  unsigned long long clock_start;\n'
-     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clock_start));\n'),
-    ('  // the last block to finish resets the counter for the next call\n'
-     '  __syncthreads();\n',
-     '  if (threadIdx.x == 0 && block_clock != nullptr) {\n'
-     '    unsigned long long clock_end;\n'
-     '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clock_end));\n'
-     '    block_clock[2 * blockIdx.x] = clock_start;\n'
-     '    block_clock[2 * blockIdx.x + 1] = clock_end;\n'
-     '  }\n'),
-]
 
 
 def log(obj):
@@ -258,31 +251,8 @@ def build_variants(const_sets):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError('escape_column_ab: nvcc failed:\n' + text)
-        out.append((ctypes.CDLL(str(lib)), ptxas_registers(text)))
+        out.append((ctypes.CDLL(str(lib)), cyc.ptxas_registers(text)))
     return out
-
-
-def ptxas_registers(text):
-    """{kernel: (registers, spill store bytes)} from -Xptxas -v output."""
-    regs, name, spill = {}, None, 0
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?walk_kernel"
-                      r"I([fd])Li(\d)ELb(\d)ELi(\d+)E", line)
-        if m:
-            typ, kind, cols, n = m.groups()
-            name = '%s %s %s block %s' % (
-                'f32' if typ == 'f' else 'f64',
-                'sph' if kind == '1' else 'cart',
-                'columns' if cols == '1' else 'tau', n)
-            continue
-        m = re.search(r'(\d+) bytes spill stores', line)
-        if m:
-            spill = int(m.group(1))
-        m = re.search(r'Used (\d+) registers', line)
-        if m and name:
-            regs[name] = (int(m.group(1)), spill)
-            name = None
-    return regs
 
 
 def variant_walk(new, lib, geo64, rt, max_steps=100000):
@@ -301,49 +271,9 @@ def variant_walk(new, lib, geo64, rt, max_steps=100000):
 
 # ------------------------------------------------------- the old design
 
-def old_clocked(old_dir):
-    """The old design's library with the block clock (OLD_CLOCK) as a
-    ctypes library and the clock table's setter."""
-    from hyperion_tpu_torch.transport import _build
-    src = (Path(old_dir) / 'hyperion_tpu_torch/transport/csrc/escape_tau.cu'
-           ).read_text()
-    src = src.replace('namespace {\n', '__device__ unsigned long long* '
-                      'block_clock;\nnamespace {\n', 1)
-    for marker, text in OLD_CLOCK:
-        if src.count(marker) != 1:
-            raise RuntimeError('escape_column_ab: marker %r found %d times '
-                               'in the old source' % (marker,
-                                                      src.count(marker)))
-        src = src.replace(marker, marker + text)
-    src += '''
-extern "C" int set_block_clock(unsigned long long* p) {
-  return (int)cudaMemcpyToSymbol(block_clock, &p, sizeof(p));
-}
-'''
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _build.BUILD_DIR / 'escape_column_old_clocked.cu'
-    lib = _build.BUILD_DIR / 'libescape_column_old_clocked.so'
-    cu.write_text(src)
-    subprocess.run([_build._nvcc()] + _build._flags('escape_tau') +
-                   ['-o', str(lib), str(cu)], check=True)
-    return ctypes.CDLL(str(lib))
-
-
-def old_walk(old, geo64, rt, lib=None, max_steps=100000):
-    """The old design's EscapeTau (with ``lib`` in place of its own
-    library when given)."""
-    if lib is None:
-        return old.EscapeTau(ab.as_old(geo64, old), rt, max_steps=max_steps)
-    build = sys.modules['old_port.transport._build']
-    own = build._loaded.get('escape_tau')
-    build._loaded['escape_tau'] = lib
-    try:
-        return old.EscapeTau(ab.as_old(geo64, old), rt, max_steps=max_steps)
-    finally:
-        if own is None:
-            build._loaded.pop('escape_tau')
-        else:
-            build._loaded['escape_tau'] = own
+def old_walk(old, geo64, rt, max_steps=100000):
+    """The old design's EscapeTau."""
+    return old.EscapeTau(ab.as_old(geo64, old), rt, max_steps=max_steps)
 
 
 # ------------------------------------------------------------------ parts
@@ -357,7 +287,7 @@ def ends_summary(v):
                 busy_share=float(v.mean() / v[-1]))
 
 
-def column_run(name, model, calls, old, new, old_lib, variants, card):
+def column_run(name, model, calls, old, new, variants, card):
     import torch
     geo64, rt32, rt64 = tables(model)
     n_cross = crossings(geo64, rt64, calls, new)
@@ -411,14 +341,12 @@ def column_run(name, model, calls, old, new, old_lib, variants, card):
         torch.cuda.synchronize()
         ends[vname] = ends_summary(block_ends(w.block_clock))
         w.block_clock = None
-    w_clk = old_walk(old, geo64, rt32, lib=old_lib)
-    n_old = w_clk._args[old._ARGS.index('max_blocks_col')]
-    clock = torch.zeros(2 * n_old, dtype=torch.int64, device='cuda')
-    old_lib.set_block_clock(ctypes.c_void_p(clock.data_ptr()))
-    runner(w_clk)(call)
+    w_old.block_clock = torch.zeros(w_old.clock_words(), dtype=torch.int64,
+                                    device='cuda')
+    run_old(call)
     torch.cuda.synchronize()
-    old_lib.set_block_clock(None)
-    ends['old'] = ends_summary(block_ends(clock))
+    ends['old'] = ends_summary(block_ends(w_old.block_clock))
+    w_old.block_clock = None
     log(dict(part='block_ends', run=name, call=big,
              crossings=int(n_cross[big].sum()), card=card, **ends))
 
@@ -514,7 +442,6 @@ def cycles_vs_clock(card):
     tau ray (steps 41-60) beside the same ray's us per crossing (alone,
     less an empty call) times the SM clock sampled while it runs."""
     import torch
-    import escape_tau_cycles as cyc
     from hyperion_tpu_torch.transport import _build
     from hyperion_tpu_torch.transport import escape_tau as et
     make, batch = ab.MODELS['class2']
@@ -569,6 +496,7 @@ def main():
                     help='where the specific energies are read from, or '
                     'written to when absent')
     ap.add_argument('--out', default=str(cs.OUT / 'escape_column_ab.json'))
+    ap.add_argument('--models', default='class2,quickstart')
     ap.add_argument('--variant', action='append', default=[],
                     help='NAME=CONSTANT=VALUE[,CONSTANT=VALUE...]: a copy of '
                     'the current source with those constexpr constants set')
@@ -579,21 +507,31 @@ def main():
     old = ab.load_old(args.old)
     card = cs.card_line()
     print(card, flush=True)
-    old_lib = old_clocked(args.old)
+    models = args.models.split(',')
     specs = [('new', {})] + [parse_variant(spec) for spec in args.variant]
     built = build_variants([tuple(sorted(c.items())) for _, c in specs])
     variants = {}
     for (vname, consts), (lib, regs) in zip(specs, built):
         variants[vname] = (lib, consts, regs)
         log(dict(part='variant', name=vname, consts=consts, registers=regs))
-    se8, se4 = specific_energies(args.se_dir)
+    runs = []
+    if {'class2', 'quickstart'} & set(models):
+        se8, se4 = specific_energies(args.se_dir)
+        runs += [r for r in record_columns(se8, se4) if r[0] in models]
+    for name in models:
+        if name in ab.PHASE_RUNS:
+            model, _, calls = ab.record_phase(name, windows=())
+            runs.append((name, model, calls))
     out = dict(card=card, columns=[], tau=[])
-    for name, model, calls in record_columns(se8, se4):
+    for name, model, calls in runs:
         out['columns'].append(column_run(name, model, calls, old, new,
-                                         old_lib, variants, card))
-    for name, (make, batch) in ab.MODELS.items():
-        out['tau'].append(tau_run(name, make, batch, old, new, card))
-    out['cycles'] = cycles_vs_clock(card)
+                                         variants, card))
+    for name in models:
+        if name not in ab.PHASE_RUNS:
+            make, batch = ab.MODELS[name]
+            out['tau'].append(tau_run(name, make, batch, old, new, card))
+    if 'class2' in models:
+        out['cycles'] = cycles_vs_clock(card)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))
     return 0

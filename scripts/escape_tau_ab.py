@@ -3,21 +3,30 @@
 the walks the imaging step makes.
 
     git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
-    python3 scripts/escape_tau_ab.py --old _checkout/old [--models class2]
+    python3 scripts/escape_tau_ab.py --old _checkout/old \
+        [--models class2,quickstart,class1_cyl,orion_amr] \
+        [--variant NAME=CONSTANT=VALUE[,CONSTANT=VALUE...] ...]
 
 ``--old`` is a directory that holds an earlier ``hyperion_tpu_torch/``
-whose ``EscapeTau`` walks one view per call ((B,) directions: the design of
-commit 2817c65). It is loaded under another package name and builds its own
-library inside its directory. The current package records the walk calls
-of imaging steps 1-20 and 41-60 (chip_smoke's record_walks and
-WALK_WINDOWS) of class2 (examples/class2_sed.py, B = 50,000) and of the
-quickstart (B = 125,000); each call is one event of V views. For each
-window, in turns (old, new, new, old), it times every event behind a
-``torch.cuda._sleep`` between CUDA events: the old design as V launches,
-one per view, the new one as one launch. Both must give the same tau.
+whose ``EscapeTau`` walks an event's V views in one call, as the current
+one does (commit 98bb6b9, before the AMR and cylindrical crossings were
+redesigned, or a later one). It is loaded under another package name and
+builds its own library inside its directory. The current package records
+the walk calls of imaging steps 1-20 and 41-60 (chip_smoke's WALK_WINDOWS)
+of class2 (examples/class2_sed.py, B = 50,000) and of the quickstart (B =
+125,000) with chip_smoke's record_walks, and those of chip_smoke.py's
+phases 14 (BASELINE config 3, class1_cyl, cylindrical-polar, B = 25,000)
+and 17 (config 5, orion_amr, AMR, B = 131,072) from the phase's own run
+(:func:`record_phase`); each call is one event of V views. For each
+window, in turns (old, new, new, old; with ``--variant``, old, new, the
+variants, the variants again in reverse, new, old), it times every event
+behind a ``torch.cuda._sleep`` between CUDA events, each as one launch.
+Both must give the same tau.
 Then the latency of one crossing: the window's longest ray alone (its lane
 the only active one, its view the only one, at the window's B), less the
-same call with no active lane, over the ray's crossings, for both designs.
+same call with no active lane, over the ray's crossings, for both designs;
+and the registers and spill bytes of each design's walk kernels
+(escape_tau_cycles.registers, -Xptxas -v).
 Prints the card and one JSON object per window, and writes
 chip_smoke_out/escape_tau_ab.json unless --out names another file.
 """
@@ -31,12 +40,45 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / 'scripts'))
 
 import chip_smoke as cs  # noqa: E402
 
 MODELS = {'class2': (lambda: cs.class2_model(n_photons=200_000), 50_000),
-          'quickstart': (cs.tutorial_model, 125_000)}
+          'quickstart': (cs.tutorial_model, 125_000),
+          'class1_cyl': (lambda: cs.class1_cyl_model(
+              n_photons=cs.CLASS1_CYL_CUT['n_photons'],
+              n_iterations=cs.CLASS1_CYL_CUT['n_iterations'],
+              n_imaging=cs.CLASS1_CYL_CUT['n_imaging']), 25_000),
+          'orion_amr': (lambda: cs.orion_amr_model(
+              cs.AMR_CUT['n_photons'], cs.AMR_CUT['n_iterations'],
+              cs.AMR_CUT['n_imaging'])[0], cs.AMR_CUT['batch_size'])}
+# the models whose calls are those of chip_smoke.py's phase, from its run:
+# run_lucy_model's batch and Lucy step cap
+PHASE_RUNS = {'class1_cyl': dict(batch_size=None,
+                                 max_steps=cs.CLASS1_CYL_CUT['max_steps']),
+              'orion_amr': dict(batch_size=cs.AMR_CUT['batch_size'],
+                                max_steps=cs.AMR_CUT['max_steps'])}
 ORDER = ['old', 'new', 'new', 'old']
+
+
+def record_phase(name, windows=cs.WALK_WINDOWS):
+    """The calls of chip_smoke.py's phase 14 (class1_cyl) or 17
+    (orion_amr): the phase's model, photons and Lucy step cap through
+    run_lucy_model on the card, as the phase runs them, with its imaging
+    iteration cut at the last window's end (the calls of the steps before
+    are the phase's; the raytracing pass draws from its own generator).
+    Returns (model, {window: walk calls}, column calls)."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+    model = MODELS[name][0]()
+    with cs.walk_calls(windows) as wcalls, cs.column_calls() as ccalls:
+        run_lucy_model(model, device='cuda',
+                       imaging_max_steps=max([last for _, last in windows],
+                                             default=1),
+                       **PHASE_RUNS[name])
+    torch.cuda.synchronize()
+    return model, wcalls, [c for _, c in ccalls]
 
 
 def load_old(directory):
@@ -67,14 +109,6 @@ def event_us(run, calls, reps=2):
         torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e3 \
         / len(calls)
-
-
-def views(call):
-    """The old design's calls of one event: one per view."""
-    t_max = call[9]
-    return [(call[:4] + [k[v] for k in call[4:7]] + call[7:9],
-             None if t_max is None else t_max[v])
-            for v in range(call[4].shape[0])]
 
 
 def longest_ray(geo64, rt64, calls, et):
@@ -110,32 +144,48 @@ def as_old(geometry, old):
     """The same geometry tables as an instance of the old package's class
     (its EscapeTau checks the class)."""
     import dataclasses
-    name = type(geometry).__name__
-    module = importlib.import_module(
-        'old_port.transport.' + ('gtable_spherical' if name ==
-                                 'SphericalGeometry' else 'gtable'))
-    return getattr(module, name)(**{f.name: getattr(geometry, f.name)
-                                    for f in dataclasses.fields(geometry)})
+    module = importlib.import_module(type(geometry).__module__.replace(
+        'hyperion_tpu_torch', 'old_port', 1))
+    return getattr(module, type(geometry).__name__)(
+        **{f.name: getattr(geometry, f.name)
+           for f in dataclasses.fields(geometry)})
 
 
-def window(old, new, kind, steps, calls, geo64, rt32, rt64, card):
+def window(old, new, kind, steps, calls, geo64, rt32, rt64, card,
+           variants=None):
+    """One window's calls: the designs in turns, the same tau from each,
+    the longest ray's crossing. ``variants``: {name: ctypes library} of
+    copies of the current source with other constants
+    (escape_column_ab.build_variants), timed in turns after ``new``."""
     import torch
+    import escape_column_ab as cab
     w_old = old.EscapeTau(as_old(geo64, old), rt32)
     w_new = new.EscapeTau(geo64, rt32)
+    w_var = {name: cab.variant_walk(new, lib, geo64, rt32)
+             for name, lib in (variants or {}).items()}
+
+    def run_old(call):
+        return w_old(*call[:9], t_max=call[9])
     # the same tau from both
     for call in calls:
         tau = w_new(*call[:9], t_max=call[9])
-        ref = torch.stack([w_old(*lanes, t_max=tm) for lanes, tm in
-                           views(call)])
+        ref = run_old(call)
         if not torch.equal(tau, ref):
             raise AssertionError('%s %s: the designs disagree by %g'
                                  % (kind, steps, float((tau - ref).abs()
                                                        .max())))
-    runs = {'old': lambda call: [w_old(*lanes, t_max=tm)
-                                 for lanes, tm in views(call)],
+    runs = {'old': run_old,
             'new': lambda call: w_new(*call[:9], t_max=call[9])}
+    for name, w in w_var.items():
+        runs[name] = lambda call, w=w: w(*call[:9], t_max=call[9])
+        for call in calls:
+            if not torch.equal(runs[name](call), runs['new'](call)):
+                raise AssertionError('%s %s: variant %s disagrees'
+                                     % (kind, steps, name))
+    order = ['old', 'new'] + list(w_var)
+    order = order + order[::-1]
     turns = [dict(design=d, device_us_per_event=event_us(runs[d], calls))
-             for d in ORDER]
+             for d in order]
     # one crossing's latency: the longest ray alone, less an empty call
     c, v, i, n_cross = longest_ray(geo64, rt64, calls, new)
     call = calls[c]
@@ -150,9 +200,13 @@ def window(old, new, kind, steps, calls, geo64, rt32, rt64, card):
         us = [event_us(runs[design], [x], reps=5) for x in lone]
         latency[design] = dict(alone_us=us[0], empty_us=us[1],
                                us_per_crossing=(us[0] - us[1]) / n_cross)
+    plans = {d: getattr(w, 'plan', {}).get('resident_blocks')
+             for d, w in [('old', w_old), ('new', w_new)] +
+             list(w_var.items())}
     out = dict(model=kind, steps=steps, calls=len(calls),
                views=sum(x[4].shape[0] for x in calls), turns=turns,
-               longest_ray_crossings=n_cross, latency=latency, card=card)
+               longest_ray_crossings=n_cross, latency=latency,
+               resident_blocks=plans, card=card)
     print(json.dumps(out), flush=True)
     return out
 
@@ -168,26 +222,49 @@ def main():
                     help='a directory holding an earlier hyperion_tpu_torch/')
     ap.add_argument('--models', default='class2,quickstart')
     ap.add_argument('--out', default=str(cs.OUT / 'escape_tau_ab.json'))
+    ap.add_argument('--variant', action='append', default=[],
+                    help='NAME=CONSTANT=VALUE[,CONSTANT=VALUE...]: a copy of '
+                    'the current source with those constexpr constants set, '
+                    'timed after the current one')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('escape_tau_ab: needs an NVIDIA card', file=sys.stderr)
         return 1
+    import escape_tau_cycles as cyc
     old = load_old(args.old)
     card = cs.card_line()
     print(card, flush=True)
+    old_src = Path(args.old) / 'hyperion_tpu_torch/transport/csrc/escape_tau.cu'
+    print(json.dumps(dict(registers=dict(old=cyc.registers(old_src),
+                                         new=cyc.registers()),
+                          card=card)), flush=True)
+    variants = {}
+    if args.variant:
+        import escape_column_ab as cab
+        specs = [cab.parse_variant(v) for v in args.variant]
+        for (name, consts), (lib, regs) in zip(
+                specs, cab.build_variants([tuple(sorted(c.items()))
+                                           for _, c in specs])):
+            variants[name] = lib
+            print(json.dumps(dict(variant=name, consts=consts,
+                                  registers=regs, card=card)), flush=True)
     dev = torch.device('cuda')
     rows = []
     for name in args.models.split(','):
         make, batch = MODELS[name]
-        model = make()
-        rho32, calls = cs.record_walks(model, batch, cs.WALK_WINDOWS)
+        if name in PHASE_RUNS:
+            model, calls, _ = record_phase(name)
+        else:
+            model = make()
+            _, calls = cs.record_walks(model, batch, cs.WALK_WINDOWS)
         geo64 = build_geometry_tables(model.grid, dev, torch.float64)
+        rho32 = _density_array(model, geo64.length_scale, dev, torch.float32)
         rho64 = _density_array(model, geo64.length_scale, dev, torch.float64)
         for first, last in cs.WALK_WINDOWS:
             rows.append(window(old, new, name, '%d-%d' % (first + 1, last),
                                calls[(first, last)], geo64,
                                rho32.T.contiguous(), rho64.T.contiguous(),
-                               card))
+                               card, variants))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(rows, indent=1))
     return 0

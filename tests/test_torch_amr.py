@@ -9,9 +9,12 @@ whose fabs of one level share faces.
   along a diagonal: ``find_cell``, ``in_cell_tol`` and ``find_wall``'s next
   cell equal the JAX functions, its distance and ``closest_wall_distance``
   to rtol 1e-12.
-- The finest-first fab search of the kernel (its plain version,
-  :func:`locate_finest_first` here) equals the locate's argmax on every
-  point of those rays and of their wall probes.
+- The fab searches of the kernel (the finest-first search,
+  :func:`locate_finest_first` here, and the indexed locate of
+  AMRGeometry.locate_indexed) equal the locate's argmax and the JAX
+  package's find_cell on every point of those rays (and of rays on the
+  index's bin edges) and of their wall probes, also on grids whose levels
+  leave gaps and whose fabs of one level overlap.
 - The uniform-density chord oracle of tests/test_amr_transport.py at rtol
   1e-8; the plain tau and column walks against JAX's ``escape_tau_walk``
   and ``escape_column_walk`` at rtol 1e-12.
@@ -65,6 +68,18 @@ THREE_LEVEL = [
     (2, (-0.25, 0.25, -0.25, 0.25, -0.25, 0.0), (8, 8, 4)),
     (2, (-0.25, 0.25, -0.25, 0.25, 0.0, 0.25), (8, 8, 4))]
 GRIDS = {'two_level': TWO_LEVEL, 'three_level': THREE_LEVEL}
+# a level whose fabs leave a gap between them (and miss part of its box),
+# with a finer fab inside one of them
+GAPS = [(0, (-1.0, 1.0) * 3, (8, 8, 8)),
+        (1, (-0.75, -0.25, -0.5, 0.5, -0.5, 0.5), (4, 8, 8)),
+        (1, (0.25, 0.75, -0.5, 0.5, -0.5, 0.5), (4, 8, 8)),
+        (2, (0.375, 0.625, -0.125, 0.125, -0.125, 0.125), (4, 4, 4))]
+# two fabs of one level that overlap, with cells that do not line up: the
+# first in index order holds the points they share
+OVERLAP = [(0, (-1.0, 1.0) * 3, (8, 8, 8)),
+           (1, (-0.5, 0.25, -0.5, 0.5, -0.5, 0.5), (6, 8, 8)),
+           (1, (-0.25, 0.5, -0.5, 0.25, -0.375, 0.5), (5, 6, 7))]
+LOCATE_GRIDS = dict(GRIDS, gaps=GAPS, overlap=OVERLAP)
 
 
 def amr_grid(fabs, package='port', scale=1.0, density=None):
@@ -108,13 +123,23 @@ def _walls(pg):
             for a in range(3)]
 
 
-def _rays(pg, n=8000, seed=41):
+def _bin_edges(pg):
+    """Every bin edge of every level's lattice of the indexed locate
+    (AMRGeometry.level_index), per axis."""
+    floats, ints = pg.level_index()
+    return [np.unique(np.concatenate([
+        floats[li, a] + np.arange(ints[8 * li + a] + 1) / floats[li, 3 + a]
+        for li in range(len(floats))])) for a in range(3)]
+
+
+def _rays(pg, n=8000, seed=41, bins=False):
     """Positions (3, n) and unit directions (3, n) in engine units on the
     port's CPU float64 geometry: a third of the points with one coordinate
     on a cell wall of some fab (fab faces among them), a ninth at a
     corner of walls, the rest anywhere in [-1, 1]^3 of the grid; directions
     along an axis, parallel to a face (one component 0), along a diagonal,
-    or any."""
+    or any. With ``bins``, a fifth of the points then get one coordinate on
+    a bin edge of the indexed locate's lattices, and a tenth all three."""
     rng = np.random.default_rng(seed)
     walls = _walls(pg)
     top = float(pg.fab_hi.max())
@@ -125,6 +150,12 @@ def _rays(pg, n=8000, seed=41):
         w = rng.choice(walls[a], n)
         pos[a] = np.where(((kind <= 2) & (axis == a)) | (kind == 3), w,
                           pos[a])
+    if bins:
+        on_bin = rng.integers(0, 10, n)
+        for a, edges in enumerate(_bin_edges(pg)):
+            e = rng.choice(edges, n)
+            pos[a] = np.where(((on_bin <= 1) & (axis == a)) | (on_bin == 2),
+                              e, pos[a])
     k = rng.normal(size=(3, n))
     style = rng.integers(0, 8, n)
     for a in range(3):
@@ -190,9 +221,18 @@ def test_amr_geometry_matches_jax(name):
         np.asarray(jg.in_cell_tol(cj, *args_j[:3])))
 
 
+def search_order(geo):
+    """The fabs in the order of the finest-first search: levels from the
+    finest down, each level's fabs in index order. The first fab in this
+    order that holds a point is the one the locate's argmax picks (the
+    highest level, and the first fab of it on a tie)."""
+    level = geo.fab_level.cpu().numpy()
+    return np.lexsort((np.arange(len(level)), -level)).astype(np.int32)
+
+
 def locate_finest_first(geo, x, y, z, kx, ky, kz):
-    """The plain version of the kernel's fab search: fabs in
-    ``geo.search_order()``, each lane stopping at the first that holds it.
+    """The plain version of a finest-first fab search: fabs in
+    ``search_order(geo)``, each lane stopping at the first that holds it.
     Returns the flat cell ids (ESCAPED where no fab does)."""
     ix, okx = geo._axis_index(x, kx, 0)
     iy, oky = geo._axis_index(y, ky, 1)
@@ -201,7 +241,7 @@ def locate_finest_first(geo, x, y, z, kx, ky, kz):
     cell = torch.full(x.shape, ESCAPED, dtype=torch.int64)
     done = torch.zeros(x.shape, dtype=torch.bool)
     nf = geo.fab_n.long()
-    for f in geo.search_order().tolist():
+    for f in search_order(geo).tolist():
         hit = inside[:, f] & ~done
         c = geo.fab_offset[f] + (iz[:, f].long() * nf[f, 1] +
                                  iy[:, f].long()) * nf[f, 0] + ix[:, f].long()
@@ -210,31 +250,92 @@ def locate_finest_first(geo, x, y, z, kx, ky, kz):
     return cell
 
 
-@pytest.mark.parametrize('name', sorted(GRIDS))
-def test_finest_first_search_equals_argmax(name):
-    """The kernel's fab search (finest level first, each level's fabs in
-    index order, the first fab that holds the point) picks the locate's
-    argmax cell on every point: the rays' starts, with the direction
-    rule on walls and fab faces, and their wall probes."""
-    _, pg = _pair(name)
-    pos, k = _rays(pg, n=20000, seed=9)
+def locate_indexed(geo, x, y, z, kx, ky, kz):
+    """The plain version of the kernel's indexed locate."""
+    return geo.locate_indexed(x, y, z, kx, ky, kz)
+
+
+SEARCHES = {'finest_first': locate_finest_first, 'indexed': locate_indexed}
+
+
+@pytest.mark.parametrize('name', sorted(LOCATE_GRIDS))
+@pytest.mark.parametrize('search', sorted(SEARCHES))
+def test_finest_first_search_equals_argmax(search, name):
+    """The kernel's fab searches (the finest-first search over every fab,
+    and the indexed locate: each level's lattice of bins from the finest
+    level down) pick the locate's argmax cell on every point: the rays'
+    starts, with the direction rule on walls, fab faces and bin edges, and
+    their wall probes; and the JAX package's find_cell on the starts. On
+    grids whose levels leave gaps and whose fabs of one level overlap."""
+    fabs = LOCATE_GRIDS[name]
+    pg = build_amr_geometry(amr_grid(fabs), CPU, F64)
+    pos, k = _rays(pg, n=20000, seed=9, bins=True)
     t = [torch.as_tensor(a) for a in (*pos, *k)]
     ref = pg.find_cell(*t)
-    np.testing.assert_array_equal(locate_finest_first(pg, *t).numpy(),
+    np.testing.assert_array_equal(SEARCHES[search](pg, *t).numpy(),
                                   ref.numpy())
+    jg = j_geometry(amr_grid(fabs, 'jax'), dtype=jnp.float64)
+    np.testing.assert_array_equal(
+        ref.numpy(), np.asarray(jg.find_cell(*[jnp.asarray(a)
+                                               for a in (*pos, *k)])))
     # the probes half a finest cell past each crossed wall
     inside = ref >= 0
+    assert inside.sum() > 15000
     tt, _, ax, wall = pg.find_wall(ref[inside], *[a[inside] for a in t])
     sgn = [torch.where(a[inside] > 0, 1.0, -1.0).double() for a in t[3:]]
     probe = [torch.where(ax == a, wall + 0.5 * pg.min_dx[a] * sgn[a],
                          t[a][inside] + tt * t[3 + a][inside])
              for a in range(3)]
     np.testing.assert_array_equal(
-        locate_finest_first(pg, *probe, *[a[inside] for a in t[3:]]).numpy(),
+        SEARCHES[search](pg, *probe, *[a[inside] for a in t[3:]]).numpy(),
         pg.find_cell(*probe, *[a[inside] for a in t[3:]]).numpy())
-    order = pg.search_order()
+    order = search_order(pg)
     levels = pg.fab_level.numpy()[order]
     assert (np.diff(levels) <= 0).all()
+
+
+def test_kernel_tables_carry_the_level_index():
+    """What EscapeTau binds on an AMR grid (escape_tau.kernel_tables): the
+    levels' lattices as the fourth wall table, and the fabs' cell counts,
+    offsets and the level index as one int32 table of 4 x fabs + 1 +
+    index_len words (csrc/escape_tau.cu's ints_len)."""
+    from hyperion_tpu_torch.transport.escape_tau import kernel_tables
+    pg = build_amr_geometry(amr_grid(GAPS), CPU, F64)
+    kind, walls, ints, sizes, aux, levels, index_len, _, _ = \
+        kernel_tables(pg)
+    floats, index = pg.level_index()
+    assert (kind, aux, levels, index_len) == (4, 4, 3, len(index))
+    assert sizes == (pg.n_cells, 1, 1)
+    assert walls[3].dtype == F64 and walls[3].shape == (3, 8)
+    np.testing.assert_array_equal(walls[3].numpy(), floats)
+    assert ints.dtype == torch.int32 and len(ints) == 4 * aux + 1 + index_len
+    np.testing.assert_array_equal(ints[4 * aux + 1:].numpy(), index)
+    np.testing.assert_array_equal(ints[3 * aux:4 * aux + 1].numpy(),
+                                  pg.fab_offset.numpy())
+
+
+def test_level_index_tables():
+    """The indexed locate's tables: on the three-level grid, whose levels
+    each tile a box, one fab in every bin's core list, the levels from the
+    finest down, each fringe list the level's fabs in index order; on the
+    gap grid, empty core lists in the gap."""
+    pg = build_amr_geometry(amr_grid(THREE_LEVEL), CPU, F64)
+    floats, ints = pg.level_index()
+    level = pg.fab_level.numpy()
+    assert len(floats) == 3
+    for li, lev in enumerate((2, 1, 0)):
+        head = ints[8 * li:8 * li + 8]
+        n_bins = int(np.prod(head[:3]))
+        starts = ints[head[3]:head[3] + n_bins + 1]
+        assert (np.diff(starts) == 1).all()
+        assert ints[head[4]:head[5]].tolist() == \
+            np.nonzero(level == lev)[0].tolist()
+    pg = build_amr_geometry(amr_grid(GAPS), CPU, F64)
+    floats, ints = pg.level_index()
+    head = ints[8:16]          # level 1: two fabs with a gap between
+    assert head[:3].tolist() == [3, 1, 1]
+    starts = ints[head[3]:head[3] + 4]
+    assert np.diff(starts).tolist() == [1, 0, 1]
 
 
 def test_uniform_density_chord_oracle():
@@ -500,19 +601,23 @@ def cuda_device():
 @pytest.mark.parametrize('name,limited,dtype', [
     ('three_level', False, torch.float64), ('two_level', True, torch.float64),
     ('three_level', False, torch.float32),
-    ('three_level', True, torch.float32)],
+    ('three_level', True, torch.float32), ('gaps', False, torch.float64),
+    ('overlap', True, torch.float64), ('gaps', True, torch.float32)],
     ids=['three_level', 'two_level_limited', 'three_level_f32',
-         'three_level_limited_f32'])
+         'three_level_limited_f32', 'gaps', 'overlap_limited',
+         'gaps_limited_f32'])
 def test_kernel_matches_plain_walk_on_card(name, limited, dtype,
                                            cuda_device):
     """The AMR crossing of escape_tau.cu (tau and column modes, the fab
-    tables in shared memory, the finest-first search) against the plain
-    walk on the same rays (on walls, fab faces and corners, along axes,
-    parallel to faces and along diagonals): float64 tau to rtol 1e-10 and
-    columns to 0; float32 lanes equal to their own plain walk."""
+    and level tables in shared memory, the fab carried with the lane, the
+    indexed locate) against the plain walk on the same rays (on walls, fab
+    faces and corners, along axes, parallel to faces and along diagonals),
+    also on a grid whose levels leave gaps and one whose fabs of a level
+    overlap: float64 tau to rtol 1e-10 and columns to 0; float32 lanes
+    equal to their own plain walk."""
     pos, k, cell, active, density, chi, t_max = _walk_inputs(
-        build_amr_geometry(amr_grid(GRIDS[name]), CPU, F64), n=20000)
-    pg = build_amr_geometry(amr_grid(GRIDS[name]), cuda_device, F64)
+        build_amr_geometry(amr_grid(LOCATE_GRIDS[name]), CPU, F64), n=20000)
+    pg = build_amr_geometry(amr_grid(LOCATE_GRIDS[name]), cuda_device, F64)
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(cuda_device, dt)
@@ -585,6 +690,10 @@ def test_tables_from_numpy_carry_box_geometries(kind):
                                 F64)[2]
     assert type(carried) is type(built)
     _assert_fields_equal(built, carried)
+    if kind == 'amr':
+        # the indexed locate's tables, built from the carried tables
+        for a, b in zip(built.level_index(), carried.level_index()):
+            np.testing.assert_array_equal(a, b)
     if kind == 'octree':
         # and from the JAX float32 tables, the walls exact in float32
         j32 = j_octree(grid_j, dtype=jnp.float32)

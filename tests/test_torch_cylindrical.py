@@ -219,6 +219,54 @@ def _walk_inputs(pg, n=3000, n_dust=2, seed=43):
     return pos, k, np.maximum(cell, 0), active, density, chi, t_max
 
 
+def _rim_grid(package):
+    """Shells as thin at the rim as config 3's (27 shells over 7.6e-11 of
+    the grid, ROADMAP.md section 3) at w = 0.01, then log-spaced ones, z
+    walls crowded toward the midplane, one phi cell."""
+    ww = np.hstack([0.0, 0.01 + np.linspace(0.0, 7.6e-11, 28),
+                    np.geomspace(0.02, 1.0, 8)])
+    t = np.linspace(-1.0, 1.0, 9)
+    return frontend(package).CylindricalPolarGrid(
+        ww, t * np.abs(t) * 0.8, [0.0, 2.0 * np.pi])
+
+
+def _rim_walk_inputs(device, n=20000, n_dust=2, seed=53):
+    """The rim grid's CPU float64 geometry and rays on it (the inputs of
+    :func:`_walk_inputs`): a third from points in the rim's thin shells,
+    a third on lines tangent to a cylinder (the point at x = w_j, y = 0,
+    where the discriminant is exactly 0, or at any y; directions along y,
+    in a z plane or tilted), the rest as :func:`_rays` makes them."""
+    pg = build_cylindrical_geometry(_rim_grid('port'), device, F64)
+    rng = np.random.default_rng(seed)
+    pos, k = _rays(pg, n=n, seed=seed)
+    ww = pg.ww.cpu().numpy()
+    zw = pg.zw.cpu().numpy()
+    kind = rng.integers(0, 3, n)
+    # points in the rim's shells
+    w = ww[1] + rng.uniform(0.0, 1.2, n) * (ww[28] - ww[1])
+    phi = rng.uniform(0, 2 * np.pi, n)
+    z = rng.uniform(zw[0], zw[-1], n)
+    rim = kind == 0
+    pos[:, rim] = np.stack([w * np.cos(phi), w * np.sin(phi), z])[:, rim]
+    # lines tangent to cylinder j: x = w_j, directions along +-y
+    tan = kind == 1
+    j = rng.integers(1, len(ww), n)
+    y0 = np.where(rng.random(n) < 0.5, 0.0, rng.uniform(-0.5, 0.5, n))
+    pos[:, tan] = np.stack([ww[j], y0, z])[:, tan]
+    kt = np.stack([np.zeros(n), rng.choice([-1.0, 1.0], n),
+                   rng.choice([0.0, 0.3], n)])
+    k[:, tan] = (kt / np.linalg.norm(kt, axis=0))[:, tan]
+    rng = np.random.default_rng(seed + 1)
+    cell = pg.find_cell(*[torch.as_tensor(a, device=device)
+                          for a in (*pos, *k)]).cpu().numpy()
+    active = (cell >= 0) & (rng.random(n) < 0.9)
+    density = rng.uniform(0.0, 3.0, (n_dust, pg.n_cells))
+    density[:, rng.random(pg.n_cells) < 0.1] = 0.0
+    chi = rng.uniform(0.5, 2.0, (n, n_dust))
+    t_max = np.where(rng.random(n) < 0.3, rng.uniform(0.0, 1.0, n), np.inf)
+    return pg, (pos, k, np.maximum(cell, 0), active, density, chi, t_max)
+
+
 def _through_axis(pos, k):
     """Rays whose line meets the z axis (within 1e-7; as
     tests/test_torch_escape_tau.py leaves them out of its spherical
@@ -370,15 +418,24 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize('n3,limited,dtype', [
     (1, False, torch.float64), (6, True, torch.float64),
-    (6, False, torch.float32)], ids=['n3=1', 'n3=6_limited', 'n3=6_f32'])
+    (6, False, torch.float32), ('rim', False, torch.float64),
+    ('rim', True, torch.float32)],
+    ids=['n3=1', 'n3=6_limited', 'n3=6_f32', 'rim', 'rim_limited_f32'])
 def test_kernel_matches_plain_walk_on_card(n3, limited, dtype, cuda_device):
-    """The cylindrical crossing of escape_tau.cu (tau and column modes)
-    against the plain walk on the same rays (grazing, axial, on walls):
-    float64 tau to rtol 1e-10 and columns to 0; float32 lanes equal to
-    their own plain walk."""
-    pos, k, cell, active, density, chi, t_max = _walk_inputs(
-        build_cylindrical_geometry(_grid('port', n3), CPU, F64), n=20000)
-    pg = build_cylindrical_geometry(_grid('port', n3), cuda_device, F64)
+    """The cylindrical crossing of escape_tau.cu (tau and column modes, the
+    Fast arithmetic with its Exact retry) against the plain walk on the
+    same rays (grazing, axial, on walls; on the rim grid, from its thin
+    shells and tangent to its cylinders): float64 tau to rtol 1e-10 and
+    columns to 0; float32 lanes equal to their own plain walk."""
+    if n3 == 'rim':
+        _, (pos, k, cell, active, density, chi, t_max) = \
+            _rim_walk_inputs(CPU)
+        pg = build_cylindrical_geometry(_rim_grid('port'), cuda_device, F64)
+    else:
+        pos, k, cell, active, density, chi, t_max = _walk_inputs(
+            build_cylindrical_geometry(_grid('port', n3), CPU, F64),
+            n=20000)
+        pg = build_cylindrical_geometry(_grid('port', n3), cuda_device, F64)
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(cuda_device, dt)

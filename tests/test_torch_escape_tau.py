@@ -716,3 +716,24 @@ def test_block_clock_on_card(columns, cuda_device):
     assert ran.sum() >= 1 and (c[ran, 1] >= c[ran, 0]).all()
     walk.block_clock = None
     assert torch.equal(call(), plain)
+
+
+def test_cycle_probes_match_the_kernel_source():
+    """scripts/escape_tau_cycles.py finds each of its markers in the
+    kernel's source as often as it should (the redesigned crossings'
+    set), so that its instrumented copy splits the crossings it
+    measures."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / 'scripts' / \
+        'escape_tau_cycles.py'
+    spec = importlib.util.spec_from_file_location('escape_tau_cycles', path)
+    cyc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cyc)
+    src = (Path(et.__file__).parent / 'csrc' / 'escape_tau.cu').read_text()
+    name, markers = cyc.marker_set(src)
+    assert name == 'indexed'
+    probed = cyc.instrumented_source()
+    for slot in ('walls', 'box_exit', 'locate', 'rest', 'candidates',
+                 'find_cell'):
+        assert 'atomicAdd(&probe[%d]' % cyc.SLOTS[slot] in probed
