@@ -2052,6 +2052,18 @@ def voronoi_table_bytes(geo, rows_read, site_bytes):
     return 4 * ids + site_bytes * int(touched.sum())
 
 
+def voronoi_packed_bytes(geo, rows_read, starts, site_bytes):
+    """The bytes of a Voronoi grid's packed rows (gtable_voronoi.py
+    packed_rows) that walks from the cells ``starts`` reading the rows of
+    the cells where ``rows_read`` (n_cells,) > 0 touch, each read once:
+    each such row's entries (its neighbour's site, ``site_bytes``, and
+    (id, offset), 8 bytes), its two offsets, and the start cells' sites."""
+    on = rows_read > 0
+    deg = (geo.neigh[on] >= 0).sum(dim=1)
+    return (site_bytes + 8) * int(deg.sum()) + 8 * int(on.sum()) + \
+        site_bytes * int(starts.unique().numel())
+
+
 def _given_specific_energy(model, se):
     """Give ``model`` the (n_dust, n_cells) specific energy ``se`` as its
     grid's, to start from with no Lucy iteration."""
@@ -2464,12 +2476,14 @@ def check_columns(what, kind, calls, tables, card):
                         .abs().max()) for call, p in zip(some, plain))
     t_bytes = nbytes / len(calls) / HBM_BYTES_PER_S * 1e6
     t_ops = flops / len(calls) / FP64_FLOPS * 1e6
+    kernel = column_kernel_resources(geo64, walk32.plan['big_col'])
     out = dict(run=what, model=kind, calls=len(calls),
                views=sum(c[3].shape[0] for c in calls),
                B=calls[0][7].shape[0], n_dust=n_dust, rays=n_rays,
                f64_max_rel_err=worst64, f32_max_rel_err_vs_f64=worst32,
                f32_rays_outside=n_far, f32_ne_plain32=n_ne32,
                f32_vs_plain32_max_abs_err=max_err, longest_walk=max_cross,
+               column_kernel=kernel,
                plan=walk32.plan, device_us=device_us / len(calls),
                host_us=host_us, plain_ms=plain_ms,
                bound_us=max(t_bytes, t_ops),
@@ -2483,16 +2497,39 @@ def check_columns(what, kind, calls, tables, card):
           '(max abs err %.3e on %d timed calls); longest walk %d '
           'crossings; device %.2f us per call, host %.2f us per call, plain '
           '%.3f ms, bound %.3f us (%s: %.0f bytes, %.0f float64 flops per '
-          'call) [%s]'
+          'call); the float32 kernel in blocks of %s threads, %s registers, '
+          '%s bytes of spill stores [%s]'
           % (what, kind, len(calls), out['views'], out['B'], n_rays,
              worst64, worst32, n_far, ESCAPE_TAU_RTOL32, n_ne32, max_err,
              len(some), max_cross, out['device_us'], host_us, plain_ms,
              out['bound_us'], out['bound_by'], out['bytes_per_call'],
-             out['flops_per_call'], card))
+             out['flops_per_call'], kernel['block'], kernel['registers'],
+             kernel['spill_store_bytes'], card))
     if worst64 > 0.0 or n_far or n_ne32 or max_err > 0.0:
         raise AssertionError('escape_column %s: the kernel against its '
                              'plain version: %s' % (what, out))
     return out
+
+
+def column_kernel_resources(geo64, big_col):
+    """The float32 column kernel that a grid's calls launch: its block, and
+    its registers and spill store bytes as ptxas reported them when
+    phase 2 built the library (None where the library was built
+    elsewhere). A kind's column kernel comes in blocks of 128 threads and,
+    where it may take the density into opt-in shared memory, in one larger
+    block; ``big_col`` (the plan's) says which of the two the calls
+    launch."""
+    import re
+    from hyperion_tpu_torch.transport import _build
+    from hyperion_tpu_torch.transport import escape_tau as et
+    name = re.compile(r'walk_kernelIfLi%dELb1ELi(\d+)E'
+                      % et.kernel_tables(geo64)[0])
+    res = [(int(m.group(1)),) + r for m, r in (
+        (name.search(entry), r) for entry, r in _build.ptxas_resources(
+            _build.ptxas_log('escape_tau')).items())
+        if m and (int(m.group(1)) != 128) == big_col]
+    block, regs, spill = res[0] if res else (None, None, None)
+    return dict(block=block, registers=regs, spill_store_bytes=spill)
 
 
 def column_phase(card, runs):
@@ -3652,7 +3689,8 @@ def check_locate(what, calls, card):
     synchronise), the plain version's, and the bound (lanes read and cells
     written once, the lattice entries, neighbour rows and sites that the
     plain walks read, once; the walks' operations, LOCATE_FLOPS_*, in the
-    sites' type)."""
+    sites' type). Beside the bound's bytes, those of the same walks over
+    the packed rows that the kernel reads (voronoi_packed_bytes)."""
     import torch
     from hyperion_tpu_torch.transport import voronoi_locate as vl
 
@@ -3663,6 +3701,7 @@ def check_locate(what, calls, card):
     elem = geo.sites.element_size()
     fp_rate = FP64_FLOPS if elem == 8 else FP32_FLOPS
     n_lanes = n_ne = n_cap = rows_read = nbrs_read = nbytes = flops = 0
+    packed = 0
     for loc, start, x, y, z, cells in calls:
         visits = torch.zeros(geo.n_cells, dtype=torch.int64, device=x.device)
         B = x.shape[0]
@@ -3671,13 +3710,15 @@ def check_locate(what, calls, card):
                                            at_cap=True)
             inside = vl.inside_box(loc.geo, x, y, z)
             lattice = vl.lattice_index(loc.geo, x, y, z)[inside]
-            nbytes += 4 * int(torch.unique(lattice).numel())
+            common = 4 * int(torch.unique(lattice).numel())
             flops += LOCATE_FLOPS_LATTICE * B
+            first = loc.geo.lookup[lattice]
         else:
             ref, cap = vl.owner_walk_reference(
                 loc.geo.sites, loc.geo.neigh, start, x, y, z,
                 loc.geo.walk_steps, visits)
-            nbytes += 8 * B
+            common = 8 * B
+            first = start
         again = loc.locate(x, y, z) if start is None else \
             loc.walk_from(start, x, y, z)
         n_ne += int((cells != ref).sum() + (again != ref).sum())
@@ -3689,8 +3730,9 @@ def check_locate(what, calls, card):
         nbrs_read += nbrs
         flops += LOCATE_FLOPS_PER_LANE * B + rows + \
             LOCATE_FLOPS_PER_NEIGHBOUR * nbrs
-        nbytes += (3 * elem + 8) * B + \
-            voronoi_table_bytes(geo, visits, 3 * elem)
+        common += (3 * elem + 8) * B
+        nbytes += common + voronoi_table_bytes(geo, visits, 3 * elem)
+        packed += common + voronoi_packed_bytes(geo, visits, first, 3 * elem)
 
     def launch(call):
         loc, start, x, y, z, _ = call
@@ -3735,18 +3777,20 @@ def check_locate(what, calls, card):
                bound_us=max(t_bytes, t_ops),
                bound_by='bytes' if t_bytes >= t_ops else 'operations',
                bytes_per_call=nbytes / len(calls),
+               packed_bytes_per_call=packed / len(calls),
                flops_per_call=flops / len(calls))
     phase('voronoi_locate %s (%d calls, %d lanes, %s sites, walk_steps %d, '
           'K %d): %d cells differ from the plain version (the run\'s and a '
           'relaunch\'s); %d lanes at the cap; %.3f rows and %.2f neighbours '
           'read a lane; device %.2f us per call, host %.2f us per call, '
           'plain %.3f ms, bound %.3f us (%s: %.0f bytes, %.0f flops per '
-          'call) [%s]'
+          'call; over the packed rows %.0f bytes) [%s]'
           % (what, len(calls), n_lanes, out['dtype'], geo.walk_steps,
              out['K'], n_ne, n_cap, out['rows_per_lane'],
              out['neighbours_per_lane'], out['device_us'], host_us,
              plain_ms, out['bound_us'], out['bound_by'],
-             out['bytes_per_call'], out['flops_per_call'], card))
+             out['bytes_per_call'], out['flops_per_call'],
+             out['packed_bytes_per_call'], card))
     if n_ne:
         raise AssertionError('voronoi_locate %s: the kernel against its '
                              'plain version: %s' % (what, out))

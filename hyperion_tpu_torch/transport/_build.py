@@ -9,6 +9,7 @@ Nothing is built at import time."""
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -20,9 +21,10 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 # flags of one source on top of NVCC_FLAGS: escape_tau and voronoi_locate
 # keep a*b + c as two roundings, as PyTorch's element-wise kernels do (see
-# their source notes)
-EXTRA_FLAGS = {'escape_tau': ['-fmad=false'],
-               'voronoi_locate': ['-fmad=false']}
+# their source notes); ptxas reports each kernel's registers and spills
+# (ptxas_log)
+EXTRA_FLAGS = {'escape_tau': ['-fmad=false', '-Xptxas', '-v'],
+               'voronoi_locate': ['-fmad=false', '-Xptxas', '-v']}
 
 _loaded = {}
 
@@ -47,10 +49,38 @@ def library_path(name):
     return BUILD_DIR / ('lib%s_%s.so' % (name, digest[:16]))
 
 
+def ptxas_log(name):
+    """What nvcc printed while building the current library of
+    ``csrc/<name>.cu`` ('' where it printed nothing or was built
+    elsewhere)."""
+    log = library_path(name).with_suffix('.txt')
+    return log.read_text() if log.exists() else ''
+
+
+def ptxas_resources(text):
+    """{kernel's mangled name: (registers, spill store bytes)} of each
+    entry function in ptxas's -v output ``text``."""
+    out, name, spill = {}, None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r'(\d+) bytes spill stores', line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+            name = None
+    return out
+
+
 def build(*names):
     """Compile each ``csrc/<name>.cu`` whose current build does not exist,
-    one ``nvcc`` per source, all running at once; returns the library
-    paths. Raises with nvcc's output when a build fails."""
+    one ``nvcc`` per source, all running at once, keeping what nvcc prints
+    beside the library (:func:`ptxas_log`); returns the library paths.
+    Raises with nvcc's output when a build fails."""
     outs = [library_path(name) for name in names]
     jobs = []
     try:
@@ -69,11 +99,12 @@ def build(*names):
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
         for name, out, tmp, cmd, proc in jobs:
-            _, err = proc.communicate()
+            log, err = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError("nvcc failed (%d) building %s:\n%s\n%s"
                                    % (proc.returncode, name, ' '.join(cmd),
                                       err))
+            out.with_suffix('.txt').write_text(log + err)
             os.replace(tmp, out)
     finally:
         for _, _, tmp, _, proc in jobs:

@@ -45,7 +45,7 @@ from .gtable_amr import AMRGeometry
 from .gtable_cylindrical import CylindricalGeometry
 from .gtable_octree import OctreeGeometry
 from .gtable_spherical import SphericalGeometry
-from .gtable_voronoi import VoronoiGeometry
+from .gtable_voronoi import ROW_PAD, VoronoiGeometry
 
 # kernel launches since the last reset, of the tau walk and of the column
 # mode; chip_smoke.py reads them to show that the main path ran the kernel
@@ -59,7 +59,8 @@ _ARGS = ('is_double', 'kind', 'w0', 'w1', 'w2', 'w3', 'w4', 'w5', 'w6', 'w7',
          'ints', 'n1', 'n2', 'n3', 'aux', 'levels', 'index_len', 'rho',
          'n_dust', 'smem',
          'walls_shared', 'rho_shared', 'smem_col', 'rho_shared_col',
-         'big_col', 'max_blocks', 'max_blocks_col', 'counter', 'max_steps',
+         'big_col', 'max_blocks', 'max_blocks_col', 'counter',
+         'max_steps',
          'split', 'clock', 'chi', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'cell',
          'active', 't_max', 'tau', 'acc', 'B', 'V')
 _LANES = _ARGS.index('chi')
@@ -242,12 +243,16 @@ def kernel_tables(geometry):
         aux, sizes = geometry.n_fabs, (geometry.n_cells, 1, 1)
         levels, index_len = len(lattices), len(index)
     elif isinstance(geometry, VoronoiGeometry):
-        # the sites and the box; the neighbour table and its row length
+        # the sites, the box and the packed rows' sites; the rows' offsets,
+        # then from an even word each entry's (neighbour, its offset)
         kind = 5
+        rows = geometry.packed_rows
         walls = [geometry.sites, torch.cat([geometry.box_lo,
-                                            geometry.box_hi])]
-        ints = geometry.neigh.to(torch.int32)
-        aux, sizes = geometry.neigh.shape[1], (geometry.n_cells, 1, 1)
+                                            geometry.box_hi]), rows.sites]
+        n = geometry.n_cells
+        ints = torch.cat([rows.off, rows.off.new_zeros((n + 1) % 2),
+                          rows.meta.reshape(-1)])
+        sizes = (n, 1, 1)
     else:
         raise TypeError("escape_tau walks cartesian, spherical-polar, "
                         "cylindrical-polar, octree, AMR and Voronoi "
@@ -353,7 +358,8 @@ class EscapeTau:
                               ctypes.c_void_p]
                 f.restype = ctypes.c_int
         for what, ours in (('n_args', len(_ARGS)),
-                           ('counter_words', COUNTER_WORDS)):
+                           ('counter_words', COUNTER_WORDS),
+                           ('row_pad', ROW_PAD)):
             theirs = getattr(lib, 'escape_tau_' + what)()
             if theirs != ours:
                 raise RuntimeError("escape_tau: the library's %s is %d, the "
@@ -383,14 +389,15 @@ class EscapeTau:
         """The kernel's plan (CUDA only): shared-memory bytes of a block and
         what lives there, for the tau walk and for the column mode
         (``big_col``: its blocks of big_block(kind) threads with the
-        density past 48 KB), and the resident blocks of each mode's
-        kernel."""
+        density past 48 KB), and
+        the resident blocks of each mode's kernel."""
         a = {k: int(self._args[_ARGS.index(k)]) for k in _ARGS[:_LANES]}
         return dict(
             smem=a['smem'], walls_shared=bool(a['walls_shared']),
             rho_shared=bool(a['rho_shared']), smem_col=a['smem_col'],
             rho_shared_col=bool(a['rho_shared_col']),
-            big_col=bool(a['big_col']), split=a['split'],
+            big_col=bool(a['big_col']),
+            split=a['split'],
             resident_blocks={k: a[k] for k in ('max_blocks',
                                                'max_blocks_col')})
 

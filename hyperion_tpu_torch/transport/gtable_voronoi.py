@@ -18,7 +18,10 @@ hand-written kernel of ``csrc/voronoi_locate.cu``
 (:mod:`.voronoi_locate`); on CPU tensors its plain version
 :func:`.voronoi_locate.locate_reference`, which copies the JAX package's
 arithmetic. The rest is plain PyTorch, the JAX package's operations in the
-same order."""
+same order. Both kernels (the owner walk, and the walk of
+``csrc/escape_tau.cu``) read the rows packed end to end
+(:attr:`VoronoiGeometry.packed_rows`), which the geometry derives from its
+own tables."""
 
 from dataclasses import dataclass
 from functools import cached_property
@@ -27,11 +30,28 @@ import numpy as np
 import torch
 
 from .gtable import ESCAPED
-from .voronoi_locate import VoronoiLocate
+from .voronoi_locate import ROW_PAD, VoronoiLocate
 
 # the bounding-box trials of a position in a cell (the JAX package's
 # random_position_in_cell), each taking three uniforms
 POSITION_TRIALS = 4
+
+
+@dataclass
+class PackedRows:
+    """The neighbour rows packed end to end (CSR), each row's entries in
+    the neighbour table's order: what the kernels read a row from, in one
+    run of entries with no read that waits on an id."""
+    off: torch.Tensor    # (n + 1,) int32: row i is entries off[i]..off[i + 1]
+    meta: torch.Tensor   # (E + ROW_PAD, 2) int32: each entry's neighbour
+    #                      and that neighbour's row offset
+    sites: torch.Tensor  # (E + ROW_PAD, 3): each entry's neighbour's site,
+    #                      in the sites' type
+
+    @property
+    def degrees(self):
+        """(n,) int32: each cell's neighbours."""
+        return self.off[1:] - self.off[:-1]
 
 
 @dataclass
@@ -58,6 +78,31 @@ class VoronoiGeometry:
         the card it reads the box once): tables that never locate, such as
         the float64 copy a walk kernel binds, load no kernel."""
         return VoronoiLocate(self)
+
+    @cached_property
+    def packed_rows(self):
+        """The neighbour rows packed (:class:`PackedRows`), built once from
+        these tables on their device: each cell's degree is its row's
+        entries before the first -1, entry e of cell i holds ``neigh[i,
+        e]``, its row offset and its site to the bit, and ROW_PAD zero
+        entries follow the last. The walk kernel reads the float64
+        geometry's, the locate kernel those of the lanes' type."""
+        nb = self.neigh.long()
+        front = (nb >= 0).to(torch.int32).cumprod(dim=1).bool()
+        deg = front.sum(dim=1)
+        off = torch.zeros(nb.shape[0] + 1, dtype=torch.int64,
+                          device=nb.device)
+        off[1:] = torch.cumsum(deg, 0)
+        if int(off[-1]) + ROW_PAD >= 2 ** 31:
+            raise ValueError("voronoi: %d neighbour entries are too many "
+                             "for int32 offsets" % int(off[-1]))
+        ids = nb[front]
+        meta = torch.stack([ids, off[ids]], dim=1).to(torch.int32)
+        sites = self.sites[ids]
+        return PackedRows(
+            off=off.to(torch.int32),
+            meta=torch.cat([meta, meta.new_zeros(ROW_PAD, 2)]),
+            sites=torch.cat([sites, sites.new_zeros(ROW_PAD, 3)]))
 
     @property
     def n_cells(self):

@@ -4,8 +4,8 @@
 ``walk_steps`` steps over the whole batch).
 
 :class:`VoronoiLocate` holds one grid's tables. On CUDA tensors its two
-calls launch the hand-written kernel in ``csrc/voronoi_locate.cu``, one
-thread per lane; on CPU tensors they run the plain PyTorch version
+calls launch the hand-written kernel in ``csrc/voronoi_locate.cu`` over the
+grid's packed rows (:func:`locate_tables`), four threads a lane; on CPU tensors they run the plain PyTorch version
 :func:`locate_reference` / :func:`owner_walk_reference`. Nothing falls back
 from one to the other.
 
@@ -31,9 +31,26 @@ import torch
 from . import _build
 from .gtable import ESCAPED
 
+# zero entries after the packed rows' last (gtable_voronoi.py
+# VoronoiGeometry.packed_rows): the kernels load a row's first entries
+# before they know its length (csrc/escape_tau.cu kVorChunk,
+# csrc/voronoi_locate.cu kChunk, each at most the libraries' kRowPad,
+# which their wrappers check against this)
+ROW_PAD = 16
+
 # kernel launches since the last reset; chip_smoke.py reads it to show that
 # the main path ran the kernel
 launches = 0
+
+
+def locate_tables(geo):
+    """The tables that the kernel binds, in the order of its arguments, on
+    the geometry's device: (sites (n, 3) and the packed rows' sites (E +
+    ROW_PAD, 3) in the sites' type, their (neighbour, offset) entries (E +
+    ROW_PAD, 2) int32, the rows' offsets (n + 1,) int32, the lattice (m^3,)
+    int32)."""
+    rows = geo.packed_rows
+    return geo.sites, rows.sites, rows.meta, rows.off, geo.lookup
 
 
 def _d2(sites, c, x, y, z):
@@ -123,11 +140,12 @@ class VoronoiLocate:
     ``walk_from(start, x, y, z)`` return the owning cells (B,) int64 of
     positions in the tables' type.
 
-    On CUDA the tables (sites, int32 neighbours and lattice) are checked
-    and kept, the box read once, and a device counter of the lanes at the
-    cap made: a call checks its lanes, allocates the cells and launches
-    once on the current stream without synchronising. On the CPU the
-    plain version runs, counting its lanes at the cap on the host."""
+    On CUDA the tables (:func:`locate_tables`: the sites, the packed rows
+    and the lattice) are checked and kept, the box read once, and a device
+    counter of the lanes at the cap made: a call checks its lanes,
+    allocates the cells and launches once on the current stream without
+    synchronising. On the CPU the plain version runs, counting its lanes
+    at the cap on the host."""
 
     def __init__(self, geo):
         self.geo = geo
@@ -144,14 +162,19 @@ class VoronoiLocate:
                 raise ValueError("voronoi_locate runs on CPU or CUDA tensors, "
                                  "not %s" % self.device)
             return
-        n, K = geo.neigh.shape
-        for name, t, dtype, shape in (
-                ('sites', geo.sites, self.dtype, (n, 3)),
-                ('neigh', geo.neigh, torch.int32, (n, K)),
-                ('lookup', geo.lookup, torch.int32, (geo.lookup_n ** 3,))):
+        n = geo.neigh.shape[0]
+        tables = locate_tables(geo)
+        entries = tables[1].shape[0]
+        for name, t, dtype, shape in zip(
+                ('sites', 'row_sites', 'meta', 'off', 'lookup'), tables,
+                (self.dtype, self.dtype, torch.int32, torch.int32,
+                 torch.int32),
+                ((n, 3), (entries, 3), (entries, 2), (n + 1,),
+                 (geo.lookup_n ** 3,))):
             if t.dtype != dtype or t.device != self.device or \
                     t.shape != shape or not t.is_contiguous():
                 raise _lane_error(name, t, dtype, shape, self.device)
+        self._tables = tables
         self._device_index = self.device.index
         self._box = [float(v) for v in torch.cat([geo.box_lo, geo.box_hi])]
         self._at_cap = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -205,9 +228,8 @@ class VoronoiLocate:
                              "call" % B)
         geo = self.geo
         err = self._fn(int(self.dtype == torch.float64),
-                       geo.sites.data_ptr(), geo.neigh.data_ptr(),
-                       geo.neigh.shape[1], geo.lookup.data_ptr(),
-                       geo.lookup_n, *self._box, geo.walk_steps,
+                       *(t.data_ptr() for t in self._tables), geo.lookup_n,
+                       *self._box, geo.walk_steps,
                        x.data_ptr(), y.data_ptr(), z.data_ptr(),
                        0 if start is None else start.data_ptr(),
                        out.data_ptr(), self._at_cap.data_ptr(), B,
@@ -220,12 +242,16 @@ class VoronoiLocate:
 
 
 def _kernel():
-    fn = _build.load('voronoi_locate').voronoi_locate
+    lib = _build.load('voronoi_locate')
+    if lib.voronoi_locate_row_pad() != ROW_PAD:
+        raise RuntimeError("voronoi_locate: the library's row pad is %d, the "
+                           "tables' %d" % (lib.voronoi_locate_row_pad(),
+                                           ROW_PAD))
+    fn = lib.voronoi_locate
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
-                       [ctypes.c_double] * 6 + [ctypes.c_int] +
-                       [ctypes.c_void_p] * 6 + [ctypes.c_int,
-                                                ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                       [ctypes.c_int] + [ctypes.c_double] * 6 +
+                       [ctypes.c_int] + [ctypes.c_void_p] * 6 +
+                       [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

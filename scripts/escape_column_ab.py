@@ -4,7 +4,7 @@ on the column calls the raytracing pass makes.
 
     git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
     python3 scripts/escape_column_ab.py --old _checkout/old [--se-dir DIR] \
-        [--models class2,quickstart,class1_cyl,orion_amr] \
+        [--models class2,quickstart,class1_cyl,orion_amr,voronoi_cloud] \
         [--variant NAME=CONSTANT=VALUE[,CONSTANT=VALUE...] ...]
 
 ``--old`` is a directory holding an earlier ``hyperion_tpu_torch/`` whose
@@ -21,9 +21,10 @@ its calls are phase 11's and 12's). They start from phase 8's and phase
 capped at 8,000 steps; 4 of 500,000), or read from ``--se-dir``
 (``class2_specific_energy.npy`` and ``quickstart_specific_energy.npy``, as
 chip_smoke.py writes them), and written there when absent. Those of
-``class1_cyl`` and ``orion_amr`` are the raytracing calls of phases 14
-(BASELINE config 3) and 17 (config 5), from the phase's own Lucy
-iterations (scripts/escape_tau_ab.py's ``record_phase``). For each run it
+``class1_cyl``, ``orion_amr`` and ``voronoi_cloud`` are the raytracing
+calls of phases 14 (BASELINE config 3), 17 (config 5) and 18 (config 4's
+cloud on a Voronoi mesh), from the phase's own Lucy iterations
+(scripts/escape_tau_ab.py's ``record_phase``). For each run it
 prints:
 
 - the ray lengths: the plain float64 walk's crossings, their mean,
@@ -213,12 +214,12 @@ def parse_variant(spec):
     return name, consts
 
 
-def variant_source(consts):
-    """The current csrc/escape_tau.cu with each ``constexpr int NAME = ...;``
+def variant_source(consts, kernel='escape_tau'):
+    """The current csrc/<kernel>.cu with each ``constexpr int NAME = ...;``
     of ``consts`` set to its value; raises if a constant is not found
     exactly once."""
     from hyperion_tpu_torch.transport import _build
-    src = (_build.CSRC / 'escape_tau.cu').read_text()
+    src = (_build.CSRC / (kernel + '.cu')).read_text()
     for name, value in consts.items():
         pattern = r'constexpr int %s = -?\d+;' % re.escape(name)
         if len(re.findall(pattern, src)) != 1:
@@ -228,20 +229,21 @@ def variant_source(consts):
     return src
 
 
-def build_variants(const_sets):
-    """A copy of the current source built for each set of constants (the
-    library's own flags, with -Xptxas -v), one nvcc each, all at once:
-    [(ctypes library, {kernel: (registers, spill bytes)})]."""
+def build_variants(const_sets, kernel='escape_tau'):
+    """A copy of the current csrc/<kernel>.cu built for each set of
+    constants (the library's own flags, ptxas's -v among them), one nvcc
+    each, all at once: [(ctypes library, {walk kernel: (registers, spill
+    bytes)})]."""
     import hashlib
     from hyperion_tpu_torch.transport import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    flags = _build._flags('escape_tau') + ['-Xptxas', '-v']
+    flags = _build._flags(kernel)
     jobs = []
     for consts in const_sets:
-        src = variant_source(dict(consts))
+        src = variant_source(dict(consts), kernel)
         tag = hashlib.sha256((src + ' '.join(flags)).encode()).hexdigest()[:16]
-        cu = _build.BUILD_DIR / ('escape_tau_variant_%s.cu' % tag)
-        lib = _build.BUILD_DIR / ('libescape_tau_variant_%s.so' % tag)
+        cu = _build.BUILD_DIR / ('%s_variant_%s.cu' % (kernel, tag))
+        lib = _build.BUILD_DIR / ('lib%s_variant_%s.so' % (kernel, tag))
         cu.write_text(src)
         jobs.append((lib, subprocess.Popen(
             [_build._nvcc()] + flags + ['-o', str(lib), str(cu)],
@@ -520,7 +522,7 @@ def main():
         runs += [r for r in record_columns(se8, se4) if r[0] in models]
     for name in models:
         if name in ab.PHASE_RUNS:
-            model, _, calls = ab.record_phase(name, windows=())
+            model, _, calls, _ = ab.record_phase(name, windows=())
             runs.append((name, model, calls))
     out = dict(card=card, columns=[], tau=[])
     for name, model, calls in runs:

@@ -4,8 +4,8 @@ the walks the imaging step makes.
 
     git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
     python3 scripts/escape_tau_ab.py --old _checkout/old \
-        [--models class2,quickstart,class1_cyl,orion_amr] \
-        [--variant NAME=CONSTANT=VALUE[,CONSTANT=VALUE...] ...]
+        [--models class2,quickstart,class1_cyl,orion_amr,voronoi_cloud] \
+        [--columns] [--variant NAME=CONSTANT=VALUE[,CONSTANT=VALUE...] ...]
 
 ``--old`` is a directory that holds an earlier ``hyperion_tpu_torch/``
 whose ``EscapeTau`` walks an event's V views in one call, as the current
@@ -20,18 +20,30 @@ and 17 (config 5, orion_amr, AMR, B = 131,072) from the phase's own run
 (:func:`record_phase`); each call is one event of V views. For each
 window, in turns (old, new, new, old; with ``--variant``, old, new, the
 variants, the variants again in reverse, new, old), it times every event
-behind a ``torch.cuda._sleep`` between CUDA events, each as one launch.
-Both must give the same tau.
+behind a ``torch.cuda._sleep`` between CUDA events, each as one launch,
+and on the host clock (escape_column_ab.host_us). Both must give the same
+tau.
 Then the latency of one crossing: the window's longest ray alone (its lane
 the only active one, its view the only one, at the window's B), less the
 same call with no active lane, over the ray's crossings, for both designs;
 and the registers and spill bytes of each design's walk kernels
 (escape_tau_cycles.registers, -Xptxas -v).
+
+``voronoi_cloud`` takes the calls of chip_smoke.py's phase 18 (config 4's
+cloud on 50,000 Voronoi cells, B = 131,072) from the phase's own run, and
+with them its locate calls (Lucy steps 41-80 and the raytracing pass's
+positions, chip_smoke.locate_calls): the old design's voronoi_locate
+beside the current one, and copies of the current source with other
+constants (``--locate-variant NAME=kGroup=2``), in turns
+(:func:`locate_ab`). ``--columns`` also times the phase runs'
+raytracing column calls as scripts/escape_column_ab.py does
+(``column_run``, with the same ``--variant`` copies).
 Prints the card and one JSON object per window, and writes
 chip_smoke_out/escape_tau_ab.json unless --out names another file.
 """
 
 import argparse
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -52,33 +64,45 @@ MODELS = {'class2': (lambda: cs.class2_model(n_photons=200_000), 50_000),
               n_imaging=cs.CLASS1_CYL_CUT['n_imaging']), 25_000),
           'orion_amr': (lambda: cs.orion_amr_model(
               cs.AMR_CUT['n_photons'], cs.AMR_CUT['n_iterations'],
-              cs.AMR_CUT['n_imaging'])[0], cs.AMR_CUT['batch_size'])}
+              cs.AMR_CUT['n_imaging'])[0], cs.AMR_CUT['batch_size']),
+          'voronoi_cloud': (lambda: cs.voronoi_cloud_model(
+              cs.VORONOI_CLOUD['n_sites'], cs.VORONOI_CUT['n_photons'],
+              cs.VORONOI_CUT['n_iterations'],
+              cs.VORONOI_CUT['n_imaging'])[0], 131_072)}
 # the models whose calls are those of chip_smoke.py's phase, from its run:
 # run_lucy_model's batch and Lucy step cap
 PHASE_RUNS = {'class1_cyl': dict(batch_size=None,
                                  max_steps=cs.CLASS1_CYL_CUT['max_steps']),
               'orion_amr': dict(batch_size=cs.AMR_CUT['batch_size'],
-                                max_steps=cs.AMR_CUT['max_steps'])}
+                                max_steps=cs.AMR_CUT['max_steps']),
+              'voronoi_cloud': dict(batch_size=None,
+                                    max_steps=cs.VORONOI_CUT['max_steps'])}
 ORDER = ['old', 'new', 'new', 'old']
 
 
 def record_phase(name, windows=cs.WALK_WINDOWS):
-    """The calls of chip_smoke.py's phase 14 (class1_cyl) or 17
-    (orion_amr): the phase's model, photons and Lucy step cap through
-    run_lucy_model on the card, as the phase runs them, with its imaging
-    iteration cut at the last window's end (the calls of the steps before
-    are the phase's; the raytracing pass draws from its own generator).
-    Returns (model, {window: walk calls}, column calls)."""
+    """The calls of chip_smoke.py's phase 14 (class1_cyl), 17 (orion_amr)
+    or 18 (voronoi_cloud): the phase's model, photons and Lucy step cap
+    through run_lucy_model on the card, as the phase runs them, with its
+    imaging iteration cut at the last window's end (the calls of the steps
+    before are the phase's; the raytracing pass draws from its own
+    generator). Returns (model, {window: walk calls}, column calls, and
+    on a Voronoi grid the locate calls of Lucy steps 41-80 and of the
+    raytracing pass's positions, chip_smoke.locate_calls's record, else
+    None)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
     model = MODELS[name][0]()
-    with cs.walk_calls(windows) as wcalls, cs.column_calls() as ccalls:
+    locate = cs.locate_calls(40, 80) if name == 'voronoi_cloud' else \
+        contextlib.nullcontext()
+    with cs.walk_calls(windows) as wcalls, cs.column_calls() as ccalls, \
+            locate as lcalls:
         run_lucy_model(model, device='cuda',
                        imaging_max_steps=max([last for _, last in windows],
                                              default=1),
                        **PHASE_RUNS[name])
     torch.cuda.synchronize()
-    return model, wcalls, [c for _, c in ccalls]
+    return model, wcalls, [c for _, c in ccalls], lcalls
 
 
 def load_old(directory):
@@ -184,8 +208,8 @@ def window(old, new, kind, steps, calls, geo64, rt32, rt64, card,
                                      % (kind, steps, name))
     order = ['old', 'new'] + list(w_var)
     order = order + order[::-1]
-    turns = [dict(design=d, device_us_per_event=event_us(runs[d], calls))
-             for d in order]
+    turns = [dict(design=d, device_us_per_event=event_us(runs[d], calls),
+                  host_us=cab.host_us(runs[d], calls)) for d in order]
     # one crossing's latency: the longest ray alone, less an empty call
     c, v, i, n_cross = longest_ray(geo64, rt64, calls, new)
     call = calls[c]
@@ -211,6 +235,55 @@ def window(old, new, kind, steps, calls, geo64, rt32, rt64, card,
     return out
 
 
+def locate_ab(old, lcalls, card, variants=()):
+    """voronoi_locate on phase 18's own calls (the Lucy steps' and the
+    raytracing positions'), the old design's kernel beside the current
+    one in turns (old, new, copies of the current source with other constants (``variants``:
+    (name, {constant: value})), the same in reverse, old): every design's
+    cells equal to those the run recorded; device us per call (each call
+    behind a sleep, CUDA events) and host us per call
+    (escape_column_ab.host_us)."""
+    import torch
+    import escape_column_ab as cab
+    from hyperion_tpu_torch.transport import _build
+    from hyperion_tpu_torch.transport import voronoi_locate as vl
+    old_vl = importlib.import_module('old_port.transport.voronoi_locate')
+    libs = cab.build_variants([tuple(sorted(c.items()))
+                               for _, c in variants], 'voronoi_locate')
+    out = []
+    for run, calls in (('lucy', lcalls['lucy']),
+                       ('raytracing positions', lcalls['raytracing'])):
+        geo = calls[0][0].geo
+        locators = {'old': old_vl.VoronoiLocate(as_old(geo, old)),
+                    'new': vl.VoronoiLocate(geo)}
+        own = _build._loaded.get('voronoi_locate')
+        for (name, _), (lib, _) in zip(variants, libs):
+            _build._loaded['voronoi_locate'] = lib
+            locators[name] = vl.VoronoiLocate(geo)
+        _build._loaded['voronoi_locate'] = own
+
+        def runner(loc):
+            return lambda call: loc.locate(*call[2:5]) if call[1] is None \
+                else loc.walk_from(*call[1:5])
+        runs = {name: runner(loc) for name, loc in locators.items()}
+        for name, r in runs.items():
+            for call in calls:
+                if not torch.equal(r(call), call[5]):
+                    raise AssertionError('voronoi_locate %s: %s disagrees '
+                                         'with the run' % (run, name))
+        order = list(runs)
+        order = order + order[::-1]
+        turns = [dict(design=d, device_us=event_us(runs[d], calls),
+                      host_us=cab.host_us(runs[d], calls)) for d in order]
+        row = dict(locate=run, calls=len(calls),
+                   lanes_per_call=sum(c[2].shape[0] for c in calls) /
+                   len(calls),
+                   turns=turns, card=card)
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
 def main():
     import torch
     from hyperion_tpu_torch.model.run import (_density_array,
@@ -226,6 +299,13 @@ def main():
                     help='NAME=CONSTANT=VALUE[,CONSTANT=VALUE...]: a copy of '
                     'the current source with those constexpr constants set, '
                     'timed after the current one')
+    ap.add_argument('--locate-variant', action='append', default=[],
+                    help='NAME=CONSTANT=VALUE[,...]: a copy of '
+                    'csrc/voronoi_locate.cu with those constants, timed '
+                    'beside the current one')
+    ap.add_argument('--columns', action='store_true',
+                    help='also time the column calls of the phase runs\' '
+                    'raytracing, as scripts/escape_column_ab.py does')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('escape_tau_ab: needs an NVIDIA card', file=sys.stderr)
@@ -252,8 +332,9 @@ def main():
     rows = []
     for name in args.models.split(','):
         make, batch = MODELS[name]
+        lcalls = None
         if name in PHASE_RUNS:
-            model, calls, _ = record_phase(name)
+            model, calls, ccalls, lcalls = record_phase(name)
         else:
             model = make()
             _, calls = cs.record_walks(model, batch, cs.WALK_WINDOWS)
@@ -265,6 +346,21 @@ def main():
                                calls[(first, last)], geo64,
                                rho32.T.contiguous(), rho64.T.contiguous(),
                                card, variants))
+        if name in PHASE_RUNS and args.columns:
+            import escape_column_ab as cab
+            specs = [('new', {})] + [cab.parse_variant(v)
+                                     for v in args.variant]
+            built = cab.build_variants([tuple(sorted(c.items()))
+                                        for _, c in specs])
+            cvar = {vname: (lib, consts, regs) for (vname, consts),
+                    (lib, regs) in zip(specs, built)}
+            rows.append(cab.column_run(name, model, ccalls, old, new, cvar,
+                                       card))
+        if lcalls is not None:
+            import escape_column_ab as cab
+            rows += locate_ab(old, lcalls, card,
+                              [cab.parse_variant(v)
+                               for v in args.locate_variant])
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(rows, indent=1))
     return 0

@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Where a crossing of the escape_tau kernel spends its cycles, on one card.
 
-    python3 scripts/escape_tau_cycles.py [--models class1_cyl,orion_amr] \
-        [--old _checkout/old] [--registers]
+    python3 scripts/escape_tau_cycles.py [--models class1_cyl,orion_amr,\
+voronoi_cloud] [--old _checkout/old] [--registers]
 
 Builds an instrumented copy of csrc/escape_tau.cu (clock64() around the
 parts of a crossing, summed into a device table; the arithmetic is the
 kernel's own) into hyperion_tpu_torch/_build/, or with ``--old`` that of
 an earlier ``hyperion_tpu_torch/`` in that directory (from ``git archive``;
 one whose EscapeTau walks (V, B) directions, bound through its own
-wrapper, loaded as scripts/escape_tau_ab.py loads it), records the walk calls of imaging steps 41-60
-of class2 (examples/class2_sed.py, B = 50,000), of the quickstart (B =
-125,000), of BASELINE config 3 (chip_smoke.class1_cyl_model,
-cylindrical-polar, B = 25,000) and of BASELINE config 5
-(chip_smoke.orion_amr_model, AMR, B = 131,072) with
-chip_smoke.record_walks, and runs, with the instrumented library in place
-of the kernel's:
+wrapper, loaded as scripts/escape_tau_ab.py loads it), records the walk
+calls of imaging steps 41-60 of class2 (examples/class2_sed.py, B =
+50,000), of the quickstart (B = 125,000), of BASELINE config 3
+(chip_smoke.class1_cyl_model, cylindrical-polar, B = 25,000) and of
+BASELINE config 5 (chip_smoke.orion_amr_model, AMR, B = 131,072) with
+chip_smoke.record_walks, and those of chip_smoke.py's phase 18
+(voronoi_cloud, B = 131,072) from the phase's own run
+(escape_tau_ab.record_phase), and runs, with the instrumented library in
+place of the kernel's:
 
 - the window's longest ray alone (its lane the only active one, its view
   the only one): SM cycles per crossing from the ray's start to its end,
@@ -24,12 +26,16 @@ of the kernel's:
   the landing point; for an AMR grid the cell's walls (with the decode of
   the flat cell where the source decodes it at every crossing), the box
   exit with the move and the probe, the locate of the probe, and the rest
-  (the snap); the share of crossings walked again with the operators'
+  (the snap); for a Voronoi grid the reads of the row (its neighbours'
+  ids, or its packed entries' ends), of the sites, the divisions, the
+  argmin and the box exit, and the neighbours read and divisions taken
+  per crossing; the share of crossings walked again with the operators'
   arithmetic after a fast path's check failed (``retry_share``);
 - every call of the window: the same figures averaged over all crossings.
 
-``--registers`` builds the source (uninstrumented) with -Xptxas -v and
-prints each walk kernel's registers and spill bytes, and the resident
+``--registers`` prints each walk kernel's registers and spill bytes as
+ptxas reported them when the library was built (-Xptxas -v is among its
+flags; with ``--old``, the old source built with them), and the resident
 blocks of each mode's kernel on each model's grid (EscapeTau.plan).
 Prints the card and one JSON object per model. The clock reads and the
 table's atomics add a few tens of cycles to each part.
@@ -51,69 +57,91 @@ import chip_smoke as cs  # noqa: E402
 
 # the device table's words
 SLOTS = dict(ray=0, candidates=1, find_cell=2, body=3, crossings=4,
-             retries=5, walls=6, box_exit=7, locate=8, rest=9)
+             retries=5, walls=6, box_exit=7, locate=8, rest=9, row=10,
+             sites=11, divisions=12, argmin=13, neighbours=14, divided=15)
 N_SLOTS = 16
 # Markers in the source: (marker, times found, probe put before it or
 # after it, what the probe does). 'start' sets the part's clock;
 # ('split', slot) adds the cycles since the part's clock to slot and
-# restarts it. Each set belongs to one design of the source; the first set
-# whose markers are all found is used.
+# restarts it; ('count', slot) adds one to slot, ('add', slot, expr) the
+# value of expr. Each set belongs to one design of the source; the first
+# set whose markers are all found is used.
 COMMON = [
     ('        walking = true;\n', 1, 'after', 'ray_start'),
     ('      // one crossing\n', 1, 'after', 'body_start'),
     ('      ++steps;\n', 1, 'after', 'body_end'),
     ('        walking = false;\n', 1, 'after', 'ray_end'),
 ]
+# the AMR and cylindrical crossings as redesigned in commit 41f3206: the fab
+# carried with the lane, an indexed locate, both on the Fast arithmetic
+BOXES = [
+    ('  if (!fast.ok) {\n', 1, 'after', ('count', 'retries')),
+    ('  const double big = DBL_MAX / 8.0;\n  const double b = x * kx',
+     1, 'before', 'start'),
+    ('  const double big = DBL_MAX / 8.0;\n  const double eps = cyl_eps',
+     1, 'before', 'start'),
+    ('  t = tmin;\n', 2, 'after', ('split', 'candidates')),
+    ('  return i1 >= 0 && i1 < g.n1;\n', 1, 'before',
+     ('split', 'find_cell')),
+    ('  return i1 < g.n1 && i2 >= 0 && i2 < g.n2 && w2 >= g.w[1][0];\n',
+     1, 'before', ('split', 'find_cell')),
+    ('  const AmrTables a = amr_tables(g);\n  const int idx', 1, 'before',
+     'start'),
+    ('  double w[3];\n  const int ax = box_exit(ops, lo, hi,', 1,
+     'before', ('split', 'walls')),
+    ('  const bool found = amr_locate(', 1, 'before',
+     ('split', 'box_exit')),
+    ('  // the snap onto the crossed wall\n', 1, 'before',
+     ('split', 'locate')),
+    ('  return found && !same;\n', 1, 'before', ('split', 'rest')),
+]
 MARKER_SETS = {
-    # the AMR and cylindrical crossings redesigned: the fab carried with
-    # the lane, an indexed locate, both on the Fast arithmetic
-    'indexed': COMMON + [
-        ('  if (!fast.ok) {\n', 1, 'after', ('count', 'retries')),
-        ('  const double big = DBL_MAX / 8.0;\n  const double b = x * kx',
+    # the Voronoi crossing over packed rows: the row's sites and the
+    # neighbours' (id, offset) read a chunk at a time, the division only
+    # where a plane can win. Its parts: row, the first chunk's loads
+    # issued; box_exit, the box planes (while the row arrives) and the
+    # escape test and move; sites, a neighbour's wait for its entry and its
+    # normal; divisions, the skip test and the divisions taken; argmin,
+    # the update
+    'packed': COMMON + BOXES + [
+        ('  const double big = DBL_MAX / 8.0;\n  const double* es = g.w[2]',
          1, 'before', 'start'),
-        ('  const double big = DBL_MAX / 8.0;\n  const double eps = cyl_eps',
-         1, 'before', 'start'),
-        ('  t = tmin;\n', 2, 'after', ('split', 'candidates')),
-        ('  return i1 >= 0 && i1 < g.n1;\n', 1, 'before',
-         ('split', 'find_cell')),
-        ('  return i1 < g.n1 && i2 >= 0 && i2 < g.n2 && w2 >= g.w[1][0];\n',
-         1, 'before', ('split', 'find_cell')),
-        ('  const AmrTables a = amr_tables(g);\n  const int idx', 1, 'before',
-         'start'),
-        ('  double w[3];\n  const int ax = box_exit(ops, lo, hi,', 1,
-         'before', ('split', 'walls')),
-        ('  const bool found = amr_locate(', 1, 'before',
+        ('  const int deg = __ldg(g.ints + cell + 1) - off;\n', 1, 'after',
+         ('add', 'neighbours', 'deg')),
+        ('  // the box exit while the row arrives\n', 1, 'before',
+         ('split', 'row')),
+        ('  // argmin over the row: the first of the least, big where none '
+         'crosses\n  // (then', 1, 'before', ('split', 'box_exit')),
+        ('      const double denom = kx * nvx + ky * nvy + kz * nvz;\n', 1,
+         'after', ('split', 'sites')),
+        ('      const bool lost = vor_beyond(numer, denom, t_best);\n', 1,
+         'after', ('split', 'divisions')),
+        ('      tn = tn < 0.0 ? 0.0 : tn;\n', 1, 'after',
+         ('split', 'divisions')),
+        ('      tn = tn < 0.0 ? 0.0 : tn;\n', 1, 'after', ('count', 'divided')),
+        ('        best = m[u];\n      }\n', 1, 'after', ('split', 'argmin')),
+        ('  cell = best.x;\n  off = best.y;\n', 1, 'before',
          ('split', 'box_exit')),
-        ('  // the snap onto the crossed wall\n', 1, 'before',
-         ('split', 'locate')),
-        ('  return found && !same;\n', 1, 'before', ('split', 'rest')),
     ],
-    # the source before that (commit 98bb6b9): the AMR cell decoded and
-    # the fabs searched one by one at every crossing, the cylindrical
-    # crossing on the operators. Kept only to reproduce PERF.md's split
-    # before the redesign (--old on that commit); the next redesign of
-    # these crossings replaces it with the markers of its own parent.
-    'searched': COMMON + [
-        ('  if (!fast.ok) {\n', 1, 'after', ('count', 'retries')),
-        ('  const double big = DBL_MAX / 8.0;\n  const double b = x * kx',
+    # the source of commit 41f3206: the Voronoi crossing reads each
+    # neighbour's id, then its site, and divides for every facing one.
+    # Kept to reproduce PERF.md's split before the packed rows (--old on
+    # that commit); the next redesign replaces it with its own parent's.
+    'indexed': COMMON + BOXES + [
+        ('  const double big = DBL_MAX / 8.0;\n  const double* s = g.w[0];\n',
          1, 'before', 'start'),
-        ('  const double big = DBL_MAX / 8.0;\n  const double eps = cyl_eps',
-         1, 'before', 'start'),
-        ('  t = tmin;\n', 2, 'after', ('split', 'candidates')),
-        ('  return i1 >= 0 && i1 < g.n1;\n', 1, 'before',
-         ('split', 'find_cell')),
-        ('  return i1 < g.n1 && i2 >= 0 && i2 < g.n2 && w2 >= g.w[1][0];\n',
-         1, 'before', ('split', 'find_cell')),
-        ('  const Fabs f = fabs_of(g);\n', 1, 'after', 'start'),
-        ('  double w[3];\n  const int ax = box_exit(lo, hi,', 1,
-         'before', ('split', 'walls')),
-        ('  const int next = amr_locate(f, xp, yp, zp, kx, ky, kz);\n', 1,
-         'before', ('split', 'box_exit')),
-        ('  if (ax == 0) x = w[0];\n  if (ax == 1) y = w[1];\n'
-         '  if (ax == 2) z = w[2];\n  const bool inside = next', 1,
-         'before', ('split', 'locate')),
-        ('  cell = next;\n  return inside;\n', 1, 'before',
-         ('split', 'rest')),
+        ('    if (nb < 0) break;\n', 1, 'after', ('split', 'row')),
+        ('    if (nb < 0) break;\n', 1, 'after', ('count', 'neighbours')),
+        ('    const double denom = kx * nvx + ky * nvy + kz * nvz;\n', 1,
+         'after', ('split', 'sites')),
+        ('    tn = tn < 0.0 ? 0.0 : tn;\n', 1, 'after',
+         ('split', 'divisions')),
+        ('    tn = tn < 0.0 ? 0.0 : tn;\n', 1, 'after', ('count', 'divided')),
+        ('      nb_best = nb;\n    }\n', 1, 'after', ('split', 'argmin')),
+        ('  double tx, ty, tz, w;\n  box_axis(box[0], box[3], x, kx, big, '
+         'tx, w);\n', 1, 'before', ('split', 'row')),
+        ('  cell = nb_best;\n  return !escapes;\n', 1, 'before',
+         ('split', 'box_exit')),
     ],
 }
 
@@ -132,6 +160,9 @@ def _probe_text(what):
                 '(clock64() - ray0));\n' % SLOTS['ray'])
     if what == 'start':
         return '  long long pc = clock64();\n'
+    if what[0] == 'add':
+        return '  atomicAdd(&probe[%d], (unsigned long long)(%s));\n' % (
+            SLOTS[what[1]], what[2])
     kind, slot = what
     if kind == 'count':
         return '    atomicAdd(&probe[%d], 1ull);\n' % SLOTS[slot]
@@ -181,8 +212,11 @@ def build(source=None):
     src = _build.BUILD_DIR / ('escape_tau_cycles_%s.cu' % tag)
     lib = _build.BUILD_DIR / ('libescape_tau_cycles_%s.so' % tag)
     src.write_text(instrumented_source(source))
-    subprocess.run([_build._nvcc()] + _build._flags('escape_tau') +
-                   ['-o', str(lib), str(src)], check=True)
+    proc = subprocess.run([_build._nvcc()] + _build._flags('escape_tau') +
+                          ['-o', str(lib), str(src)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError('escape_tau_cycles: nvcc failed:\n' + proc.stderr)
     return ctypes.CDLL(str(lib))
 
 
@@ -192,36 +226,31 @@ KIND_NAMES = {'0': 'cartesian', '1': 'spherical', '2': 'cylindrical',
 
 def ptxas_registers(text):
     """{kernel: (registers, spill store bytes)} of the walk kernels in
-    -Xptxas -v output."""
-    regs, name, spill = {}, None, 0
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?walk_kernel"
-                      r"I([fd])Li(\d)ELb(\d)ELi(\d+)E", line)
+    -Xptxas -v output, named by type, kind, mode and block."""
+    from hyperion_tpu_torch.transport import _build
+    regs = {}
+    for entry, res in _build.ptxas_resources(text).items():
+        m = re.search(r'walk_kernelI([fd])Li(\d)ELb(\d)ELi(\d+)E', entry)
         if m:
             typ, kind, cols, n = m.groups()
-            name = '%s %s %s block %s' % (
+            regs['%s %s %s block %s' % (
                 'f32' if typ == 'f' else 'f64', KIND_NAMES[kind],
-                'columns' if cols == '1' else 'tau', n)
-            continue
-        m = re.search(r'(\d+) bytes spill stores', line)
-        if m:
-            spill = int(m.group(1))
-        m = re.search(r'Used (\d+) registers', line)
-        if m and name:
-            regs[name] = (int(m.group(1)), spill)
-            name = None
+                'columns' if cols == '1' else 'tau', n)] = res
     return regs
 
 
 def registers(source=None):
-    """The walk kernels' registers and spills: the source built with the
-    library's flags and -Xptxas -v."""
+    """The walk kernels' registers and spills: ptxas's report from the
+    library's build (-Xptxas -v is among its flags), or ``source`` built
+    with the same flags."""
     from hyperion_tpu_torch.transport import _build
-    source = source or _build.CSRC / 'escape_tau.cu'
+    if source is None:
+        _build.build('escape_tau')
+        return ptxas_registers(_build.ptxas_log('escape_tau'))
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _build.BUILD_DIR / 'libescape_tau_registers.so'
     proc = subprocess.run([_build._nvcc()] + _build._flags('escape_tau') +
-                          ['-Xptxas', '-v', '-o', str(out), str(source)],
+                          ['-o', str(out), str(source)],
                           capture_output=True, text=True, check=True)
     return ptxas_registers(proc.stdout + proc.stderr)
 
@@ -239,8 +268,12 @@ def measure(lib, walk, call):
                body_cycles=h[SLOTS['body']] / n,
                retry_share=h[SLOTS['retries']] / n)
     for part in ('candidates', 'find_cell', 'walls', 'box_exit', 'locate',
-                 'rest'):
+                 'rest', 'row', 'sites', 'divisions', 'argmin'):
         out[part + '_cycles'] = h[SLOTS[part]] / n
+    # the Voronoi crossing's neighbours read and divisions taken, per
+    # crossing
+    for count in ('neighbours', 'divided'):
+        out[count + '_per_crossing'] = h[SLOTS[count]] / n
     return out
 
 
@@ -251,6 +284,8 @@ MODELS = {
     'orion_amr': (lambda: cs.orion_amr_model(
         cs.AMR_CUT['n_photons'], cs.AMR_CUT['n_iterations'],
         cs.AMR_CUT['n_imaging'])[0], cs.AMR_CUT['batch_size']),
+    # its calls are phase 18's own (escape_tau_ab.record_phase)
+    'voronoi_cloud': (None, None),
 }
 
 
@@ -291,11 +326,15 @@ def main():
     window = (40, 60)
     for name in args.models.split(','):
         make, batch = MODELS[name]
-        model = make()
         # record with the kernel, then probe with the instrumented copy
-        rho32, calls = cs.record_walks(model, batch, (window,))
+        if make is None:
+            model, calls, _, _ = ab.record_phase(name, (window,))
+        else:
+            model = make()
+            _, calls = cs.record_walks(model, batch, (window,))
         calls = calls[window]
         geo64 = build_geometry_tables(model.grid, dev, torch.float64)
+        rho32 = _density_array(model, geo64.length_scale, dev, torch.float32)
         rho64 = _density_array(model, geo64.length_scale, dev, torch.float64)
         c, v, i, n_cross = ab.longest_ray(geo64, rho64.T.contiguous(), calls,
                                           et)

@@ -720,9 +720,9 @@ def test_block_clock_on_card(columns, cuda_device):
 
 def test_cycle_probes_match_the_kernel_source():
     """scripts/escape_tau_cycles.py finds each of its markers in the
-    kernel's source as often as it should (the redesigned crossings'
-    set), so that its instrumented copy splits the crossings it
-    measures."""
+    kernel's source as often as it should (the set of the redesigned
+    crossings over the Voronoi grid's packed rows), so that its
+    instrumented copy splits the crossings it measures."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parent.parent / 'scripts' / \
@@ -732,8 +732,37 @@ def test_cycle_probes_match_the_kernel_source():
     spec.loader.exec_module(cyc)
     src = (Path(et.__file__).parent / 'csrc' / 'escape_tau.cu').read_text()
     name, markers = cyc.marker_set(src)
-    assert name == 'indexed'
+    assert name == 'packed'
     probed = cyc.instrumented_source()
     for slot in ('walls', 'box_exit', 'locate', 'rest', 'candidates',
-                 'find_cell'):
+                 'find_cell', 'row', 'sites', 'divisions', 'argmin',
+                 'neighbours', 'divided'):
         assert 'atomicAdd(&probe[%d]' % cyc.SLOTS[slot] in probed
+
+
+def test_ptxas_resources_reads_each_entry():
+    """_build.ptxas_resources reads each kernel's registers and spill
+    stores from ptxas's -v output (escape_tau's build keeps it beside the
+    library; chip_smoke.py reports the column kernel's)."""
+    from hyperion_tpu_torch.transport import _build
+    text = (
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL11walk_kernel"
+        "IfLi5ELb1ELi1024EEEvNS_6ParamsIT_EE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN4_GLOBAL11walk_kernel"
+        "IfLi5ELb1ELi1024EEEvNS_6ParamsIT_EE\n"
+        "    56 bytes stack frame, 132 bytes spill stores, 84 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers, 56 bytes "
+        "cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL11walk_kernel"
+        "IdLi5ELb1ELi128EEEvNS_6ParamsIT_EE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN4_GLOBAL11walk_kernel"
+        "IdLi5ELb1ELi128EEEvNS_6ParamsIT_EE\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 86 registers, used 1 barriers\n")
+    assert _build.ptxas_resources(text) == {
+        '_ZN4_GLOBAL11walk_kernelIfLi5ELb1ELi1024EEEvNS_6ParamsIT_EE':
+            (64, 132),
+        '_ZN4_GLOBAL11walk_kernelIdLi5ELb1ELi128EEEvNS_6ParamsIT_EE':
+            (86, 0)}

@@ -45,6 +45,8 @@ import pytest
 import torch
 import jax
 import jax.numpy as jnp
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from hyperion_tpu.grid import VoronoiGrid as JaxVoronoiGrid
 from hyperion_tpu.transport.gtable_voronoi import \
@@ -58,8 +60,8 @@ from hyperion_tpu_torch.transport.dtable import build_dust_tables
 from hyperion_tpu_torch.transport.escape_tau import (
     EscapeTau, escape_column_reference, escape_tau_reference)
 from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
-from hyperion_tpu_torch.transport.gtable_voronoi import \
-    build_voronoi_geometry
+from hyperion_tpu_torch.transport.gtable_voronoi import (
+    VoronoiGeometry, build_voronoi_geometry)
 from hyperion_tpu_torch.transport.lucy import run_lucy
 from hyperion_tpu_torch.transport.stable import build_source_tables
 from hyperion_tpu_torch.transport.voronoi_locate import (
@@ -318,6 +320,135 @@ def test_plain_walk_counts_facing_neighbours():
                             cell, on, visits=visits, facing=facing)
     read = int((visits * (geo.neigh >= 0).sum(dim=1)).sum())
     assert 0.4 < int(facing) / read < 0.6
+
+
+def _carried_geometry():
+    """The clustered mesh's JAX geometry carried into the port (the fields
+    as convert.tables_from_numpy takes them)."""
+    from hyperion_tpu_torch.convert import _build
+    _, jgeo = pair('clustered')
+    return _build(VoronoiGeometry, {f.name: np.asarray(getattr(jgeo, f.name))
+                                    for f in dataclasses.fields(jgeo)},
+                  CPU, F64)
+
+
+@pytest.mark.parametrize('kind,precision', [
+    ('uniform', 64), ('clustered', 64), ('clustered', 32), ('carried', 64)])
+def test_packed_rows(kind, precision):
+    """The packed rows that both kernels read, as kernel_tables and the
+    locator bind them: each cell's degree the count of its row's entries
+    before the first -1; the offsets the cumulative degrees; the entries of
+    cell i neigh[i, :deg] in row order, each with its neighbour's offset
+    and its site, to the bit, in the sites' type (float32 for the locate of
+    float32 lanes); ROW_PAD zero entries after the last; the libraries'
+    kRowPad equal to ROW_PAD, the chunk they read before a row's length is
+    known within it. On a geometry carried across from the JAX package's
+    tables too."""
+    import re
+    from pathlib import Path
+    from hyperion_tpu_torch.transport import escape_tau as et
+    from hyperion_tpu_torch.transport.voronoi_locate import (ROW_PAD,
+                                                             locate_tables)
+    geo = _carried_geometry() if kind == 'carried' else \
+        pair(kind, precision=precision)[0]
+    neigh, sites = geo.neigh.numpy(), geo.sites.numpy()
+    n = geo.n_cells
+    deg = np.array([np.argmin(np.append(row, -1) >= 0) for row in neigh])
+    off = np.concatenate([[0], np.cumsum(deg)])
+    ids = np.concatenate([row[:d] for row, d in zip(neigh, deg)])
+    E = int(off[-1])
+    kind5, walls, ints, sizes, *_ = et.kernel_tables(geo)
+    tables = locate_tables(geo)
+    assert kind5 == 5 and sizes == (n, 1, 1)
+    ints = ints.numpy()
+    at = (n + 2) & ~1
+    meta = ints[at:].reshape(-1, 2)
+    for got_off, got_meta, got_sites in ((ints[:n + 1], meta, walls[2]),
+                                         (tables[3], tables[2], tables[1])):
+        got_off, got_meta = np.asarray(got_off), np.asarray(got_meta)
+        got_sites = got_sites.numpy()
+        assert got_sites.dtype == sites.dtype
+        np.testing.assert_array_equal(got_off, off)
+        np.testing.assert_array_equal(np.diff(got_off),
+                                      geo.packed_rows.degrees.numpy())
+        assert got_meta.shape == (E + ROW_PAD, 2)
+        assert got_sites.shape == (E + ROW_PAD, 3)
+        np.testing.assert_array_equal(got_meta[:E, 0], ids)
+        np.testing.assert_array_equal(got_meta[:E, 1], off[ids])
+        assert got_sites[:E].tobytes() == sites[ids].tobytes()
+        assert not got_meta[E:].any() and not got_sites[E:].any()
+    assert (deg == (neigh >= 0).sum(axis=1)).all()
+    for name, chunk in (('escape_tau', 'kVorChunk'),
+                        ('voronoi_locate', 'kChunk')):
+        src = (Path(et.__file__).parent / 'csrc' / (name + '.cu')).read_text()
+        consts = dict(re.findall(r'constexpr int (k\w+) = (\d+);', src))
+        assert int(consts['kRowPad']) == ROW_PAD
+        assert int(consts[chunk]) <= ROW_PAD
+
+
+# the skip rule of the walk kernel's Voronoi crossing (csrc/escape_tau.cu
+# vor_cross), as the kernel states it: no division where numer >=
+# fl(fl(t_best denom) (1 + 2^-50)) and fl(t_best denom) is a normal number
+SKIP = 1.0 + 2.0 ** -50
+DBL_MIN = float(np.finfo(np.float64).tiny)
+DBL_MAX = float(np.finfo(np.float64).max)
+
+
+def _skipped(numer, denom, t_best):
+    with np.errstate(over='ignore', under='ignore'):
+        prod = np.float64(t_best) * np.float64(denom)
+        return bool(DBL_MIN <= prod <= DBL_MAX and
+                    np.float64(numer) >= prod * np.float64(SKIP))
+
+
+@st.composite
+def _skip_cases(draw):
+    """(numer, denom > 0, t_best): t_best 0, DBL_MAX / 8, tiny, or any in
+    between; numer near t_best denom (up to 8 ulp either side, across the
+    rule's margin of 2^-50), negative, or any."""
+    denom = draw(st.one_of(
+        st.floats(min_value=5e-324, max_value=1e-300),
+        st.floats(min_value=1e-300, max_value=1e300),
+        st.floats(min_value=1e-3, max_value=4.0)))
+    t_best = draw(st.one_of(
+        st.just(0.0), st.just(DBL_MAX / 8.0),
+        st.floats(min_value=0.0, max_value=1e-300),
+        st.floats(min_value=0.0, max_value=DBL_MAX / 8.0),
+        st.floats(min_value=0.0, max_value=4.0)))
+    with np.errstate(over='ignore', under='ignore'):
+        exact = np.float64(t_best) * np.float64(denom)
+    ulps = draw(st.integers(min_value=-8, max_value=8))
+    near = exact
+    for _ in range(abs(ulps)):
+        near = np.nextafter(near, np.inf if ulps > 0 else -np.inf)
+    numer = draw(st.one_of(
+        st.just(float(near)),
+        st.floats(max_value=0.0, allow_nan=False, allow_infinity=False),
+        st.floats(allow_nan=False, allow_infinity=False)))
+    return numer, denom, t_best
+
+
+@settings(max_examples=1000, deadline=None, database=None)
+@given(_skip_cases())
+def test_division_skip_rule_never_drops_a_winner(case):
+    """A neighbour that the walk kernel's Voronoi crossing skips without
+    its division could not have become the best: its clamped quotient
+    max(numer / denom, 0) is never below t_best."""
+    numer, denom, t_best = case
+    if _skipped(numer, denom, t_best):
+        with np.errstate(over='ignore', under='ignore'):
+            tn = np.float64(numer) / np.float64(denom)
+        assert max(tn, 0.0) >= t_best
+
+
+def test_division_skip_rule_spares_far_planes():
+    """The skip rule spares the division of a plane clearly beyond the best
+    and keeps it at near-ties, at t_best 0 and for a subnormal product."""
+    assert _skipped(2.0, 1.0, 1.0)
+    assert not _skipped(np.nextafter(1.0, 2.0), 1.0, 1.0)
+    assert not _skipped(1.0, 1.0, 0.0)
+    assert not _skipped(1.0, 1e-300, 1e-10)
+    assert not _skipped(1.0, 1.0, DBL_MAX / 8.0)
 
 
 def _gray_dust(F, chi=1.0):

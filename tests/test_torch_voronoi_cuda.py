@@ -8,7 +8,14 @@ numpy and scipy, so it runs on a machine without JAX or h5py:
   float32 and float64, the lanes at the cap counted alike;
 - escape_tau.cu's Voronoi crossing (``kKind = 5``), tau and column modes:
   float64 lanes equal to the plain walk to the bit, float32 lanes equal to
-  their own plain walk.
+  their own plain walk; on the lattice mesh from points on its cells'
+  faces, edges and corners along the axes and diagonals (ties between
+  bisectors, so the first index must win, and lanes on a bisector wall
+  that cross it at t = 0), and from the cells of a row of 4 neighbours
+  and of one of 32 (one and four chunks of the packed row);
+- the locate kernel, four threads a lane, at lane counts on either side
+  of a warp's and a block's lanes, where a group's last threads lie past
+  the call's last lane.
 
 The meshes' helpers serve tests/test_torch_voronoi.py too."""
 
@@ -55,14 +62,31 @@ def lattice_sites(n):
     return np.stack([xx.ravel(), yy.ravel(), zz.ravel()]), walls
 
 
+def fibonacci_sphere(n, radius):
+    """``n`` nearly even points on a sphere about the origin."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1.0 - 2.0 * i / n)
+    theta = np.pi * (1.0 + 5.0 ** 0.5) * i
+    return radius * np.stack([np.cos(theta) * np.sin(phi),
+                              np.sin(theta) * np.sin(phi), np.cos(phi)])
+
+
 @functools.lru_cache(maxsize=None)
 def port_mesh(kind, n=2000):
     """A port VoronoiGrid in [-1, 1]^3 of ``n`` uniform or clustered sites,
-    or of an n^3 lattice's centres."""
+    of an n^3 lattice's centres, of a tetrahedron's corners and centre
+    ('tetra': every row 4 neighbours) or of the origin inside ``n``
+    (32) points of a sphere ('shell': the origin's row 32)."""
     if kind == 'uniform':
         pts = np.random.RandomState(42).uniform(-1, 1, (3, n))
     elif kind == 'clustered':
         pts = clustered(n, 5)
+    elif kind == 'tetra':
+        pts = np.concatenate([np.zeros((3, 1)), 0.6 / 3 ** 0.5 * np.array(
+            [[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]]).T], axis=1)
+    elif kind == 'shell':
+        pts = np.concatenate([np.zeros((3, 1)), fibonacci_sphere(n, 0.5)],
+                             axis=1)
     else:
         pts = lattice_sites(n)[0]
     return VoronoiGrid(*pts, xmin=-1., xmax=1., ymin=-1., ymax=1.,
@@ -163,3 +187,112 @@ def test_escape_kernel_matches_plain_walk_on_card(limited, dtype,
     assert (ref_tau > 0).sum() > 15000
     assert torch.equal(tau, ref_tau)
     assert torch.equal(col, ref_col)
+
+
+def tie_rays(geo, n, seed):
+    """Rays on the 8^3 lattice mesh from points on its cells' faces, edges
+    and corners (each coordinate a lattice wall or a random value), along
+    the axes, the face and body diagonals and random directions: rays on
+    a wall between two cells, through edges and corners, tie between
+    bisectors; those on a wall moving into the neighbour cross at t = 0."""
+    rng = np.random.RandomState(seed)
+    walls = np.linspace(-1.0, 1.0, 9)[1:-1]
+    pos = rng.uniform(-0.95, 0.95, (3, n))
+    on = rng.rand(3, n) < 0.6
+    pos[on] = rng.choice(walls, int(on.sum()))
+    dirs = np.concatenate([np.eye(3), -np.eye(3),
+                           np.array([[1, 1, 0], [1, -1, 0], [0, 1, 1],
+                                     [1, 0, -1], [1, 1, 1], [-1, 1, 1],
+                                     [1, -1, -1]]).T], axis=1)
+    dirs = dirs / np.linalg.norm(dirs, axis=0)
+    k = dirs[:, rng.randint(0, dirs.shape[1], n)]
+    free = rng.rand(n) < 0.2
+    k[:, free] = rng.normal(size=(3, int(free.sum())))
+    k /= np.linalg.norm(k, axis=0)
+    return pos / geo.length_scale, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['lattice', 'tetra', 'shell'])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['f64', 'f32'])
+def test_escape_kernel_ties_and_row_lengths_on_card(kind, dtype,
+                                                    cuda_device):
+    """escape_tau.cu's Voronoi crossing, tau and column modes, unlimited and
+    limited, against the plain walk: the lattice mesh's tie rays
+    (:func:`tie_rays`), and rays from the cells of rows of 4 neighbours
+    ('tetra') and of 32 ('shell', its centre); float64 lanes to the bit,
+    float32 lanes equal to their own plain walk."""
+    pg = port_mesh(kind, {'lattice': 8, 'shell': 32}.get(kind, 0))
+    geo = build_voronoi_geometry(pg, cuda_device, F64)
+    deg = geo.packed_rows.degrees.cpu().numpy()
+    rng = np.random.RandomState(7)
+    n = 20000
+    if kind == 'lattice':
+        pos, k = tie_rays(geo, n, 7)
+    else:
+        assert deg.max() == (4 if kind == 'tetra' else 32)
+        pos = rng.uniform(-0.95, 0.95, (3, n)) / geo.length_scale
+        # half the rays from the largest row's cell
+        big = int(np.argmax(deg))
+        pos[:, ::2] = geo.sites[big].cpu().numpy()[:, None] + \
+            rng.uniform(-0.05, 0.05, (3, n // 2)) / geo.length_scale
+        k = rng.normal(size=(3, n))
+        k /= np.linalg.norm(k, axis=0)
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(cuda_device, dt)
+
+    lanes = [dev(a) for a in pos] + [dev(a)[None] for a in k]
+    zero = torch.zeros(n, dtype=dtype, device=cuda_device)
+    geo_l = build_voronoi_geometry(pg, cuda_device, dtype)
+    cell = geo_l.find_cell(*lanes[:3], zero, zero, zero)
+    act = cell >= 0
+    cell = cell.clamp_min(0)
+    density = rng.uniform(0.1, 2.0, (geo.n_cells, 2))
+    rho_t = dev(density)
+    chi = dev(rng.uniform(0.5, 2.0, (n, 2)))
+    walk = EscapeTau(geo, rho_t)
+    for tm in (None, dev(rng.uniform(0.0, 1.5, n))[None]):
+        tau = walk(chi, *lanes, cell, act, t_max=tm)
+        col = walk.columns(*lanes, cell, act, t_max=tm)
+        torch.cuda.synchronize()
+        ref_tau, n_cross = escape_tau_reference(geo, rho_t, chi, *lanes, cell,
+                                                act, t_max=tm, crossings=True)
+        ref_col = escape_column_reference(geo, rho_t, *lanes, cell, act,
+                                          t_max=tm)
+        assert torch.equal(tau, ref_tau)
+        assert torch.equal(col, ref_col)
+    assert int(act.sum()) > n // 2 and int(n_cross.max()) > 2
+    if kind == 'lattice':
+        # rays that cross a wall at t = 0 and rays that tie: the plain
+        # walk's zero-length segments
+        t0 = escape_tau_reference(geo, rho_t, chi, *lanes, cell, act,
+                                  max_steps=1)
+        assert (t0[0][act] == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_locate_groups_on_card(dtype, cuda_device):
+    """The locate kernel (four threads a lane: 8 lanes a warp, 64 a block
+    of 256 threads) at lane counts on either side of a warp's and a
+    block's lanes: ``locate`` and ``walk_from`` equal to the plain walk."""
+    geo = build_voronoi_geometry(port_mesh('clustered'), cuda_device, dtype)
+    loc = VoronoiLocate(geo)
+    counts = (1, 3, 7, 8, 9, 63, 64, 65, 127, 128, 129, 1000, 4097)
+    rng = np.random.RandomState(9)
+    capped = 0
+    for B in counts:
+        pts = rng.uniform(-1.02, 1.02, (3, B)) / geo.length_scale
+        x, y, z = (torch.as_tensor(a, device=cuda_device, dtype=dtype)
+                   for a in pts)
+        start = torch.as_tensor(rng.randint(0, geo.n_cells, B),
+                                device=cuda_device)
+        ref, cap = locate_reference(geo, x, y, z, at_cap=True)
+        ref_w, cap_w = owner_walk_reference(geo.sites, geo.neigh, start, x,
+                                            y, z, geo.walk_steps)
+        capped += int(cap.sum()) + int(cap_w.sum())
+        assert torch.equal(loc.locate(x, y, z), ref), B
+        assert torch.equal(loc.walk_from(start, x, y, z), ref_w), B
+    assert loc.lanes_at_cap() == capped
