@@ -223,10 +223,11 @@ def kernel_tables(geometry):
         walls = [geometry.xw, geometry.yw, geometry.zw]
         sizes = (geometry.n1, geometry.n2, geometry.n3)
     elif isinstance(geometry, OctreeGeometry):
-        # the nodes' walls and centres, the children, the depth
+        # the node records (centre, parent, children, walls), the root's
+        # box, the depth
         kind = 3
-        walls = [geometry.lo, geometry.hi, geometry.centers]
-        ints = geometry.children.to(torch.int32)
+        walls = [geometry.node_records.reshape(-1),
+                 torch.cat([geometry.lo[0], geometry.hi[0]]).double()]
         aux, sizes = geometry.max_depth, (geometry.n_nodes, 1, 1)
     elif isinstance(geometry, AMRGeometry):
         # the fabs' bounds and cell sizes, the probe scale, the levels'

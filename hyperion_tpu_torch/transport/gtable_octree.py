@@ -19,14 +19,35 @@ on the wall, and the descend sends a point that lies exactly on a node's
 centre plane to the side the ray moves towards. For that equality to hold,
 a leaf's walls are the very values that the descend compares against: each
 node's ``lo`` and ``hi`` are built on the host from its parent's centre and
-bounds in the tables' type, never as ``c +- h`` on the device."""
+bounds in the tables' type, never as ``c +- h`` on the device.
+
+The walk kernel (``csrc/escape_tau.cu``) finds the same leaf another way:
+it walks up from the leaf it leaves to the first ancestor that holds the
+landing point under the descend's own side rule (:meth:`OctreeGeometry.
+holds`), and descends from there, reading one node record a level
+(:attr:`OctreeGeometry.node_records`). :meth:`OctreeGeometry.locate_from`
+is the host copy of that walk, for the tests; the plain walk keeps the
+descend from the root."""
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
 
 from .gtable import ESCAPED
+
+# A node record of the walk kernel (csrc/escape_tau.cu kRecordWords): 16
+# float64 words, 128 bytes, one L2 line of four 32-byte sectors. Words 0-2:
+# the centre; word 3 as int32: the parent (-1 for the root) and the mask of
+# the children that are leaves (bit o for child o); words 4-7 as int32: the
+# 8 children (-1 for a leaf's); words 8-13: lo (x, y, z), hi (x, y, z);
+# words 14-15: a pad.
+RECORD_WORDS = 16
+RECORD_PARENT = 6     # int32 words
+RECORD_LEAVES = 7
+RECORD_CHILDREN = 8
+RECORD_WALLS = 8      # float64 words
 
 
 @dataclass
@@ -49,20 +70,120 @@ class OctreeGeometry:
     def n_cells(self):
         return self.n_nodes
 
+    @cached_property
+    def parents(self):
+        """(n_nodes,) int64: each node's parent, -1 for the root."""
+        parent = torch.full((self.n_nodes,), -1, dtype=torch.int64,
+                            device=self.children.device)
+        kids = self.children[self.refined]
+        parent[kids.reshape(-1)] = torch.nonzero(
+            self.refined)[:, 0].repeat_interleave(8)
+        return parent
+
+    @cached_property
+    def depths(self):
+        """(n_nodes,) int64: each node's levels below the root."""
+        depth = torch.zeros(self.n_nodes, dtype=torch.int64,
+                            device=self.children.device)
+        for _ in range(self.max_depth):
+            depth = torch.where(self.parents >= 0,
+                                depth[self.parents.clamp_min(0)] + 1, depth)
+        return depth
+
+    @cached_property
+    def node_records(self):
+        """The walk kernel's node records, (n_nodes, RECORD_WORDS) float64
+        built once from these tables on their device (the layout above
+        RECORD_WORDS): each node's centre, parent, leaf-children mask,
+        children and walls, the centre and walls to the bit (widened from
+        float32 tables, which float64 holds exactly)."""
+        n = self.n_nodes
+        rec = torch.zeros((n, RECORD_WORDS), dtype=torch.float64,
+                          device=self.lo.device)
+        rec[:, 0:3] = self.centers
+        rec[:, RECORD_WALLS:RECORD_WALLS + 3] = self.lo
+        rec[:, RECORD_WALLS + 3:RECORD_WALLS + 6] = self.hi
+        words = rec.view(torch.int32)
+        words[:, RECORD_PARENT] = self.parents.to(torch.int32)
+        kids = self.children
+        leaf = (kids >= 0) & ~self.refined[kids.clamp_min(0)]
+        octants = torch.arange(8, device=kids.device)
+        words[:, RECORD_LEAVES] = (leaf.long() << octants).sum(dim=1).to(
+            torch.int32)
+        words[:, RECORD_CHILDREN:RECORD_CHILDREN + 8] = kids.to(torch.int32)
+        return rec
+
+    def holds(self, node, x, y, z, kx, ky, kz):
+        """Whether each point lies in the node's box under the descend's
+        side rule (:func:`upper`): at or past ``lo`` and before ``hi`` on
+        every axis, a point on a wall taking the side its direction moves
+        towards (the upper one along the wall). A node that holds the
+        point is one the descend from the root passes through (the walls
+        are copies of the ancestors' centres), unless a wall is a root
+        face, which only sends the walk further up."""
+        lo, hi = self.lo[node], self.hi[node]
+        ok = torch.ones_like(node, dtype=torch.bool)
+        for a, (p, k) in enumerate(((x, kx), (y, ky), (z, kz))):
+            ok = ok & upper(p, lo[:, a], k) & ~upper(p, hi[:, a], k)
+        return ok
+
+    def locate_from(self, leaf, x, y, z, kx, ky, kz):
+        """The leaf that holds each landing point of a crossing out of
+        ``leaf``, found as the walk kernel finds it. The walls of the leaf
+        that the point lies on and moves onto or along (the crossed one
+        among them) are each a copy of the centre of the ancestor that set
+        it, or a root face; the first ancestor that :meth:`holds` the point
+        is the one where, climbing from the leaf's parent, the centres
+        read account for all of them (the root at most). The descend from
+        it gives the leaf of the descend from the root (:meth:`_descend`).
+        A point off the leaf's box on an axis it does not cross (by
+        rounding) is located from the root. Returns (leaf, the levels
+        climbed from the leaf, the levels descended)."""
+        parent = self.parents
+        lo, hi = self.lo[leaf], self.hi[leaf]
+        off = torch.zeros_like(leaf, dtype=torch.bool)
+        walls, left = [], []
+        for a, (p, k) in enumerate(((x, kx), (y, ky), (z, kz))):
+            on_hi = (k >= 0) & (p >= hi[:, a])
+            on_lo = (k < 0) & (p <= lo[:, a])
+            off = off | (p > hi[:, a]) | (p < lo[:, a])
+            walls.append(torch.where(on_hi, hi[:, a], lo[:, a]))
+            left.append(on_hi | on_lo)
+        node = parent[leaf].clamp_min(0)
+        up = torch.ones_like(leaf)
+        while True:
+            c = self.centers[node]
+            left = [w & (c[:, a] != walls[a]) for a, w in enumerate(left)]
+            climb = (left[0] | left[1] | left[2]) & (parent[node] >= 0) & \
+                ~off
+            if not bool(climb.any()):
+                break
+            node = torch.where(climb, parent[node], node)
+            up = up + climb.long()
+        node = torch.where(off, 0, node)
+        up = torch.where(off, self.depths[leaf], up)
+        found = self._descend_from(node, x, y, z, kx, ky, kz)
+        return found, up, self.depths[found] - self.depths[node]
+
+    def _descend_from(self, node, x, y, z, kx, ky, kz):
+        """The descend from each ``node`` to the leaf that holds the
+        point."""
+        for _ in range(self.max_depth):
+            c = self.centers[node]
+            octant = (upper(x, c[:, 0], kx).long() +
+                      2 * upper(y, c[:, 1], ky).long() +
+                      4 * upper(z, c[:, 2], kz).long())
+            child = self.children[node, octant]
+            node = torch.where(self.refined[node], child, node)
+        return node
+
     def _descend(self, x, y, z, kx, ky, kz):
         """The leaf that holds each point, from the root: at each refined
         node the octant by the node's centre planes, a point on a plane
         going to the side its direction moves towards (the upper one for a
         direction along the plane, as the JAX package's ``>=``)."""
-        node = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
-        for _ in range(self.max_depth):
-            c = self.centers[node]
-            octant = (torch.where(kx < 0, x > c[:, 0], x >= c[:, 0]).long() +
-                      2 * torch.where(ky < 0, y > c[:, 1], y >= c[:, 1]).long()
-                      + 4 * torch.where(kz < 0, z > c[:, 2], z >= c[:, 2]).long())
-            child = self.children[node, octant]
-            node = torch.where(self.refined[node], child, node)
-        return node
+        root = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+        return self._descend_from(root, x, y, z, kx, ky, kz)
 
     def _inside(self, x, y, z, kx, ky, kz):
         """Inside the root box, a point on a face belonging to the grid
@@ -149,6 +270,13 @@ class OctreeGeometry:
         return (c[:, 0] + (u[0] * 2.0 - 1.0) * h[:, 0],
                 c[:, 1] + (u[1] * 2.0 - 1.0) * h[:, 1],
                 c[:, 2] + (u[2] * 2.0 - 1.0) * h[:, 2])
+
+
+def upper(p, c, k):
+    """The side of a centre plane or wall ``c`` that the point ``p`` with
+    direction ``k`` belongs to: above it, or on it moving up or along it
+    (the descend's rule; the kernel's ``upper``)."""
+    return torch.where(k < 0, p > c, p >= c)
 
 
 def node_bounds(centers, children, refined, root_lo, root_hi):

@@ -4,7 +4,8 @@ the walks the imaging step makes.
 
     git archive <rev> hyperion_tpu_torch | tar -x -C _checkout/old
     python3 scripts/escape_tau_ab.py --old _checkout/old \
-        [--models class2,quickstart,class1_cyl,orion_amr,voronoi_cloud] \
+        [--models class2,quickstart,class1_cyl,orion_amr,voronoi_cloud,\
+sph_octree] \
         [--columns] [--variant NAME=CONSTANT=VALUE[,CONSTANT=VALUE...] ...]
 
 ``--old`` is a directory that holds an earlier ``hyperion_tpu_torch/``
@@ -15,8 +16,9 @@ builds its own library inside its directory. The current package records
 the walk calls of imaging steps 1-20 and 41-60 (chip_smoke's WALK_WINDOWS)
 of class2 (examples/class2_sed.py, B = 50,000) and of the quickstart (B =
 125,000) with chip_smoke's record_walks, and those of chip_smoke.py's
-phases 14 (BASELINE config 3, class1_cyl, cylindrical-polar, B = 25,000)
-and 17 (config 5, orion_amr, AMR, B = 131,072) from the phase's own run
+phases 14 (BASELINE config 3, class1_cyl, cylindrical-polar, B = 25,000),
+16 (config 4, sph_octree, octree, B = 131,072) and 17 (config 5,
+orion_amr, AMR, B = 131,072) from the phase's own run
 (:func:`record_phase`); each call is one event of V views. For each
 window, in turns (old, new, new, old; with ``--variant``, old, new, the
 variants, the variants again in reverse, new, old), it times every event
@@ -68,7 +70,10 @@ MODELS = {'class2': (lambda: cs.class2_model(n_photons=200_000), 50_000),
           'voronoi_cloud': (lambda: cs.voronoi_cloud_model(
               cs.VORONOI_CLOUD['n_sites'], cs.VORONOI_CUT['n_photons'],
               cs.VORONOI_CUT['n_iterations'],
-              cs.VORONOI_CUT['n_imaging'])[0], 131_072)}
+              cs.VORONOI_CUT['n_imaging'])[0], 131_072),
+          'sph_octree': (lambda: cs.sph_octree_model(
+              cs.SPH_OCT_CUT['n_photons'], cs.SPH_OCT_CUT['n_iterations'],
+              cs.SPH_OCT_CUT['n_imaging'])[0], 131_072)}
 # the models whose calls are those of chip_smoke.py's phase, from its run:
 # run_lucy_model's batch and Lucy step cap
 PHASE_RUNS = {'class1_cyl': dict(batch_size=None,
@@ -76,13 +81,16 @@ PHASE_RUNS = {'class1_cyl': dict(batch_size=None,
               'orion_amr': dict(batch_size=cs.AMR_CUT['batch_size'],
                                 max_steps=cs.AMR_CUT['max_steps']),
               'voronoi_cloud': dict(batch_size=None,
-                                    max_steps=cs.VORONOI_CUT['max_steps'])}
+                                    max_steps=cs.VORONOI_CUT['max_steps']),
+              'sph_octree': dict(batch_size=None,
+                                 max_steps=cs.SPH_OCT_CUT['max_steps'])}
 ORDER = ['old', 'new', 'new', 'old']
 
 
 def record_phase(name, windows=cs.WALK_WINDOWS):
-    """The calls of chip_smoke.py's phase 14 (class1_cyl), 17 (orion_amr)
-    or 18 (voronoi_cloud): the phase's model, photons and Lucy step cap
+    """The calls of chip_smoke.py's phase 14 (class1_cyl), 16 (sph_octree),
+    17 (orion_amr) or 18 (voronoi_cloud): the phase's model, photons and
+    Lucy step cap
     through run_lucy_model on the card, as the phase runs them, with its
     imaging iteration cut at the last window's end (the calls of the steps
     before are the phase's; the raytracing pass draws from its own

@@ -2,7 +2,7 @@
 """Where a crossing of the escape_tau kernel spends its cycles, on one card.
 
     python3 scripts/escape_tau_cycles.py [--models class1_cyl,orion_amr,\
-voronoi_cloud] [--old _checkout/old] [--registers]
+voronoi_cloud,sph_octree] [--old _checkout/old] [--registers]
 
 Builds an instrumented copy of csrc/escape_tau.cu (clock64() around the
 parts of a crossing, summed into a device table; the arithmetic is the
@@ -14,10 +14,10 @@ calls of imaging steps 41-60 of class2 (examples/class2_sed.py, B =
 50,000), of the quickstart (B = 125,000), of BASELINE config 3
 (chip_smoke.class1_cyl_model, cylindrical-polar, B = 25,000) and of
 BASELINE config 5 (chip_smoke.orion_amr_model, AMR, B = 131,072) with
-chip_smoke.record_walks, and those of chip_smoke.py's phase 18
-(voronoi_cloud, B = 131,072) from the phase's own run
-(escape_tau_ab.record_phase), and runs, with the instrumented library in
-place of the kernel's:
+chip_smoke.record_walks, and those of chip_smoke.py's phases 16
+(sph_octree, BASELINE config 4, B = 131,072) and 18 (voronoi_cloud, B =
+131,072) from the phase's own run (escape_tau_ab.record_phase), and runs,
+with the instrumented library in place of the kernel's:
 
 - the window's longest ray alone (its lane the only active one, its view
   the only one): SM cycles per crossing from the ray's start to its end,
@@ -29,9 +29,18 @@ place of the kernel's:
   (the snap); for a Voronoi grid the reads of the row (its neighbours'
   ids, or its packed entries' ends), of the sites, the divisions, the
   argmin and the box exit, and the neighbours read and divisions taken
-  per crossing; the share of crossings walked again with the operators'
+  per crossing; for an octree the leaf's walls (their loads issued, and
+  the ancestors' records where the source loads them), the box exit with
+  the move and the root-box test (a load's wait falls where its value is
+  first used: the leaf's walls' in the box exit), the walk up, the
+  descend, and the records read going up and down per crossing (the
+  source of commit c41ab2d descends from the root: no walk up); the share
+  of crossings walked again with the operators'
   arithmetic after a fast path's check failed (``retry_share``);
-- every call of the window: the same figures averaged over all crossings.
+- every call of the window: the same figures averaged over all crossings;
+  on an octree also the levels of the descend from the root a crossing
+  (``root_levels_per_crossing``, chip_smoke.walk_work's count, which sets
+  the bound).
 
 ``--registers`` prints each walk kernel's registers and spill bytes as
 ptxas reported them when the library was built (-Xptxas -v is among its
@@ -58,8 +67,9 @@ import chip_smoke as cs  # noqa: E402
 # the device table's words
 SLOTS = dict(ray=0, candidates=1, find_cell=2, body=3, crossings=4,
              retries=5, walls=6, box_exit=7, locate=8, rest=9, row=10,
-             sites=11, divisions=12, argmin=13, neighbours=14, divided=15)
-N_SLOTS = 16
+             sites=11, divisions=12, argmin=13, neighbours=14, divided=15,
+             walk_up=16, descend=17, levels_up=18, levels_down=19)
+N_SLOTS = 20
 # Markers in the source: (marker, times found, probe put before it or
 # after it, what the probe does). 'start' sets the part's clock;
 # ('split', slot) adds the cycles since the part's clock to slot and
@@ -95,15 +105,13 @@ BOXES = [
      ('split', 'locate')),
     ('  return found && !same;\n', 1, 'before', ('split', 'rest')),
 ]
-MARKER_SETS = {
-    # the Voronoi crossing over packed rows: the row's sites and the
-    # neighbours' (id, offset) read a chunk at a time, the division only
-    # where a plane can win. Its parts: row, the first chunk's loads
-    # issued; box_exit, the box planes (while the row arrives) and the
-    # escape test and move; sites, a neighbour's wait for its entry and its
-    # normal; divisions, the skip test and the divisions taken; argmin,
-    # the update
-    'packed': COMMON + BOXES + [
+# the Voronoi crossing over packed rows (commit c41ab2d): the row's sites
+# and the neighbours' (id, offset) read a chunk at a time, the division
+# only where a plane can win. Its parts: row, the first chunk's loads
+# issued; box_exit, the box planes (while the row arrives) and the escape
+# test and move; sites, a neighbour's wait for its entry and its normal;
+# divisions, the skip test and the divisions taken; argmin, the update
+PACKED = [
         ('  const double big = DBL_MAX / 8.0;\n  const double* es = g.w[2]',
          1, 'before', 'start'),
         ('  const int deg = __ldg(g.ints + cell + 1) - off;\n', 1, 'after',
@@ -122,26 +130,51 @@ MARKER_SETS = {
         ('        best = m[u];\n      }\n', 1, 'after', ('split', 'argmin')),
         ('  cell = best.x;\n  off = best.y;\n', 1, 'before',
          ('split', 'box_exit')),
+]
+MARKER_SETS = {
+    # the octree crossing over node records: the leaf's walls and its
+    # parent's record read together, the climb from the parent to the
+    # first ancestor that holds the landing point (comparing centres), the
+    # descend from it (the tau kernel's reads, which this script probes).
+    # Its parts: walls, the loads issued; box_exit, the exit (with the wait
+    # for the leaf's walls), the move, the snap and the root-box test;
+    # walk_up, the setters' tests and the climb, a record a level; descend,
+    # a record a level down; the records read up (the parent's counted)
+    # and the levels down are counted
+    'walkup': COMMON + BOXES + PACKED + [
+        ('  const double* rec = g.w[0];\n  const double* box = g.w[1];\n'
+         '  const double* r = oct_record(rec, node) + 8;\n', 1, 'before',
+         'start'),
+        ('  OctNode n;\n  if (!kLean) n = oct_node<true>(rec, id);\n', 1,
+         'after', ('count', 'levels_up')),
+        ('  double w[3];\n  const int ax = box_exit(lo, hi, x,', 1, 'before',
+         ('split', 'walls')),
+        ('  // the walls of the leaf that the landing point lies on and '
+         'moves onto\n', 1, 'before', ('split', 'box_exit')),
+        ('      n = oct_node<!kLean>(rec, id);\n', 1, 'after',
+         ('count', 'levels_up')),
+        ('  // the descend from it\n', 1, 'before', ('split', 'walk_up')),
+        ('    const int child = oct_child<!kLean>(rec, id, n, o);\n', 1,
+         'after', ('count', 'levels_down')),
+        ('      node = child;\n      parent = id;\n', 1, 'before',
+         ('split', 'descend')),
     ],
-    # the source of commit 41f3206: the Voronoi crossing reads each
-    # neighbour's id, then its site, and divides for every facing one.
-    # Kept to reproduce PERF.md's split before the packed rows (--old on
-    # that commit); the next redesign replaces it with its own parent's.
-    'indexed': COMMON + BOXES + [
-        ('  const double big = DBL_MAX / 8.0;\n  const double* s = g.w[0];\n',
-         1, 'before', 'start'),
-        ('    if (nb < 0) break;\n', 1, 'after', ('split', 'row')),
-        ('    if (nb < 0) break;\n', 1, 'after', ('count', 'neighbours')),
-        ('    const double denom = kx * nvx + ky * nvy + kz * nvz;\n', 1,
-         'after', ('split', 'sites')),
-        ('    tn = tn < 0.0 ? 0.0 : tn;\n', 1, 'after',
-         ('split', 'divisions')),
-        ('    tn = tn < 0.0 ? 0.0 : tn;\n', 1, 'after', ('count', 'divided')),
-        ('      nb_best = nb;\n    }\n', 1, 'after', ('split', 'argmin')),
-        ('  double tx, ty, tz, w;\n  box_axis(box[0], box[3], x, kx, big, '
-         'tx, w);\n', 1, 'before', ('split', 'row')),
-        ('  cell = nb_best;\n  return !escapes;\n', 1, 'before',
-         ('split', 'box_exit')),
+    # the source of commit c41ab2d: the octree crossing reads the leaf's
+    # walls, then descends from the root, a centre and a child index a
+    # level (the leaf's own row read too). Kept to reproduce PERF.md's
+    # split before the node records (--old on that commit); the next
+    # redesign replaces it with its own parent's.
+    'packed': COMMON + BOXES + PACKED + [
+        ('  const double* lo = g.w[0];\n  const double* hi = g.w[1];\n', 1,
+         'before', 'start'),
+        ('                         __ldg(hi + n3 + 2)};\n', 1, 'after',
+         ('split', 'walls')),
+        ('  // find_cell at the landing point\n  const bool inside = within(',
+         1, 'before', ('split', 'box_exit')),
+        ('    const int child = __ldg(g.ints + 8LL * n + octant);\n', 1,
+         'after', ('count', 'levels_down')),
+        ('  node = n;\n  return inside;\n', 1, 'before',
+         ('split', 'descend')),
     ],
 }
 
@@ -268,11 +301,12 @@ def measure(lib, walk, call):
                body_cycles=h[SLOTS['body']] / n,
                retry_share=h[SLOTS['retries']] / n)
     for part in ('candidates', 'find_cell', 'walls', 'box_exit', 'locate',
-                 'rest', 'row', 'sites', 'divisions', 'argmin'):
+                 'rest', 'row', 'sites', 'divisions', 'argmin', 'walk_up',
+                 'descend'):
         out[part + '_cycles'] = h[SLOTS[part]] / n
-    # the Voronoi crossing's neighbours read and divisions taken, per
-    # crossing
-    for count in ('neighbours', 'divided'):
+    # the Voronoi crossing's neighbours read and divisions taken, the
+    # octree's records read going up and down, per crossing
+    for count in ('neighbours', 'divided', 'levels_up', 'levels_down'):
         out[count + '_per_crossing'] = h[SLOTS[count]] / n
     return out
 
@@ -284,9 +318,37 @@ MODELS = {
     'orion_amr': (lambda: cs.orion_amr_model(
         cs.AMR_CUT['n_photons'], cs.AMR_CUT['n_iterations'],
         cs.AMR_CUT['n_imaging'])[0], cs.AMR_CUT['batch_size']),
-    # its calls are phase 18's own (escape_tau_ab.record_phase)
+    # their calls are phases 16's and 18's own (escape_tau_ab.record_phase)
+    'sph_octree': (None, None),
     'voronoi_cloud': (None, None),
 }
+
+
+def root_levels(geo64, rho64, calls):
+    """The levels of the descend from the root a crossing on an octree,
+    over every ray of ``calls``: chip_smoke.walk_work's count (3
+    comparisons a level) from the plain walk's visits, over the crossings
+    that enter a cell."""
+    import torch
+    from hyperion_tpu_torch.transport import escape_tau as et
+    levels = entered = 0
+    for limited in (False, True):
+        group = [call for call in calls
+                 if (call[9] is not None) == limited and bool(call[8].any())]
+        if not group:
+            continue
+        rays = [cs._active_rays(cs._f64(call), call[8]) for call in group]
+        lanes = [torch.cat([r[0][i] for r in rays], dim=1 if 4 <= i < 7
+                           else 0) for i in range(8)]
+        t_max = torch.cat([r[1] for r in rays], dim=1) if limited else None
+        visits = torch.zeros(rho64.shape[0], dtype=torch.int64,
+                             device=rho64.device)
+        et.escape_tau_reference(geo64, rho64, *lanes,
+                                torch.ones_like(lanes[7], dtype=torch.bool),
+                                t_max=t_max, visits=visits)
+        levels += cs.walk_work('octree', geo64, lanes[7], visits)[1] // 3
+        entered += int(visits.sum()) - lanes[7].numel()
+    return levels / max(entered, 1)
 
 
 def main():
@@ -358,6 +420,9 @@ def main():
         n = sum(e['crossings'] for e in every)
         mean = {k: sum(e[k] * e['crossings'] for e in every) / n
                 for k in every[0] if k != 'crossings'}
+        if type(geo64).__name__ == 'OctreeGeometry':
+            mean['root_levels_per_crossing'] = root_levels(
+                geo64, rho64.T.contiguous(), calls)
         print(json.dumps(dict(model=name, design=design,
                               steps='%d-%d' % (window[0] + 1, window[1]),
                               longest_ray=dict(alone, expected=n_cross),

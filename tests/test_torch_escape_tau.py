@@ -720,9 +720,10 @@ def test_block_clock_on_card(columns, cuda_device):
 
 def test_cycle_probes_match_the_kernel_source():
     """scripts/escape_tau_cycles.py finds each of its markers in the
-    kernel's source as often as it should (the set of the redesigned
-    crossings over the Voronoi grid's packed rows), so that its
-    instrumented copy splits the crossings it measures."""
+    kernel's source as often as it should (the set of the octree crossing
+    over node records, with the AMR, cylindrical and packed Voronoi
+    crossings' markers), so that its instrumented copy splits the
+    crossings it measures."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parent.parent / 'scripts' / \
@@ -732,11 +733,12 @@ def test_cycle_probes_match_the_kernel_source():
     spec.loader.exec_module(cyc)
     src = (Path(et.__file__).parent / 'csrc' / 'escape_tau.cu').read_text()
     name, markers = cyc.marker_set(src)
-    assert name == 'packed'
+    assert name == 'walkup'
     probed = cyc.instrumented_source()
     for slot in ('walls', 'box_exit', 'locate', 'rest', 'candidates',
                  'find_cell', 'row', 'sites', 'divisions', 'argmin',
-                 'neighbours', 'divided'):
+                 'neighbours', 'divided', 'walk_up', 'descend', 'levels_up',
+                 'levels_down'):
         assert 'atomicAdd(&probe[%d]' % cyc.SLOTS[slot] in probed
 
 

@@ -31,15 +31,29 @@ inputs (JAX x64, torch float64 unless stated).
   within 5 sigma of both runs' Monte-Carlo noise (plus 5% of the larger
   for the raytraced part's own sampling noise), and the same .rtout
   layout.
+- The walk kernel's node records (``OctreeGeometry.node_records``, what
+  ``escape_tau.kernel_tables`` binds) hold each node's walls, centre,
+  parent, grandparent, children and leaf-children mask to the bit, on a
+  port tree, a clumped tree with leaves at every depth, float32 tables and
+  a geometry carried from the JAX tables; the host copy of the kernel's
+  walk up and descend (``locate_from``) finds the root descend's leaf on
+  hypothesis-drawn crossings (walls, centre planes, corners, axes, faces,
+  diagonals, exact edge and corner ties, landings on a face the ray runs
+  along), from an ancestor of both leaves at the levels it reports.
 - The kernel's octree crossing (``kKind = 3``) against the plain walk on
-  the card (marked cuda, skipped here)."""
+  the card (marked cuda, skipped here), on the SPH tree and on the clumped
+  tree, with lanes that start in the leaves beside the root's faces."""
 
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 import jax
 import jax.numpy as jnp
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from hyperion_tpu.transport.gtable_octree import \
     build_octree_geometry as j_geometry
@@ -48,13 +62,17 @@ from hyperion_tpu.transport.raytrace import \
     escape_column_walk as j_column_walk
 from hyperion_tpu.transport.raytrace import \
     sample_position_in_cell as j_position
+from hyperion_tpu_torch.convert import _octree_from_numpy
 from hyperion_tpu_torch.grid import OctreeGrid
 from hyperion_tpu_torch.importers import construct_octree
 from hyperion_tpu_torch.transport.dtable import build_dust_tables
 from hyperion_tpu_torch.transport.escape_tau import (EscapeTau,
                                                      escape_column_reference,
-                                                     escape_tau_reference)
-from hyperion_tpu_torch.transport.gtable_octree import build_octree_geometry
+                                                     escape_tau_reference,
+                                                     kernel_tables)
+from hyperion_tpu_torch.transport.gtable_octree import (
+    RECORD_CHILDREN, RECORD_LEAVES, RECORD_PARENT, RECORD_WALLS,
+    RECORD_WORDS, build_octree_geometry)
 from hyperion_tpu_torch.transport.lucy import run_lucy
 from hyperion_tpu_torch.transport.raytrace import sample_position_in_cell
 from hyperion_tpu_torch.transport.stable import build_source_tables
@@ -95,6 +113,27 @@ def sph_tree(package, n=2000, n_ref=16, seed=7, method='exact'):
     mass = np.full(p.shape[1], 1.0 / p.shape[1])
     return build(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, *p, sigma, mass, n_ref=n_ref,
                  method=method)
+
+
+def clumped_tree(n=3000, n_ref=2, seed=11):
+    """A port ``construct_octree`` tree over a cloud in one octant of the
+    root cube (the cloud of half-width 0.5 moved by 0.45 on each axis):
+    leaves at every depth from 1 to the tree's 10."""
+    p = cloud(n, seed, scale=0.5) + 0.45
+    sigma = np.full(p.shape[1], 0.03)
+    mass = np.full(p.shape[1], 1.0 / p.shape[1])
+    return construct_octree(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, *p, sigma, mass,
+                            n_ref=n_ref, method='exact')
+
+
+def node_depths(pg):
+    """(n_nodes,) int64: each node's levels below the root."""
+    parent = pg.parents
+    depth = torch.zeros(pg.n_nodes, dtype=torch.int64)
+    for _ in range(pg.max_depth):
+        depth = torch.where(parent >= 0, depth[parent.clamp_min(0)] + 1,
+                            depth)
+    return depth
 
 
 def two_level(package='port', scale=1.0):
@@ -274,6 +313,229 @@ def test_corner_and_parallel_crossings():
     assert not active.any()
 
 
+def _records_geometry(source):
+    """The geometry whose node records a test reads: the SPH tree of
+    :func:`sph_tree` (float64 or float32), :func:`clumped_tree`, or the SPH
+    tree carried from the JAX package's tables."""
+    if source == 'jax_tables':
+        jg = j_geometry(sph_tree('jax'), dtype=jnp.float64)
+        return _octree_from_numpy({f.name: np.asarray(getattr(jg, f.name))
+                                   for f in dataclasses.fields(jg)}, CPU, F64)
+    tree = clumped_tree() if source == 'clumped' else sph_tree('port')
+    return build_octree_geometry(
+        tree, CPU, torch.float32 if source == 'sph_f32' else F64)
+
+
+@pytest.mark.parametrize('source', ['sph', 'sph_f32', 'clumped',
+                                    'jax_tables'])
+def test_node_records(source):
+    """What EscapeTau binds on an octree (escape_tau.kernel_tables): the
+    node records in w[0], one of RECORD_WORDS float64 words a node (the
+    kernel's kRecordWords), and the root's box in w[1]. Each record holds
+    its node's centre and walls to the bit, its parent (-1 for the root),
+    its children and the mask of those that are leaves; the pads are
+    zero."""
+    from pathlib import Path
+    pg = _records_geometry(source)
+    kind, walls, ints, sizes, aux, *_ = kernel_tables(pg)
+    assert kind == 3 and ints is None and aux == pg.max_depth
+    assert sizes == (pg.n_nodes, 1, 1)
+    assert walls[0].data_ptr() == pg.node_records.data_ptr()
+    src = (Path(__file__).resolve().parent.parent / 'hyperion_tpu_torch' /
+           'transport' / 'csrc' / 'escape_tau.cu').read_text()
+    assert 'constexpr int kRecordWords = %d;' % RECORD_WORDS in src
+    rec = walls[0].numpy().reshape(pg.n_nodes, RECORD_WORDS)
+    words = rec.view(np.int32)
+    lo, hi, c = (a.double().numpy() for a in (pg.lo, pg.hi, pg.centers))
+    for got, want in ((rec[:, 0:3], c),
+                      (rec[:, RECORD_WALLS:RECORD_WALLS + 3], lo),
+                      (rec[:, RECORD_WALLS + 3:RECORD_WALLS + 6], hi),
+                      (walls[1].numpy(), np.concatenate([lo[0], hi[0]]))):
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      want.view(np.int64))
+    children = pg.children.numpy()
+    refined = pg.refined.numpy()
+    parent = np.full(pg.n_nodes, -1)
+    for p in np.where(refined)[0]:
+        parent[children[p]] = p
+    np.testing.assert_array_equal(words[:, RECORD_PARENT], parent)
+    np.testing.assert_array_equal(
+        words[:, RECORD_CHILDREN:RECORD_CHILDREN + 8], children)
+    leaf = (children >= 0) & ~refined[np.maximum(children, 0)]
+    np.testing.assert_array_equal(words[:, RECORD_LEAVES],
+                                  (leaf << np.arange(8)).sum(axis=1))
+    assert not words[~refined, RECORD_LEAVES].any()
+    assert not rec[:, RECORD_WALLS + 6:].any()
+    if source == 'clumped':
+        # leaves at every depth from 1 to the tree's
+        depth = node_depths(pg).numpy()
+        assert set(depth[~refined]) == set(range(1, pg.max_depth + 1))
+
+
+_HOST_TREES = {}
+
+
+def _host_tree(which):
+    if which not in _HOST_TREES:
+        _HOST_TREES[which] = build_octree_geometry(
+            clumped_tree() if which == 'clumped' else sph_tree('port'), CPU,
+            F64)
+    return _HOST_TREES[which]
+
+
+def _crossing_starts(pg, style, seed, n=64):
+    """Starts and directions (3, n) on ``pg``, and the leaves they start
+    in (None: those that hold them): those of :func:`_rays` ('rays');
+    starts at an exact distance from a leaf's corner or edge, heading for
+    it along dyadic directions, so that two or three box distances tie
+    exactly ('tie'); starts on a leaf's face with the direction along it,
+    one component or two exactly 0 ('along'); or starts a hair past a
+    leaf's face, given to that leaf, along the face or moving back in, so
+    that the landing point lies off the leaf's box ('off', as rounding
+    leaves a lane after a diagonal move)."""
+    if style == 'rays':
+        return _rays(pg, n=n, seed=seed) + (None,)
+    rng = np.random.default_rng(seed)
+    lo, hi = pg.lo.numpy(), pg.hi.numpy()
+    leaf = rng.choice(np.where(~pg.refined.numpy())[0], n)
+    lo, hi = lo[leaf].T, hi[leaf].T
+    width = hi - lo
+    if style == 'off':
+        pos = lo + width * rng.uniform(0.05, 0.95, (3, n))
+        k = rng.normal(size=(3, n))
+        face = rng.integers(0, 3, n)
+        up = rng.integers(0, 2, n).astype(bool)
+        for a in range(3):
+            on = face == a
+            pos[a, on] = np.where(up, np.nextafter(hi[a], np.inf),
+                                  np.nextafter(lo[a], -np.inf))[on]
+            k[a, on] = np.where(up, -1.0, 1.0)[on] * np.abs(k[a, on]) * \
+                (rng.random(on.sum()) < 0.5)
+        return pos, k / np.linalg.norm(k, axis=0), leaf
+    if style == 'tie':
+        up = rng.integers(0, 2, (3, n)).astype(bool)
+        corner = np.where(up, hi, lo)
+        k = rng.choice([0.25, 0.5, 1.0], (3, n)) * np.where(up, 1.0, -1.0)
+        # an edge: one axis does not move, its start a quarter, half or
+        # three quarters across
+        edge = rng.random(n) < 0.4
+        still = rng.integers(0, 3, n)
+        for a in range(3):
+            k[a, edge & (still == a)] = 0.0
+        s = width.min(axis=0) * rng.choice([0.25, 0.5, 0.75], n)
+        pos = corner - s * k
+        frac = lo + width * rng.choice([0.25, 0.5, 0.75], (3, n))
+        return np.where(k == 0.0, frac, pos), k, None
+    pos = lo + width * rng.uniform(0.0, 1.0, (3, n))
+    k = rng.normal(size=(3, n))
+    face = rng.integers(0, 3, n)
+    side = rng.integers(0, 2, n).astype(bool)
+    second = rng.random(n) < 0.3
+    for a in range(3):
+        on = face == a
+        pos[a, on] = np.where(side, hi[a], lo[a])[on]
+        k[a, on] = 0.0
+        k[a, second & (face == (a + 1) % 3)] = 0.0
+    return pos, k / np.linalg.norm(k, axis=0), None
+
+
+def _ancestor(pg, node, levels):
+    """The ancestor ``levels`` above each node."""
+    for i in range(pg.max_depth):
+        node = torch.where(levels > i, pg.parents[node], node)
+    return node
+
+
+def _first_holder(pg, leaf, x, y, z, kx, ky, kz):
+    """The first ancestor of each leaf that holds the point by its walls
+    (``holds``), the root at most."""
+    node = pg.parents[leaf].clamp_min(0)
+    for _ in range(pg.max_depth):
+        climb = ~pg.holds(node, x, y, z, kx, ky, kz) & \
+            (pg.parents[node] >= 0)
+        node = torch.where(climb, pg.parents[node], node)
+    return node
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(which=st.sampled_from(['sph', 'clumped']),
+       style=st.sampled_from(['rays', 'tie', 'along', 'off']),
+       seed=st.integers(0, 2 ** 32 - 1))
+def test_walk_up_finds_the_root_descends_leaf(which, style, seed):
+    """The host copy of the kernel's locate (locate_from: up from the leaf
+    to the first ancestor that holds the landing point under the descend's
+    side rule, told by the centres it reads, then down) gives, at the
+    landing point of each crossing, the leaf of the descend from the root
+    (find_wall's next leaf where the point is inside the root box), never
+    the leaf it left. The ancestor it climbs to is the first that holds
+    the point by its walls (``holds``) where the point lies on the leaf's
+    box, and lies the levels it reports above both leaves, so it descends
+    no more levels than the root descend."""
+    pg = _host_tree(which)
+    pos, k, start = _crossing_starts(pg, style, seed)
+    t = [torch.as_tensor(a) for a in (*pos, *k)]
+    cell = pg.find_cell(*t) if start is None else torch.as_tensor(start)
+    keep = cell >= 0
+    t = [a[keep] for a in t]
+    cell = cell[keep]
+    assert len(cell) > 0
+    dist, nxt, ax, wall = pg.find_wall(cell, *t)
+    land = pg.snap(*(p + dist * d for p, d in zip(t[:3], t[3:])), ax, wall,
+                   torch.ones_like(keep[keep]))
+    leaf, up, down = pg.locate_from(cell, *land, *t[3:])
+    assert torch.equal(leaf, pg._descend(*land, *t[3:]))
+    inside = nxt >= 0
+    assert torch.equal(leaf[inside], nxt[inside])
+    assert not (leaf[inside] == cell[inside]).any()
+    assert (up >= 1).all()
+    top = _ancestor(pg, cell, up)
+    assert torch.equal(top, _ancestor(pg, leaf, down))
+    assert (down <= node_depths(pg)[leaf]).all()
+    lo, hi = pg.lo[cell], pg.hi[cell]
+    on_box = ((torch.stack(land, dim=1) >= lo) &
+              (torch.stack(land, dim=1) <= hi)).all(dim=1)
+    assert style != 'off' or not on_box.all()
+    first = _first_holder(pg, cell, *land, *t[3:])
+    assert torch.equal(top[on_box], first[on_box])
+
+
+def test_walk_up_reads_fewer_levels_than_the_root_descend():
+    """Over whole walks on the clumped tree (the rays of :func:`_rays`),
+    the host copy of the kernel's locate reads fewer node records a
+    crossing, up and down, than the descend from the root has levels (3.4
+    against 4.3), and three crossings in four climb at most the two levels
+    whose records the kernel loads before the box exit."""
+    pg = _host_tree('clumped')
+    pos, k = _rays(pg, n=4000, seed=17)
+    x, y, z, kx, ky, kz = (torch.as_tensor(a) for a in (*pos, *k))
+    cell = pg.find_cell(x, y, z, kx, ky, kz)
+    active = cell >= 0
+    depth = node_depths(pg)
+    ups, downs, roots = [], [], []
+    while bool(active.any()):
+        c = cell[active]
+        t, nxt, ax, wall = pg.find_wall(c, x[active], y[active], z[active],
+                                        kx[active], ky[active], kz[active])
+        lx, ly, lz = pg.snap(x[active] + t * kx[active],
+                             y[active] + t * ky[active],
+                             z[active] + t * kz[active], ax, wall,
+                             torch.ones_like(c, dtype=torch.bool))
+        leaf, up, down = pg.locate_from(c, lx, ly, lz, kx[active],
+                                        ky[active], kz[active])
+        inside = nxt >= 0
+        assert torch.equal(leaf[inside], nxt[inside])
+        ups.append(up[inside])
+        downs.append(down[inside])
+        roots.append(depth[nxt[inside]])
+        x[active], y[active], z[active] = lx, ly, lz
+        cell[active] = nxt
+        active = cell >= 0
+    up, down, root = torch.cat(ups), torch.cat(downs), torch.cat(roots)
+    assert len(up) > 10000
+    assert (up + down).sum() < root.sum()
+    assert (up <= 2).float().mean() > 0.75
+
+
 def _uniform_inputs(pg, pos, k, rho_phys=0.8, chi=1.5):
     density = np.full((1, pg.n_nodes), rho_phys * pg.length_scale)
     density[0, pg.refined.numpy()] = 0.0
@@ -314,13 +576,35 @@ def test_uniform_density_chord_oracle():
                                atol=1e-12)
 
 
-def _walk_inputs(pg, n=3000, n_dust=2, seed=43, generic=True):
+def _face_rays(pg, n, seed):
+    """Positions (3, n) in the leaves beside the root's faces (a third of
+    them on the face itself) and any unit directions (3, n)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = pg.lo.numpy(), pg.hi.numpy()
+    face = ((lo == lo[0]) | (hi == hi[0])).any(axis=1) & \
+        ~pg.refined.numpy()
+    leaf = rng.choice(np.where(face)[0], n)
+    pos = (lo[leaf] + (hi[leaf] - lo[leaf]) * rng.uniform(0, 1, (n, 3))).T
+    axis = rng.integers(0, 3, n)
+    on = rng.random(n) < 1 / 3
+    for a in range(3):
+        sel = on & (axis == a)
+        pos[a, sel] = np.where(lo[leaf, a] == lo[0, a], lo[0, a],
+                               hi[0, a])[sel]
+    k = rng.normal(size=(3, n))
+    return pos.copy(), k / np.linalg.norm(k, axis=0)
+
+
+def _walk_inputs(pg, n=3000, n_dust=2, seed=43, generic=True, faces=False):
     """Rays on the port's CPU float64 geometry ``pg`` (any points and
-    directions, or with ``generic`` False those of :func:`_rays`), their
-    cells, lanes and a density: made with the port alone (the card's
-    machine has no h5py, which the JAX package's front end imports)."""
+    directions, with ``generic`` False those of :func:`_rays`, with
+    ``faces`` those of :func:`_face_rays`), their cells, lanes and a
+    density: made with the port alone (the card's machine has no h5py,
+    which the JAX package's front end imports)."""
     rng = np.random.default_rng(seed + 1)
-    if generic:
+    if faces:
+        pos, k = _face_rays(pg, n, seed)
+    elif generic:
         lo, hi = pg.lo[0].numpy(), pg.hi[0].numpy()
         pos = rng.uniform(lo, hi, (n, 3)).T.copy()
         k = rng.normal(size=(3, n))
@@ -700,20 +984,31 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('generic,limited,dtype', [
-    (False, False, torch.float64), (True, True, torch.float64),
-    (False, False, torch.float32), (False, True, torch.float32)],
-    ids=['planes', 'limited', 'planes_f32', 'limited_f32'])
-def test_kernel_matches_plain_walk_on_card(generic, limited, dtype,
+@pytest.mark.parametrize('tree,rays,limited,dtype', [
+    ('sph', 'planes', False, torch.float64),
+    ('sph', 'generic', True, torch.float64),
+    ('sph', 'planes', False, torch.float32),
+    ('sph', 'planes', True, torch.float32),
+    ('sph', 'faces', False, torch.float64),
+    ('clumped', 'planes', False, torch.float64),
+    ('clumped', 'generic', True, torch.float64),
+    ('clumped', 'faces', False, torch.float64),
+    ('clumped', 'faces', True, torch.float32)],
+    ids=['planes', 'limited', 'planes_f32', 'limited_f32', 'faces',
+         'clumped_planes', 'clumped_limited', 'clumped_faces',
+         'clumped_faces_f32'])
+def test_kernel_matches_plain_walk_on_card(tree, rays, limited, dtype,
                                            cuda_device):
     """The octree crossing of escape_tau.cu (tau and column modes) against
     the plain walk on the same rays (on walls, centre planes and corners,
-    along axes, parallel to faces and along diagonals, or any): float64
-    tau to rtol 1e-10 and columns to 0; float32 lanes equal to their own
-    plain walk."""
-    tree = sph_tree('port')
+    along axes, parallel to faces and along diagonals; any; or from the
+    leaves beside the root's faces), on the SPH tree and on the clumped
+    tree (leaves at every depth from 1 to 10): float64 tau to rtol 1e-10
+    and columns to 0; float32 lanes equal to their own plain walk."""
+    tree = clumped_tree() if tree == 'clumped' else sph_tree('port')
     pos, k, cell, active, density, chi, t_max = _walk_inputs(
-        build_octree_geometry(tree, CPU, F64), n=20000, generic=generic)
+        build_octree_geometry(tree, CPU, F64), n=20000,
+        generic=rays == 'generic', faces=rays == 'faces')
     pg = build_octree_geometry(tree, cuda_device, F64)
 
     def dev(a, dt=dtype):
