@@ -55,8 +55,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 8. examples/class2_sed.py with its peeled SEDs at 20, 45 and 80 degrees,
    built with the port's AnalyticalYSOModel (96 x 32 x 1 auto grid, MRW, a
    spherical star) and run on the card by run_lucy_model, cut to 1 Lucy
-   iteration of 200,000 photons capped at 4,000 steps and 100,000 imaging
-   photons capped at 1,500 steps (CLASS2_CUT; lanes alive at a cap are
+   iteration of 200,000 photons capped at 2,500 steps and 100,000 imaging
+   photons capped at 1,000 steps (CLASS2_CUT; lanes alive at a cap are
    killed and counted in killed_int): no geometry kills, energy_current
    the photon count, the SEDs finite and >= 0 and the 80 degree view
    fainter than the 20 degree one at the shortest wavelength; per
@@ -176,16 +176,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
    its lanes at the cap, the kernels of phases 6, 10 (escape_tau kind 5)
    and 13 on this run's own calls; then the lattice oracle of
    tests/test_torch_voronoi.py on the card at 16^3 sites and 1,000,000
-   photons (VORONOI_LATTICE).
+   photons (VORONOI_LATTICE);
+19. two ranks sharing the card (hyperion_tpu_torch.parallel: one process
+   a rank, started by its launcher, gloo staging through pinned host
+   memory; NCCL needs a card a rank): (a) phase 4's tutorial at phase 4's
+   size through run_lucy_model(parallel=2), each rank phase 4's batch:
+   every iteration's energy_current 500,000 and nothing killed, phase 4's
+   band and temperature checks, the median cell temperature within 1% of
+   phase 4's, rank 0's first 20 deposit_visit calls held to the plain
+   version; (b) one Lucy iteration of it with the grid cut into two slabs
+   (shard_grid): energy exact, nothing killed, both slabs with deposits,
+   within 2% of phase 4's first iteration in total and 5% in the median
+   per-cell ratio; (c) __graft_entry__.dryrun_multichip's thick MRW 8^3
+   case slab-sharded, both slabs with deposits. Each prints its wall,
+   photons/s, steps, ms per step and the collectives' and ring hops' host
+   times (the launcher's start-up too). A rank that fails fails the phase.
 
 ``--raytracing`` runs phases 1, 2, 4, 8 and 11-13 alone; ``--cylindrical``
 phases 1, 2, 14 (with its parts of phases 6, 10 and 13) and 15;
 ``--hierarchical`` phases 1, 2, 16 and 17; ``--voronoi`` phases 1, 2 and
-18.
+18; ``--parallel`` phases 1, 2 and 19 (with phase 4, its reference).
 
 Each kernel's launch count is reset just before and read just after each
-main-path run (phases 4, 8, 9, 11, 12, 14, 16, 17 and 18); the kernels line
-sums them.
+main-path run (phases 4, 8, 9, 11, 12, 14, 16, 17, 18 and, on rank 0, 19);
+the kernels line sums them.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
 It needs no network and imports nothing of JAX or of hyperion_tpu.
@@ -230,17 +244,19 @@ YSO_THICK = dict(batch_size=4096, mrw_gamma=1.0, n_mrw_max=100000,
                  n_reabs_max=100, max_steps=100000)
 YSO_THICK_CUT = dict(n_photons=10_000, n_iterations=1)
 # examples/class2_sed.py as chip_smoke runs it: its 200,000 photons, 1 of
-# its 5 iterations, capped at 4,000 steps (41.9 s of phase 8's 70.3 s on
-# the H100). The diffusion tail (photons deep
+# its 5 iterations, capped at 2,500 steps. The diffusion tail (photons deep
 # in the disk's inner rim, whose innermost shells are too thin for MRW
 # jumps) is heavy: on the H100 145-155 of the 200,000 photons were still
-# alive at 8,000 steps, and the iteration's occupancy was 5% at B = 50,000
-# (its photons ~107 events each: all are emitted in the first ~1,000
-# steps). Lanes alive at the cap are killed and counted in killed_int.
-# Imaging is cut to 100,000 of its 500,000 photons, capped at 1,500 steps,
-# for the same diffusion tail.
-CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=4000,
-                  n_imaging=100_000, imaging_max_steps=1500)
+# alive at 8,000 steps and 251 at 4,000, and the iteration's occupancy was
+# 5% at B = 50,000 (its photons ~107 events each: all are emitted in the
+# first ~1,000 steps). Lanes alive at the cap are killed and counted in
+# killed_int. Imaging is cut to 100,000 of its 500,000 photons, capped at
+# 1,000 steps, for the same diffusion tail (phase 11's imaging too). The
+# caps were 4,000 and 1,500 until phase 19 came: with them phases 3-19
+# took 958.1 s on a slow host (PERF.md), over the 950 s they are held to,
+# and the tail's steps are 15-27 ms each there.
+CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=2500,
+                  n_imaging=100_000, imaging_max_steps=1000)
 # BASELINE.md config 3 (class1_cyl, phase 14) as chip_smoke runs it: the
 # full 200 x 200 x 1 auto grid and every density component and source, with
 # the photons cut so that the phase stays near a minute and a half on the
@@ -1138,7 +1154,9 @@ def run_slice(dv, et, card):
     """Phase 4: the tutorial through run_lucy_model, the port's run_model
     without its .rtout file: 4 Lucy iterations, then imaging. Returns
     (deposit_visit launches, escape_tau launches, per-iteration rows,
-    wall, imaging report, the last iteration's specific energy)."""
+    wall, imaging report, the last iteration's specific energy, phase 19's
+    reference: the temperatures, the first iteration's specific energy and
+    the dusty cells)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
     from hyperion_tpu_torch.util.constants import lsun
@@ -1206,8 +1224,10 @@ def run_slice(dv, et, card):
           'wall (run_lucy_model), T %.1f .. %.1f K, deposit_visit launches '
           '%d over %d steps [%s]'
           % (wall, temp[dusty].min(), temp.max(), launches, steps, card))
+    ref = dict(temperature=temp, se1=run.iterations[0]['specific_energy'],
+               dusty=dusty)
     return launches, launches_et, [dict(row) for row in run.perf.rows[:4]], \
-        wall, img, run.iterations[-1]['specific_energy']
+        wall, img, run.iterations[-1]['specific_energy'], ref
 
 
 # --------------------------------------------------------------- physics --
@@ -4040,6 +4060,288 @@ def locate_kernel(vor, n_launches):
                for r in vor['locate']])
 
 
+# ------------------------------------------------------ ranks (phase 19) --
+
+def _jsonable(obj):
+    """numpy values in a record, for json.dumps."""
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    raise TypeError(type(obj).__name__)
+
+
+def _mesh_numbers(stats, steps=None, iterations=None):
+    """The collectives' and ring's host-clock numbers of a rank's
+    ``mesh.stats`` (µs per collective, per step or iteration; hops, bytes
+    and µs per hop)."""
+    out = dict(collectives=stats['collectives'],
+               collective_us=stats['collective_s'] * 1e6 /
+               max(stats['collectives'], 1),
+               hops=stats['hops'])
+    if steps:
+        out['collective_us_per_step'] = stats['collective_s'] * 1e6 / steps
+    if iterations:
+        out['collective_us_per_iteration'] = \
+            stats['collective_s'] * 1e6 / iterations
+    if stats['hops']:
+        out.update(bytes_per_hop=stats['hop_bytes'] / stats['hops'],
+                   us_per_hop=stats['hop_s'] * 1e6 / stats['hops'])
+    return out
+
+
+def dryrun_tables(device):
+    """__graft_entry__.dryrun_multichip's sharded-grid workload on the port,
+    float32: the toy dust (albedo 0.3, chi 1) and 5000 K point source, 8^3
+    cells over +-1 of density 4 (engine units; thick), a specific energy of
+    1e-2 everywhere and MRW at gamma 2."""
+    import torch
+    from hyperion_tpu_torch.dust import IsotropicDust
+    from hyperion_tpu_torch.grid import CartesianGrid
+    from hyperion_tpu_torch.sources import PointSource
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+    from hyperion_tpu_torch.transport.gtable import build_cartesian_geometry
+    from hyperion_tpu_torch.transport.lucy import compute_jnu_var
+    from hyperion_tpu_torch.transport.mrw import prepare_mrw_tables
+    from hyperion_tpu_torch.transport.stable import build_source_tables
+    f32 = torch.float32
+    nu = np.logspace(5, 18, 16)
+    dust = IsotropicDust(nu, np.repeat(0.3, 16), np.repeat(1.0, 16))
+    grid = CartesianGrid(*[np.linspace(-1, 1, 9)] * 3)
+    geometry = build_cartesian_geometry(grid, device, f32)
+    dt = build_dust_tables([dust], device, f32)
+    st = build_source_tables([PointSource(luminosity=1.0, temperature=5000.0)],
+                             device, f32, length_scale=geometry.length_scale)
+    density = torch.full((1, grid.n_cells), 4.0, dtype=f32, device=device)
+    se = torch.full_like(density, 1e-2)
+    jid, jfrac = compute_jnu_var(dt, se)
+    mrw = prepare_mrw_tables(dt, density, se, 2.0)
+    return (geometry, dt, st, density, jid, jfrac), mrw
+
+
+def parallel_rank():
+    """Phase 19 on each rank (``chip_smoke:parallel_rank``, started by
+    hyperion_tpu_torch.parallel.launch): (a) the tutorial at phase 4's size
+    through run_lucy_model, rank 0 recording its first 20 deposit_visit
+    calls; (b) one Lucy iteration of it with the grid cut into slabs; (c)
+    the dryrun's thick MRW 8^3 case, slab-sharded. Returns this rank's
+    records (the launcher returns rank 0's)."""
+    import torch
+    from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.parallel import mesh
+    from hyperion_tpu_torch.parallel.spatial import \
+        run_lucy_iteration_spatial
+    from hyperion_tpu_torch.transport import deposit_visit as dv
+    from hyperion_tpu_torch.transport import escape_tau as et
+    group = mesh.active_group()
+    device = group.device
+    out = dict(t_start=time.time(), rank=group.rank, world=group.world,
+               backend=group.backend, device=str(device))
+
+    # (a) the tutorial, photon-parallel
+    m = tutorial_model()
+    dv.launches = 0
+    et.launches = 0
+    mesh.reset_stats()
+    t0 = time.time()
+    with deposit_calls(dv, 0, 20 if group.rank == 0 else 0) as calls:
+        run = run_lucy_model(m, device=device, parallel=group.world)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_dv, n_et = dv.launches, et.launches
+    stats = dict(mesh.stats)
+    sed = run.imaging.peeled[0]['datasets']['seds'][0][0, 0, 0, 0]
+    out['a'] = dict(
+        wall_s=wall, rows=[dict(r) for r in run.perf.rows],
+        deposit_visit_launches=n_dv, escape_tau_launches=n_et,
+        iterations=run.result.iterations,
+        temperature=run.result.temperature[0],
+        band=float(sed.sum()) * np.log(1000.0 / 0.3) / 60,
+        image_sum=float(run.imaging.peeled[0]['datasets']['images'][0]
+                        .sum()),
+        imaging_energy=run.imaging.energy_current,
+        imaging_killed=run.imaging.killed_int,
+        mesh=_mesh_numbers(stats, iterations=run.result.iterations + 1))
+    if group.rank == 0:
+        out['a']['deposit_visit_calls'] = len(calls)
+        out['a']['deposit_visit_max_abs_err'] = check_calls(
+            dv, calls, 1, TUTORIAL[1], device, 'phase 19 rank 0 calls')
+
+    # (b) one iteration with the grid cut into slabs
+    m = tutorial_model()
+    m.set_n_initial_iterations(1)
+    m.peeled_output = []
+    m.set_n_photons(initial=500_000, imaging=0)
+    mesh.reset_stats()
+    t0 = time.time()
+    run = run_lucy_model(m, device=device, parallel=group.world,
+                         shard_grid=True)
+    torch.cuda.synchronize()
+    row = dict(run.perf.rows[0])
+    out['b'] = dict(wall_s=time.time() - t0, row=row,
+                    se1=run.iterations[0]['specific_energy'],
+                    mesh=_mesh_numbers(mesh.stats, steps=row['steps']))
+
+    # (c) the dryrun's thick MRW case, slab-sharded
+    tables, mrw = dryrun_tables(device)
+    config = dict(n_inter_max=1000, kill_on_scatter=False,
+                  kill_on_absorb=False, max_steps=5000, n_reabs_max=0,
+                  n_mrw_max=100000)
+    n_photons = group.world * 256
+    gen = mesh.rank_generator(1, mesh.STREAM_LUCY, device, group)
+    mesh.reset_stats()
+    t0 = time.time()
+    energy_sum, energy_current, _, killed, n_steps, _ = \
+        run_lucy_iteration_spatial(group, *tables, gen, n_photons, 128,
+                                   config, mrw=mrw)
+    torch.cuda.synchronize()
+    out['c'] = dict(wall_s=time.time() - t0, n_photons=n_photons,
+                    energy_sum=energy_sum.double().cpu().numpy(),
+                    energy_current=float(energy_current),
+                    killed_int=int(killed), steps=n_steps,
+                    mesh=_mesh_numbers(mesh.stats, steps=n_steps))
+    return out
+
+
+def _slab_sums(per_cell, world):
+    """Each rank's slab's sum of a (n_cells,) array (the ranks' cut: the
+    cell axis padded to a multiple of the world)."""
+    n = per_cell.shape[-1]
+    padded = np.zeros(n + (-n) % world)
+    padded[:n] = per_cell
+    return padded.reshape(world, -1).sum(axis=1)
+
+
+def parallel_phase(card, ref):
+    """Phase 19: two ranks sharing the card (gloo through host memory),
+    started by the port's launcher; ``ref`` is phase 4's single-rank run
+    (run_slice). Returns (rank 0's deposit_visit launches, escape_tau
+    launches, record)."""
+    from hyperion_tpu_torch.parallel import mesh
+    from hyperion_tpu_torch.parallel.launch import launch
+    from hyperion_tpu_torch.util.constants import lsun
+    group = mesh.resolve_group(2, 'cuda')
+    t0 = time.time()
+    r = launch(group, 'chip_smoke:parallel_rank')
+    wall = time.time() - t0
+    rec = dict(world=r['world'], backend=r['backend'], device=r['device'],
+               launcher_startup_s=r['t_start'] - t0, wall_s=wall)
+    phase('parallel: %d ranks on %s over %s, launcher start-up %.3f s '
+          '[%s]' % (r['world'], r['device'], r['backend'],
+                    rec['launcher_startup_s'], card))
+
+    # (a) the tutorial, photon-parallel, against phase 4
+    a = r['a']
+    n_lucy = 0
+    for i, row in enumerate(a['rows'][:4], 1):
+        if (row['killed_geo'], row['killed_int']) != (0, 0) or \
+                row['energy_current'] != 500_000:
+            raise AssertionError('parallel (a) iteration %d: killed %s, '
+                                 'energy_current %r'
+                                 % (i, (row['killed_geo'], row['killed_int']),
+                                    row['energy_current']))
+        n_lucy += row['steps']
+        phase('parallel (a) iteration %d: %.3f s, %.0f photons/s, %d steps '
+              '(the ranks\' most), %.3f ms per step [%s]'
+              % (i, row['wall'], row['photons'] / row['wall'], row['steps'],
+                 row['wall'] * 1e3 / row['steps'], card))
+    if a['iterations'] != 4 or len(a['rows']) != 5:
+        raise AssertionError('parallel (a) ran %d iterations'
+                             % a['iterations'])
+    img = a['rows'][4]
+    if a['imaging_energy'] != 1_000_000 or a['imaging_killed']:
+        raise AssertionError('parallel (a) imaging: energy_current %r, '
+                             'killed %d' % (a['imaging_energy'],
+                                            a['imaging_killed']))
+    temp = a['temperature']
+    dusty = ref['dusty']
+    if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
+        raise AssertionError('parallel (a): temperatures not finite and > 0 '
+                             'in dusty cells')
+    expected = lsun * band_fraction(6000.0, 0.3, 1000.0)
+    if abs(a['band'] / expected - 1.0) > 0.02:
+        raise AssertionError('parallel (a): peeled band luminosity %.6e '
+                             'against %.6e expected' % (a['band'], expected))
+    t_ratio = float(np.median(temp[dusty] / ref['temperature'][dusty]))
+    if abs(t_ratio - 1.0) > 0.01:
+        raise AssertionError('parallel (a): median temperature ratio %.5f '
+                             'against phase 4' % t_ratio)
+    if a['deposit_visit_calls'] != 20:
+        raise AssertionError('parallel (a): rank 0 recorded %d deposit_visit '
+                             'calls' % a['deposit_visit_calls'])
+    # rank 0's own steps are at most the ranks' most; one launch a step and
+    # one a refill (at most one a step)
+    if not 0 < a['deposit_visit_launches'] <= 2 * n_lucy or \
+            not a['escape_tau_launches']:
+        raise AssertionError('parallel (a): rank 0 launched deposit_visit '
+                             '%d times over at most %d steps, escape_tau %d '
+                             'times' % (a['deposit_visit_launches'], n_lucy,
+                                        a['escape_tau_launches']))
+    phase('parallel (a) imaging: %d photons in %.3f s, %d steps, %.3f '
+          'ms per step; band luminosity %.5f x expected; median T / phase '
+          '4\'s %.5f; rank 0: deposit_visit launches %d, escape_tau %d, its '
+          'first 20 deposit_visit calls equal to the plain version (max abs '
+          'err %.3e); collectives %d, %.1f us each, %.1f us per iteration; '
+          'wall %.3f s [%s]'
+          % (img['photons'], img['wall'], img['steps'],
+             img['wall'] * 1e3 / img['steps'], a['band'] / expected, t_ratio, a['deposit_visit_launches'],
+             a['escape_tau_launches'], a['deposit_visit_max_abs_err'],
+             a['mesh']['collectives'], a['mesh']['collective_us'],
+             a['mesh']['collective_us_per_iteration'], a['wall_s'], card))
+    rec['a'] = dict({k: v for k, v in a.items() if k != 'temperature'},
+                    band_ratio=a['band'] / expected,
+                    median_temperature_ratio=t_ratio)
+
+    # (b) the grid cut into slabs, against phase 4's first iteration
+    b = r['b']
+    row = b['row']
+    if (row['killed_geo'], row['killed_int']) != (0, 0) or \
+            row['energy_current'] != 500_000:
+        raise AssertionError('parallel (b): killed %s, energy_current %r'
+                             % ((row['killed_geo'], row['killed_int']),
+                                row['energy_current']))
+    se, se_ref = b['se1'][0], ref['se1'][0]
+    slabs = _slab_sums(se, r['world'])
+    total = float(se.sum() / se_ref.sum())
+    sel = se_ref > np.percentile(se_ref, 60)
+    median = float(np.median(se[sel] / se_ref[sel]))
+    if not (slabs > 0).all() or abs(total - 1.0) > 0.02 or \
+            abs(median - 1.0) > 0.05:
+        raise AssertionError('parallel (b): slabs %s, total %.5f and median '
+                             '%.5f of phase 4\'s first iteration'
+                             % (slabs, total, median))
+    mb = b['mesh']
+    phase('parallel (b) slabs: %d photons in %.3f s, %.0f photons/s, %d '
+          'steps, %.3f ms per step; deposits %.5f x phase 4\'s first '
+          'iteration, median per cell %.5f; %d ring hops of %.0f bytes, %.1f '
+          'us per hop; %.1f us of collectives per step [%s]'
+          % (row['photons'], row['wall'], row['photons'] / row['wall'],
+             row['steps'], row['wall'] * 1e3 / row['steps'], total, median,
+             mb['hops'],
+             mb['bytes_per_hop'], mb['us_per_hop'],
+             mb['collective_us_per_step'], card))
+    rec['b'] = dict(row=row, total_ratio=total, median_ratio=median,
+                    slabs=slabs.tolist(), mesh=mb, wall_s=b['wall_s'])
+
+    # (c) the dryrun's thick MRW case, slab-sharded
+    c = r['c']
+    slabs = _slab_sums(c['energy_sum'].sum(axis=0), r['world'])
+    if c['energy_current'] != c['n_photons'] or not (slabs > 0).all():
+        raise AssertionError('parallel (c): energy_current %r of %d, slabs %s'
+                             % (c['energy_current'], c['n_photons'], slabs))
+    mc = c['mesh']
+    phase('parallel (c) thick MRW 8^3: %d photons in %.3f s, %d steps, '
+          '%.3f ms per step, killed_int %d, slabs %s; %d ring hops of %.0f '
+          'bytes, %.1f us per hop; %.1f us of collectives per step [%s]'
+          % (c['n_photons'], c['wall_s'], c['steps'],
+             c['wall_s'] * 1e3 / c['steps'], c['killed_int'], slabs,
+             mc['hops'], mc['bytes_per_hop'], mc['us_per_hop'],
+             mc['collective_us_per_step'], card))
+    rec['c'] = dict({k: v for k, v in c.items() if k != 'energy_sum'},
+                    slabs=slabs.tolist())
+    return a['deposit_visit_launches'], a['escape_tau_launches'], rec
+
+
 def main():
     import argparse
     import torch
@@ -4060,6 +4362,10 @@ def main():
                     help='run only phases 1, 2 and 18 (config 4\'s cloud on '
                     'a Voronoi mesh, with its parts of phases 6, 10 and 13 '
                     'and the locate kernel)')
+    ap.add_argument('--parallel', action='store_true',
+                    help='run only phases 1, 2 and 19 (two ranks sharing the '
+                    'card), with phase 4\'s single-rank run as its '
+                    'reference')
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -4170,6 +4476,14 @@ def main():
         record['voronoi_cloud'] = vor
         return vor
 
+    def parallel_phase_19(ref):
+        """Phase 19; returns its report."""
+        launches['deposit_visit']['parallel'], \
+            launches['escape_tau']['parallel'], rec = run_phase(
+                19, parallel_phase, card, ref)
+        record['parallel'] = rec
+        return rec
+
     def column_kernel(cols):
         """The kernels line's escape_column entry: class2's calls (phase
         11, the full-width raytracing of the main path) as the headline,
@@ -4218,9 +4532,25 @@ def main():
         print(result_line, flush=True)
         return 0
 
+    if args.parallel:
+        # 4 for its single-rank reference, then 19
+        *_, ref4 = run_phase(4, run_slice, dv, et, card)
+        parallel_phase_19(ref4)
+        (OUT / 'parallel.json').write_text(json.dumps(record, indent=1,
+                                                      default=_jsonable))
+        for name in ('deposit_visit', 'escape_tau'):
+            if not all(launches[name].values()):
+                raise AssertionError('%s was not launched on the main path: '
+                                     '%s' % (name, launches[name]))
+        print(json.dumps({'parallel': {k: record['parallel'][k] for k in (
+            'world', 'backend', 'launcher_startup_s', 'wall_s')}}),
+            flush=True)
+        print(result_line, flush=True)
+        return 0
+
     if args.raytracing:
         # 4 and 8 for their specific energies, then 11-13
-        *_, se4 = run_phase(4, run_slice, dv, et, card)
+        *_, se4, _ = run_phase(4, run_slice, dv, et, card)
         *_, phase8 = run_phase(8, class2_phase, dv, et, card, **CLASS2_CUT)
         kernel = column_kernel(raytracing_phases(se4, phase8))
         (OUT / 'raytracing.json').write_text(json.dumps(record, indent=1))
@@ -4240,7 +4570,8 @@ def main():
 
     # 4. the slice, through the kernels
     launches['deposit_visit']['tutorial'], launches['escape_tau']['tutorial'], \
-        iterations, wall, img, se4 = run_phase(4, run_slice, dv, et, card)
+        iterations, wall, img, se4, ref4 = run_phase(4, run_slice, dv, et,
+                                                     card)
     record['slice'] = dict(wall_s=wall, iterations=iterations, imaging=img)
 
     # 5. physics on the card
@@ -4290,11 +4621,16 @@ def main():
     vor = voronoi_phase()
     walks = walks + vor['walks']
     cols = cols + [vor['columns']]
-    phase('phases 3-18 in %.1f s' % (time.time() - t_start))
+
+    # 19. two ranks sharing the card: the tutorial photon-parallel, and
+    # the Lucy iteration with the grid cut into slabs
+    parallel_phase_19(ref4)
+    phase('phases 3-19 in %.1f s' % (time.time() - t_start))
 
     record['launches'] = launches
     record['wall_s'] = time.time() - t_start
-    (OUT / 'results.json').write_text(json.dumps(record, indent=1))
+    (OUT / 'results.json').write_text(json.dumps(record, indent=1,
+                                                 default=_jsonable))
     for name, counts in launches.items():
         if not all(counts.values()):
             raise AssertionError('%s was not launched on the main path: %s'
@@ -4347,7 +4683,8 @@ def main():
                column_kernel(cols),
                locate_kernel(vor, sum(launches['voronoi_locate'].values()))]
     record['kernels'] = kernels
-    (OUT / 'results.json').write_text(json.dumps(record, indent=1))
+    (OUT / 'results.json').write_text(json.dumps(record, indent=1,
+                                                 default=_jsonable))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(result_line, flush=True)
     return 0

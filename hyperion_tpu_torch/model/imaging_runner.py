@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import (STREAM_IMAGING, STREAM_MONO, STREAM_RAYTRACE,
+                             rank_generator, run_final_sharded)
 from ..transport import imaging, mono, raytrace
 from ..transport.escape_tau import EscapeTau
 from ..util.functions import bool2str
@@ -76,49 +78,59 @@ def imaging_options(model, geometry, dt, density):
 
 
 def run_imaging(model, geometry, dt, st, density, specific_energy,
-                batch_size, max_steps=100000000, user_batch_size=None):
+                batch_size, max_steps=100000000, user_batch_size=None,
+                group=None):
     """Run the model's imaging iteration, monochromatic or not, and its
     raytracing pass, on the density's device. ``density`` and
     ``specific_energy`` are (n_dust, n_cells) engine-unit tensors (the
     specific energy None for zero); ``batch_size`` is the Lucy
     iterations', ``user_batch_size`` the caller's own (which the
     monochromatic iteration honours; it clamps the Lucy batch to its
-    budget otherwise)."""
+    budget otherwise). With ``group`` (a launched
+    :class:`..parallel.mesh.Group`) every pass is shared out over the
+    ranks, each with its own generators, and reduced as the JAX package's
+    (``batch_size`` a rank)."""
     groups, options = imaging_options(model, geometry, dt, density)
     if model._monochromatic:
         return _run_imaging_mono(model, geometry, dt, st, density,
                                  specific_energy, groups,
                                  options['walk_geometry'], batch_size,
-                                 max_steps, user_batch_size)
+                                 max_steps, user_batch_size, group)
     n_phot = model.n_photons.get('last')
     if n_phot is None:
         raise Exception("imaging photon count has not been set "
                         "(set_n_photons(imaging=...))")
-    generator = torch.Generator(device=density.device)
-    generator.manual_seed((abs(model._seed) + 1) % (2 ** 31))
+    generator = rank_generator(model._seed, STREAM_IMAGING, density.device,
+                               group)
     t0 = time.time()
-    res = imaging.run_final(
-        geometry, dt, st, density, specific_energy, groups, generator,
-        n_phot, batch_size=batch_size, max_steps=max_steps, **options)
+    if group is None:
+        res = imaging.run_final(
+            geometry, dt, st, density, specific_energy, groups, generator,
+            n_phot, batch_size=batch_size, max_steps=max_steps, **options)
+    else:
+        res = run_final_sharded(
+            group, geometry, dt, st, density, specific_energy, groups,
+            generator, n_phot, batch_size=batch_size, max_steps=max_steps,
+            **options)
     wall = time.time() - t0
     scale = float(st.energy_total) / max(res.energy_current, 1e-300)
     raytraced, ray = [None] * len(groups), None
     if model.raytracing:
         dusts = model._dust_objects()
 
-        def tables(group, se):
+        def tables(g, se):
             return raytrace.build_raytrace_tables(
-                dusts, model.sources, group, se, density, geometry.volumes,
+                dusts, model.sources, g, se, density, geometry.volumes,
                 density.device, density.dtype,
                 length_scale=geometry.length_scale)[:2]
 
         raytraced, ray = _raytrace(model, geometry, st, density,
                                    specific_energy, groups,
                                    options['walk_geometry'], batch_size,
-                                   tables)
-    peeled = [peel_group_arrays(conf, group, acc, scale, raytraced=r)
-              for conf, group, acc, r in zip(model.peeled_output, groups,
-                                             res.accums, raytraced)]
+                                   tables, group)
+    peeled = [peel_group_arrays(conf, g, acc, scale, raytraced=r)
+              for conf, g, acc, r in zip(model.peeled_output, groups,
+                                         res.accums, raytraced)]
     binned = None
     if model.binned_output is not None:
         binned = peel_group_arrays(model.binned_output,
@@ -129,7 +141,7 @@ def run_imaging(model, geometry, dt, st, density, specific_energy,
 
 
 def _raytrace(model, geometry, st, density, specific_energy, groups,
-              walk_geometry, batch_size, tables):
+              walk_geometry, batch_size, tables, group=None):
     """The raytracing pass of every group (``tables(group, se)`` gives its
     ``(RaytraceTables, var_grids)``): per group the (sed, img) luminosity
     cubes to add to Stokes I, and (wall, batches, photons, outside)."""
@@ -138,15 +150,15 @@ def _raytrace(model, geometry, st, density, specific_energy, groups,
     se = torch.zeros_like(density) if specific_energy is None \
         else specific_energy
     walk = EscapeTau(walk_geometry, density.T.contiguous())
-    generator = torch.Generator(device=density.device)
-    generator.manual_seed((abs(model._seed) + 2) % (2 ** 31))
+    generator = rank_generator(model._seed, STREAM_RAYTRACE, density.device,
+                               group)
     t0 = time.time()
     out, batches, outside = [], 0, 0
-    for group in groups:
-        rt, var_grids = tables(group, se)
+    for g in groups:
+        rt, var_grids = tables(g, se)
         sed, img, stats = raytrace.run_raytracing(
-            walk, geometry, st, rt, var_grids, [group], se, generator, n_src,
-            n_dust, int(batch_size))
+            walk, geometry, st, rt, var_grids, [g], se, generator, n_src,
+            n_dust, int(batch_size), group=group)
         out.append((sed[0], img[0]))
         batches += stats['batches']
         outside += stats['outside']
@@ -156,7 +168,7 @@ def _raytrace(model, geometry, st, density, specific_energy, groups,
 
 def _run_imaging_mono(model, geometry, dt, st, density, specific_energy,
                       groups, walk_geometry, batch_size, max_steps,
-                      user_batch_size):
+                      user_batch_size, group=None):
     """The monochromatic iteration at the model's exact frequencies, then
     with raytracing the raytracing pass at the same frequencies (ref
     do_final_mono and do_raytracing, main.f90:272-302)."""
@@ -170,8 +182,8 @@ def _run_imaging_mono(model, geometry, dt, st, density, specific_energy,
         # through every step: the Lucy batch clamped to it
         batch_size = max(1024, 1 << (per_pass - 1).bit_length())
     batch_size = int(batch_size)
-    generator = torch.Generator(device=density.device)
-    generator.manual_seed((abs(model._seed) + 3) % (2 ** 31))
+    generator = rank_generator(model._seed, STREAM_MONO, density.device,
+                               group)
     walk = EscapeTau(walk_geometry, density.T.contiguous())
     freqs = np.asarray(model._frequencies, float)
     dusts = model._dust_objects()
@@ -185,25 +197,25 @@ def _run_imaging_mono(model, geometry, dt, st, density, specific_energy,
         peeloff_scattering_only=model.raytracing,
         ffi_algorithm=model.forced_first_interaction_algorithm,
         ffi_baes16_xi=model.forced_first_interaction_baes16_xi,
-        n_reabs_max=model.n_reabs_max, max_steps=max_steps)
+        n_reabs_max=model.n_reabs_max, max_steps=max_steps, group=group)
     wall = time.time() - t0
     raytraced, ray = [None] * len(groups), None
     if model.raytracing:
-        def tables(group, se):
+        def tables(g, se):
             # each group images a contiguous slice of the frequencies
             return raytrace.build_raytrace_tables_mono(
                 dusts, model.sources,
-                freqs[group.iwav_min:group.iwav_min + group.n_nu], se,
+                freqs[g.iwav_min:g.iwav_min + g.n_nu], se,
                 density, geometry.volumes, density.device, density.dtype,
                 length_scale=geometry.length_scale)
 
         raytraced, ray = _raytrace(model, geometry, st, density,
                                    specific_energy, groups, walk_geometry,
-                                   batch_size, tables)
-    peeled = [peel_group_arrays(conf, group, acc, 1.0, raytraced=r,
+                                   batch_size, tables, group)
+    peeled = [peel_group_arrays(conf, g, acc, 1.0, raytraced=r,
                                 frequencies=freqs)
-              for conf, group, acc, r in zip(model.peeled_output, groups,
-                                             accums, raytraced)]
+              for conf, g, acc, r in zip(model.peeled_output, groups,
+                                         accums, raytraced)]
     return ImagingRun(peeled, None, 0.0, stats['killed_int'],
                       stats['n_steps'], stats['n_events'], batch_size, wall,
                       ray)

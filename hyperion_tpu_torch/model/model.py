@@ -615,15 +615,13 @@ class Model(FreezableClass, RunConf):
             overwrite=True, device=None, batch_size=None, dtype=None):
         """Run the model with the port's transport engine and return a
         ModelOutput. ``device`` is 'cuda' (the default, which needs a card)
-        or 'cpu'. The slice runs on one device: ``mpi=True`` or
-        ``n_processes > 1`` raise."""
+        or 'cpu'. ``n_processes > 1`` runs it on that many ranks, as
+        ``mpirun -n`` does (they share the cards when there are fewer);
+        ``mpi=True`` alone runs a rank per card, one on the CPU
+        (:mod:`..parallel`)."""
         from .run import run_model
         from .model_output import ModelOutput
 
-        if mpi or (n_processes and n_processes > 1):
-            raise NotImplementedError("mpi/n_processes: multi-device runs are "
-                                      "not in the port yet: ROADMAP.md queue "
-                                      "1 item 12")
         if self.filename is None:
             raise Exception("Model has not been written yet - call write() first")
         if filename is None:
@@ -634,6 +632,8 @@ class Model(FreezableClass, RunConf):
         if not overwrite and os.path.exists(filename):
             raise Exception("Output file exists and overwrite=False")
 
+        parallel = (n_processes if n_processes and n_processes > 1
+                    else bool(mpi))
         run_model(self, filename, device=device, batch_size=batch_size,
-                  dtype=dtype)
+                  dtype=dtype, parallel=parallel)
         return ModelOutput(filename)

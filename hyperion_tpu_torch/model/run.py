@@ -15,8 +15,9 @@ and the probabilistic geometry self-check; then the imaging iteration with
 peeled and binned SEDs and images (forced first interaction, polarization,
 every track_origin mode, filters, depth cuts, inside observers), or the
 monochromatic one at exact frequencies, and the raytracing pass; models
-without sources (monochromatic dust emission). Anything else raises
-``NotImplementedError`` naming its ROADMAP.md item. The output
+without sources (monochromatic dust emission); and each of these on
+several ranks (``parallel``, the launcher's ``-m N``), photon-parallel or
+with the Lucy iterations' grid cut into slabs (``shard_grid``). The output
 layout is the JAX package's, read by either package's ``ModelOutput``;
 :func:`run_lucy_model` is the same run without the file, for machines
 without HDF5. Both run on the card unless the caller passes
@@ -30,6 +31,8 @@ import numpy as np
 import torch
 
 from ..device import engine_dtype, resolve_device
+from ..parallel.launch import launch
+from ..parallel.mesh import STREAM_LUCY, rank_generator, resolve_group
 from ..grid import (AMRGrid, CylindricalPolarGrid, OctreeGrid,
                     SphericalPolarGrid, VoronoiGrid)
 from ..transport.dtable import build_dust_tables
@@ -110,9 +113,7 @@ def bool2bytes(value):
 
 
 def _check_slice(model):
-    """Refuse a model that is not the port's (every grid of the JAX
-    package runs on one device; ``Model.run`` refuses multi-device runs,
-    naming their ROADMAP.md item)."""
+    """Refuse a model that is not the port's."""
     if not isinstance(model, Model):
         raise TypeError("the port runs a hyperion_tpu_torch.model.Model, not "
                         "a %s.%s" % (type(model).__module__,
@@ -204,7 +205,8 @@ class ModelRun(NamedTuple):
 
 
 def run_lucy_model(model, device=None, batch_size=None, dtype=None,
-                   max_steps=100000000, imaging_max_steps=None):
+                   max_steps=100000000, imaging_max_steps=None,
+                   parallel=None, shard_grid=False):
     """Run the model's Lucy iterations, then its imaging iteration when it
     has peeled or binned output, on ``device`` ('cuda', the default, or
     'cpu') and return a :class:`ModelRun`. This is :func:`run_model`
@@ -212,10 +214,29 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
     Lucy iteration and ``imaging_max_steps`` (``max_steps`` when None) the
     imaging iteration's (the bounded-step safety net: lanes still alive at
     the cap are killed and counted in killed_int). The imaging batch is
-    the Lucy iterations' (``hyperion_tpu/model/run.py:229-232,365``)."""
+    the Lucy iterations' (``hyperion_tpu/model/run.py:229-232,365``).
+
+    ``parallel`` (None, False or 1: one device; True: a rank per card, one
+    on the CPU; N: N ranks, sharing the cards when there are fewer) runs
+    every pass on the ranks of one ``torch.distributed`` group, each rank a
+    process that builds the model's tables itself and draws from its own
+    generators (:mod:`..parallel.mesh`); ``shard_grid`` cuts the grid into
+    slabs over the ranks for the Lucy iterations
+    (:mod:`..parallel.spatial`). The ranks' ``batch_size`` is each rank's.
+    Returns rank 0's :class:`ModelRun`."""
     device = resolve_device(device)
-    dtype = engine_dtype(device, dtype)
     _check_slice(model)
+    group = resolve_group(parallel, device)
+    if group is not None and not group.active:
+        return launch(group, 'hyperion_tpu_torch.model.run:run_lucy_model',
+                      (model,), dict(
+                          device=device.type, batch_size=batch_size,
+                          dtype=dtype, max_steps=max_steps,
+                          imaging_max_steps=imaging_max_steps,
+                          parallel=group.world, shard_grid=shard_grid))
+    if group is not None:
+        device = group.device
+    dtype = engine_dtype(device, dtype)
     user_batch_size = batch_size
 
     dusts = model._dust_objects()
@@ -239,10 +260,11 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
         batch_size = int(min(2 ** 17, max(4096, n_initial // 4)))
     min_se = model._resolved_minimum_specific_energy(dusts)
     init_se = _initial_specific_energy(model)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(abs(model._seed) % (2 ** 31))
+    generator = rank_generator(model._seed, STREAM_LUCY, device, group)
 
     perf = PerfTable()
+    # the lanes of all ranks (a rank's batch is its own)
+    world = 1 if group is None else group.world
     iterations = []
     iter_t = [time.time()]
 
@@ -250,7 +272,7 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
         now = time.time()
         perf.add('lucy iteration %d' % it, now - iter_t[-1],
                  photons=n_initial, events=stats['n_events'],
-                 steps=stats['n_steps'], lanes=stats['batch_size'],
+                 steps=stats['n_steps'], lanes=stats['batch_size'] * world,
                  energy_current=stats['energy_current'],
                  killed_int=stats['killed_int'],
                  killed_geo=stats['killed_geo'])
@@ -289,7 +311,8 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
             pda_tables=build_pda_tables(model.grid) if model.pda else None,
             check_frequency=getattr(model, '_frequency', 0.0),
             spectrum_bins=model.specific_energy_spectrum_bins,
-            max_steps=max_steps, verbose=True, iteration_callback=callback)
+            max_steps=max_steps, verbose=True, iteration_callback=callback,
+            group=group, shard_grid=shard_grid)
 
     img = None
     if model.peeled_output or model.binned_output is not None:
@@ -307,14 +330,16 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
                 np.asarray(se, float), dtype=dtype, device=device),
             batch_size,
             max_steps=max_steps if imaging_max_steps is None
-            else imaging_max_steps, user_batch_size=user_batch_size)
+            else imaging_max_steps, user_batch_size=user_batch_size,
+            group=group)
         n_img = sum(model.n_photons.get(k) or 0
                     for k in ('last', 'last_sources', 'last_dust'))
         # the imaging steps, as the JAX package's, make no geometry
         # self-check: their killed_geo is 0 by construction
         perf.add('imaging', img.wall, photons=n_img or None,
                  events=img.n_events, steps=img.n_steps,
-                 lanes=img.batch_size, energy_current=img.energy_current,
+                 lanes=img.batch_size * world,
+                 energy_current=img.energy_current,
                  killed_int=img.killed_int, killed_geo=0)
         print("[imaging] %d steps, killed=%d/0" % (img.n_steps,
                                                    img.killed_int))
@@ -330,13 +355,26 @@ def run_lucy_model(model, device=None, batch_size=None, dtype=None,
     return ModelRun(result, iterations, density0, perf, img)
 
 
-def run_model(model, filename, device=None, batch_size=None, dtype=None):
+def run_model(model, filename, device=None, batch_size=None, dtype=None,
+              parallel=None, shard_grid=False):
     """Run the model (:func:`run_lucy_model`: the Lucy iterations, then
-    imaging) and write the .rtout file. Returns the :class:`ModelRun`."""
+    imaging) and write the .rtout file. Returns the :class:`ModelRun`.
+    With ``parallel`` the ranks run it and rank 0 alone writes the file
+    (the parent pickles the model for them)."""
+    _check_slice(model)
+    group = resolve_group(parallel, device)
+    if group is not None and not group.active:
+        return launch(group, 'hyperion_tpu_torch.model.run:run_model',
+                      (model, filename), dict(
+                          device=resolve_device(device).type,
+                          batch_size=batch_size, dtype=dtype,
+                          parallel=group.world, shard_grid=shard_grid))
     t_start = time.time()
     run = run_lucy_model(model, device=device, batch_size=batch_size,
-                         dtype=dtype)
-    _write_rtout(model, filename, run, t_start)
+                         dtype=dtype, parallel=parallel,
+                         shard_grid=shard_grid)
+    if group is None or group.rank == 0:
+        _write_rtout(model, filename, run, t_start)
     return run
 
 

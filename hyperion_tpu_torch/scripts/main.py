@@ -8,10 +8,10 @@ Usage:
                        input.rtin output.rtout
 
 -f             overwrite the output file if it exists
--m n_devices   multi-device data parallelism over n devices: only 1 runs in
-               the port (more raise, naming ROADMAP.md queue 1 item 12)
---shard-grid   shard the grid state over the devices: not in the port
-               (raises, naming ROADMAP.md queue 1 item 12)
+-m n_devices   run on n ranks, photon-parallel, as ``mpirun -n`` (one
+               process a rank; ranks beyond the cards share them)
+--shard-grid   with -m, cut the grid into slabs over the ranks for the Lucy
+               iterations (without -m: one device)
 --cpu          run on the CPU (default: the CUDA card, and without one the
                run raises)
 --f64          run the engine in float64 (needs --cpu: the card's kernels
@@ -29,12 +29,11 @@ def main(argv=None):
                         help='overwrite existing output')
     parser.add_argument('-m', type=int, default=None, dest='n_processes',
                         metavar='n_devices',
-                        help='number of devices for data parallelism (1 in '
-                        'the port)')
+                        help='number of ranks for data parallelism')
     parser.add_argument('--shard-grid', action='store_true',
                         dest='shard_grid',
-                        help='shard the grid state over the devices (not in '
-                        'the port)')
+                        help='cut the grid into slabs over the ranks for the '
+                        'Lucy iterations (with -m)')
     parser.add_argument('--cpu', action='store_true',
                         help='run on the CPU instead of the CUDA card')
     parser.add_argument('--f64', action='store_true',
@@ -43,11 +42,6 @@ def main(argv=None):
     parser.add_argument('output')
     args = parser.parse_args(argv)
 
-    if (args.n_processes or 1) > 1 or args.shard_grid:
-        raise NotImplementedError(
-            "%s: multi-device runs are not in the port yet: ROADMAP.md queue "
-            "1 item 12" % ('--shard-grid' if args.shard_grid
-                           else '-m %d' % args.n_processes))
     if args.f64 and not args.cpu:
         parser.error("--f64 runs the engine on the CPU: add --cpu")
     if not os.path.exists(args.input):
@@ -63,7 +57,10 @@ def main(argv=None):
     model = Model.read(args.input)
     model.filename = args.input
     run_model(model, args.output, device='cpu' if args.cpu else None,
-              dtype=torch.float64 if args.f64 else None)
+              dtype=torch.float64 if args.f64 else None,
+              parallel=args.n_processes
+              if args.n_processes and args.n_processes > 1 else False,
+              shard_grid=args.shard_grid)
 
     # post-run integrity check (ref scripts/hyperion:95-106)
     import h5py

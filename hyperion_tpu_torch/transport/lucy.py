@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import broadcast_int, run_lucy_iteration_sharded
+from ..parallel.spatial import run_lucy_iteration_spatial
 from .engine import run_lucy_iteration
 from .mrw import prepare_mrw_tables
 from .pda import solve_pda
@@ -179,8 +181,12 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
              initial_specific_energy=None, additional_specific_energy=None,
              use_mrw=False, mrw_gamma=1.0, n_mrw_max=1000, use_pda=False,
              pda_tables=None, check_frequency=0.0, spectrum_bins=None,
-             verbose=True, iteration_callback=None):
-    """Run n_iterations Lucy iterations (or until converged) on one device.
+             verbose=True, iteration_callback=None, group=None,
+             shard_grid=False):
+    """Run n_iterations Lucy iterations (or until converged) on one
+    device, or on the ranks of ``group`` (a launched
+    :class:`..parallel.mesh.Group`; each rank calls this with its own
+    generator).
 
     ``density`` is (n_dust, n_cells) in engine units; ``generator`` is the
     ``torch.Generator`` on the density's device that every step draws from.
@@ -194,7 +200,15 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
     the frequency-resolved specific energy. ``iteration_callback(it,
     specific_energy, density, n_photons_cell, specific_energy_spectrum,
     stats)`` gets numpy arrays after each iteration (the spectrum None
-    without bins)."""
+    without bins).
+
+    With a group, each iteration's photons are shared out over the ranks
+    and the accumulators sum-reduced (:mod:`..parallel.mesh`), or with
+    ``shard_grid`` the grid is cut into slabs over the ranks
+    (:mod:`..parallel.spatial`; no geometry self-check and no event count
+    there, as in the JAX package). Every rank then holds the same arrays
+    and runs the same host physics; the convergence decision is rank 0's,
+    broadcast, so that no rank stops alone."""
     if n_photons >= 2 ** 31 - 1:
         raise ValueError("n_photons = %d: photon ids are int32, so an "
                          "iteration holds fewer than 2**31 - 1 photons"
@@ -240,12 +254,23 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
         # a map with an LTE spectrum picks its dust ∝ specific energy x
         # density at the emission cell (ref select_dust_specific_energy_rho)
         se_rho = specific_energy * density if st.has_lte else None
-        energy_sum, energy_current, npc, killed_int, killed_geo, n_steps, \
-            energy_sum_spec, n_events = run_lucy_iteration(
-                geometry, dt, st, density, jnu_var_id, jnu_var_frac,
-                generator, n_photons, batch_size, config, mrw=mrw,
-                spec_bins=spec_bins, spec_bin_frac=spec_bin_frac,
-                se_rho=se_rho)
+        args = (geometry, dt, st, density, jnu_var_id, jnu_var_frac,
+                generator, n_photons, batch_size, config)
+        kw = dict(mrw=mrw, spec_bins=spec_bins, spec_bin_frac=spec_bin_frac,
+                  se_rho=se_rho)
+        if group is not None and shard_grid:
+            energy_sum, energy_current, npc, killed_int, n_steps, \
+                energy_sum_spec = run_lucy_iteration_spatial(group, *args,
+                                                             **kw)
+            killed_geo = n_events = 0
+        elif group is not None:
+            energy_sum, energy_current, npc, killed_int, killed_geo, \
+                n_steps, energy_sum_spec, n_events = \
+                run_lucy_iteration_sharded(group, *args, **kw)
+        else:
+            energy_sum, energy_current, npc, killed_int, killed_geo, \
+                n_steps, energy_sum_spec, n_events = run_lucy_iteration(
+                    *args, **kw)
         n_photons_cell = npc.cpu().numpy()
 
         # host float64 for the combined scale; engine lengths carry one
@@ -299,6 +324,8 @@ def run_lucy(geometry, dt, st, density, generator, n_photons, n_iterations,
             converged, value_prev = specific_energy_converged(
                 se_prev, se_np, convergence_percentile,
                 convergence_absolute, convergence_relative, value_prev)
+            if group is not None:
+                converged = bool(broadcast_int(group, converged))
             if converged:
                 if verbose:
                     print("[lucy] converged after %d iterations" % it)

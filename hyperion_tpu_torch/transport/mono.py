@@ -27,10 +27,12 @@ tables (:func:`source_mono_energies`, :func:`dust_mono_cell_pdfs`) are
 numpy."""
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import run_mono_pass_sharded
 from .engine import select_dust, update_optical_constants
 from .ffi import sample_first_interaction
 from .gtable import ESCAPED, position_uniforms
@@ -530,7 +532,7 @@ def run_mono(geometry, walk, dt, st, density, specific_energy, groups,
              kill_on_scatter=False, forced_first_interaction=True,
              peeloff_scattering_only=False, energy_threshold=1e-10,
              max_steps=100000000, ffi_algorithm='wr99', ffi_baes16_xi=0.5,
-             n_reabs_max=0):
+             n_reabs_max=0, group=None):
     """The monochromatic iteration over all ``frequencies``: returns (one
     float64 :class:`~.imaging.PeelAccum` per group, stats). The source
     pass's cubes are scaled by energy_total / n_photons_sources; the dust
@@ -538,7 +540,10 @@ def run_mono(geometry, walk, dt, st, density, specific_energy, groups,
     each (ref iter_final_mono.f90:115,185). ``density`` and
     ``specific_energy`` (None: zero) are (n_dust, n_cells) engine-unit
     tensors; ``walk`` the grid's EscapeTau. stats: killed_int, n_steps,
-    n_events and passes."""
+    n_events and passes. With ``group`` (a launched
+    :class:`..parallel.mesh.Group`) each pass runs this rank's share of its
+    photons and its cubes come back sum-reduced over the ranks
+    (:func:`..parallel.mesh.run_mono_pass_sharded`)."""
     device, dtype = density.device, density.dtype
     frequencies = np.asarray(frequencies, float)
     n_freq = len(frequencies)
@@ -581,18 +586,20 @@ def run_mono(geometry, walk, dt, st, density, specific_energy, groups,
             stats[k] += v
         stats['passes'] += 1
 
+    one_pass = run_mono_pass if group is None else \
+        partial(run_mono_pass_sharded, group)
     for f_id in range(n_freq):
         common = (geometry, walk, dt, st, density, groups, generator)
         at = dict(batch_size=batch_size, config=config, f_id=f_id,
                   nu_value=float(frequencies[f_id]), chi_vec=chi_all[f_id],
                   albedo_vec=albedo_all[f_id], max_steps=max_steps)
         if n_photons_sources > 0:
-            accums, *counts = run_mono_pass(
+            accums, *counts = one_pass(
                 *common, n_photons_sources, mode='source',
                 src_energy=f(src_e[:, f_id]), **at)
             add(accums, float(st.energy_total) / n_photons_sources, *counts)
         if n_photons_dust > 0 and mean_prob[f_id].sum() > 0:
-            accums, *counts = run_mono_pass(
+            accums, *counts = one_pass(
                 *common, n_photons_dust, mode='dust',
                 cell_cdf=f(cell_cdf[f_id]),
                 mean_prob=f(mean_prob[f_id] * energy_abs_tot * n_dust /

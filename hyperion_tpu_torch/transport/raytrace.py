@@ -21,11 +21,14 @@ functions the same draws."""
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import (reduce_raytrace, run_raytrace_dust_sharded,
+                             run_raytrace_source_sharded)
 from .gtable import ESCAPED, CartesianGeometry, position_uniforms
 from .gtable_amr import AMRGeometry
 from .gtable_cylindrical import CylindricalGeometry
@@ -499,7 +502,7 @@ def raytrace_dust_batch(walk, geometry, rt, var_log, groups, accums,
 
 def run_raytracing(walk, geometry, st, rt, var_grids, groups,
                    specific_energy, generator, n_ray_sources, n_ray_dust,
-                   batch_size):
+                   batch_size, group=None):
     """The raytracing pass for the peel ``groups``: batches of
     ``batch_size`` source photons (each the sources' luminosity over
     ``n_ray_sources``) and of thermal photons (each the grid's luminosity
@@ -511,11 +514,20 @@ def run_raytracing(walk, geometry, st, rt, var_grids, groups,
     ``stats``: the batches, and ``outside``, the photons that started
     outside the grid (source photons) or outside their cell (dust photons;
     see :func:`raytrace_dust_batch`), counted on the device and read with
-    the cubes."""
+    the cubes. With ``group`` (a launched :class:`..parallel.mesh.Group`)
+    a trip is ``batch_size`` photons a rank, each rank tracing its share
+    (JAX ``per_trip = batch x n_dev``), and the cubes and the count come
+    back sum-reduced over the ranks after the last trip."""
     device, dtype = specific_energy.device, specific_energy.dtype
     accums = [RaytraceAccum(g, device) for g in groups]
     batches = 0
     outside = torch.zeros((), dtype=torch.int64, device=device)
+    source_batch, dust_batch = raytrace_source_batch, raytrace_dust_batch
+    per_trip = batch_size
+    if group is not None:
+        source_batch = partial(run_raytrace_source_sharded, group)
+        dust_batch = partial(run_raytrace_dust_sharded, group)
+        per_trip = batch_size * group.world
     # a source-less model (a placeholder source row) has no source pass
     if n_ray_sources > 0 and rt.source_spec.shape[0] > 0:
         if st.has_lte:
@@ -525,25 +537,26 @@ def run_raytracing(walk, geometry, st, rt, var_grids, groups,
         scale = float(st.energy_total) / n_ray_sources
         sphere = st.has_sphere
         n_rows = U_EXTRA + emit_extra_rows(st, geometry)
-        for start in range(0, n_ray_sources, batch_size):
-            b = min(batch_size, n_ray_sources - start)
+        for start in range(0, n_ray_sources, per_trip):
+            b = min(per_trip, n_ray_sources - start)
             u = torch.rand((n_rows, batch_size), generator=generator,
                            device=device, dtype=dtype)
-            outside += raytrace_source_batch(walk, geometry, st, rt, groups,
-                                             accums, u, b, scale, sphere)
+            outside += source_batch(walk, geometry, st, rt, groups, accums,
+                                    u, b, scale, sphere)
             batches += 1
     if n_ray_dust > 0 and rt.total_grid_luminosity > 0:
         scale = rt.total_grid_luminosity / n_ray_dust
         var_log = torch.log10(torch.as_tensor(np.array(var_grids),
                                               dtype=dtype, device=device))
-        for start in range(0, n_ray_dust, batch_size):
-            b = min(batch_size, n_ray_dust - start)
+        for start in range(0, n_ray_dust, per_trip):
+            b = min(per_trip, n_ray_dust - start)
             u = torch.rand((U_POS + geometry.POSITION_ROWS, batch_size),
                            generator=generator, device=device, dtype=dtype)
-            outside += raytrace_dust_batch(walk, geometry, rt, var_log,
-                                           groups, accums, specific_energy,
-                                           u, b, scale)
+            outside += dust_batch(walk, geometry, rt, var_log, groups,
+                                  accums, specific_energy, u, b, scale)
             batches += 1
+    if group is not None:
+        outside = reduce_raytrace(group, accums, outside)
     return ([a.sed.cpu().numpy() for a in accums],
             [a.img.cpu().numpy() for a in accums],
             dict(batches=batches, outside=int(outside)))

@@ -16,6 +16,14 @@ class PerfTable:
         self._t0 = None
         self._label = None
 
+    def __getstate__(self):
+        # a table crosses processes (a rank's run) without its stream
+        return dict(self.__dict__, stream=None)
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.stream = self.stream or sys.stdout
+
     def start(self, label):
         self._label = label
         self._t0 = time.time()

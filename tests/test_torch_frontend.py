@@ -414,12 +414,18 @@ def test_densities_equal_jax(kind):
         np.testing.assert_array_equal(port[name], rho, err_msg=name)
 
 
-def test_model_run_refuses_multi_device(tmp_path):
+def test_model_run_mpi_on_the_cpu_runs_one_rank(tmp_path):
+    """mpi=True asks for a rank per card: one rank on the CPU, which is the
+    single-device run (the same bits as n_processes=1)."""
     m = two_dust_model('port')
     m.write(str(tmp_path / 'm.rtin'))
-    for kw in (dict(mpi=True), dict(n_processes=2)):
-        with pytest.raises(NotImplementedError, match='item 12'):
-            m.run(device='cpu', **kw)
+    temps = []
+    for name, kw in (('mpi', dict(mpi=True)), ('one', dict(n_processes=1))):
+        out = m.run(str(tmp_path / ('%s.rtout' % name)), device='cpu', **kw)
+        temps.append(np.asarray(out.get_quantities()['temperature'][0]
+                                .array))
+    assert np.isfinite(temps[0]).all() and (temps[0] > 0).any()
+    np.testing.assert_array_equal(temps[0], temps[1])
 
 
 def test_port_imports_neither_jax_nor_hyperion_tpu():

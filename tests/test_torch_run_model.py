@@ -170,8 +170,6 @@ def _amr(m):
     g.quantities['density'] = np.full((4, 4, 4), 1e-18)
     m.set_amr_grid(amr)
     m.add_density_grid(amr['density'], dust)
-    # the port runs AMR grids; an MPI run of one is still refused
-    return lambda path: m.run(path, mpi=True, device='cpu')
 
 
 def _voronoi(m):
@@ -179,9 +177,6 @@ def _voronoi(m):
     pts = np.random.default_rng(3).uniform(-1e14, 1e14, (3, 30))
     m.set_voronoi_grid(*pts)
     m.add_density_grid(np.full(30, 1e-18), dust)
-    # the port runs Voronoi grids; a multi-device run of one is still
-    # refused
-    return lambda path: m.run(path, n_processes=2, device='cpu')
 
 
 def _octree(m):
@@ -193,14 +188,10 @@ def _octree(m):
     s.luminosity = lsun
     s.temperature = 5000.0
     s.map = np.ones(len(refined))
-    # the port runs octrees with map sources; a multi-device run of one is
-    # still refused
-    return lambda path: m.run(path, n_processes=2, device='cpu')
 
 
-def _two_processes(m):
-    # a multi-device run (Model.run refuses it before it needs a file)
-    return lambda path: m.run(path, n_processes=2, device='cpu')
+def _cartesian(m):
+    pass
 def test_jax_model_is_refused(tmp_path):
     """A model built with hyperion_tpu's front end is not the port's."""
     with pytest.raises(TypeError, match='hyperion_tpu_torch.model.Model'):
@@ -208,16 +199,31 @@ def test_jax_model_is_refused(tmp_path):
                   device='cpu')
 
 
-@pytest.mark.parametrize('change', [_amr, _voronoi, _octree,
-                                    _two_processes])
-def test_outside_the_slice_raises(change, tmp_path):
-    """What the port does not run yet raises, naming its ROADMAP.md item:
-    multi-device runs, on the AMR grid, the Voronoi grid and the octree
-    (with a map source) too, which the port now runs on one device."""
+@pytest.mark.parametrize('change', [_amr, _voronoi, _octree, _cartesian])
+def test_grids_run_on_two_processes(change, tmp_path):
+    """Each grid (AMR, Voronoi, octree with a map source, cartesian) runs
+    under Model.run(n_processes=2), two gloo ranks on the CPU, and writes an
+    .rtout of the single-rank run's layout, every photon emitted and none
+    killed."""
     m = tutorial_model()
-    run = change(m) or (lambda path: run_model(m, path, device='cpu'))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        run(str(tmp_path / 'x.rtout'))
+    change(m)
+    m.set_n_photons(initial=4000, imaging=0)
+    m.write(str(tmp_path / 'x.rtin'))
+    run_model(m, str(tmp_path / 'one.rtout'), device='cpu', batch_size=1024)
+    m.run(str(tmp_path / 'two.rtout'), n_processes=2, device='cpu',
+          batch_size=1024)
+    assert _layout(tmp_path / 'two.rtout') == _layout(tmp_path / 'one.rtout')
+    with h5py.File(tmp_path / 'two.rtout', 'r') as f:
+        assert f.attrs['iterations'] == 2
+        for g in ('iteration_00001', 'iteration_00002'):
+            assert f[g].attrs['killed_photons_int'] == 0
+            assert f[g].attrs['killed_photons_geo'] == 0
+        se = []
+        f['iteration_00002'].visititems(
+            lambda name, obj: se.append(obj[()])
+            if name.endswith('specific_energy') else None)
+    se = np.concatenate([a.ravel() for a in se])
+    assert np.isfinite(se).all() and (se > 0).any()
 
 
 @pytest.mark.parametrize('where', ['checkout', 'alone'])
