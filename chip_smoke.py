@@ -37,7 +37,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    dln nu) within 2% of L_sun times the 6000 K blackbody's share of 0.3 to
    1000 um (the box's tau is ~0.015), the imaging wall, steps, ms per step
    and host reads per step (at most 1.05); both kernels' launch counts are
-   reset just before and read just after;
+   reset just before and read just after, beside the Lucy steps run
+   eagerly, captured into CUDA graphs and replayed (check_step_counts).
+   Before it, a CUDA graph of torch.rand calls from a registered generator
+   draws what the eager calls draw (graph_rand_check); after it, the first
+   Lucy iteration runs whole both ways, as the eager step loop and as
+   run_lucy_iteration's graph replays (graph_witness: steps, killed, events,
+   n_photons_cell and energy_current equal, energy_sum within RTOL, each
+   way's ms per step);
 5. physics on the card in float32: the optically thin inverse-square check
    of tests/test_engine_lucy.py, one iteration of bench.py's quickstart
    configuration, the host synchronisations per step, and the binned-image
@@ -62,7 +69,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    fainter than the 20 degree one at the shortest wavelength; per
    iteration wall, photons/s, steps, ms per step, occupancy, killed_int and
    host syncs per step (at most 1.05); escape_tau launches per imaging
-   step beside the peel events per step (one launch in each event);
+   step beside the peel events per step (one launch in each event); the
+   first Lucy iteration's first 300 steps both ways (graph_witness);
 9. bench.py's yso_thick configuration through transport.lucy.run_lucy as
    bench.py calls it, cut to 1 iteration of 10,000 photons (bench.py: 2
    of 2,000,000; ``--yso-thick-photons N`` runs phases 1, 2 and 9 alone
@@ -126,9 +134,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    finite and >= 0, the 85 degree view's scattered share at 0.3 um above
    the 10 degree view's, one escape_tau launch in each peel event, no
    raytraced photon outside the grid or its cell; walls, steps, ms per
-   step, occupancy and host reads per stage. Then the three kernels
-   against their plain versions on this run's own calls, by the methods
-   of phases 6 (deposit_visit, 80 Lucy calls), 10 (escape_tau, the
+   step, occupancy and host reads per stage; the first Lucy iteration's
+   first 200 steps both ways (graph_witness, as in phases 16-18). Then the
+   three kernels against their plain versions on this run's own calls, by
+   the methods of phases 6 (deposit_visit, 80 Lucy calls of
+   graph_witness's eager run), 10 (escape_tau, the
    WALK_WINDOWS imaging steps) and 13 (escape_column, the raytracing
    calls), with their times;
 15. the other sources of ROADMAP.md item 4 on the card in float32: a
@@ -195,11 +205,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
 ``--raytracing`` runs phases 1, 2, 4, 8 and 11-13 alone; ``--cylindrical``
 phases 1, 2, 14 (with its parts of phases 6, 10 and 13) and 15;
 ``--hierarchical`` phases 1, 2, 16 and 17; ``--voronoi`` phases 1, 2 and
-18; ``--parallel`` phases 1, 2 and 19 (with phase 4, its reference).
+18; ``--parallel`` phases 1, 2 and 19 (with phase 4, its reference);
+``--graph`` phases 1 and 2, graph_rand_check and graph_witness on the
+models of phases 4, 8, 14 and 16-18, built and run to the start of their
+first Lucy iteration.
 
-Each kernel's launch count is reset just before and read just after each
-main-path run (phases 4, 8, 9, 11, 12, 14, 16, 17, 18 and, on rank 0, 19);
-the kernels line sums them.
+On the card run_lucy_iteration runs each Lucy iteration as replays of a
+CUDA graph of GRAPH_STEPS steps (hyperion_tpu_torch/transport/engine.py):
+its first step runs eagerly, the next GRAPH_STEPS are captured, and a
+replay launches the captured kernels again without their wrappers. Each
+kernel's launch count (its wrapper's: a launch captured into a graph
+counts once, at its capture) is reset just before and read just after
+each main-path run (phases 4, 8, 9, 11, 12, 14, 16, 17, 18 and, on rank
+0, 19); the kernels line sums them, and phases 4, 8 and 9 print the
+device's deposit_visit launches beside them (check_step_counts). The
+recorders that hold a kernel to its plain version on a run's own calls
+record eager calls: a captured call's lanes are the graph's, which each
+replay writes anew.
 It ends with a JSON line of the kernels, then the result line
 {"ok": true, "device": {...}}. Longer records go to chip_smoke_out/.
 It needs no network and imports nothing of JAX or of hyperion_tpu.
@@ -448,6 +470,17 @@ MONO_N_SIGMA = 5.0
 # phase 11's monochromatic check: source and dust photons per wavelength
 # (half CLASS2_CUT's imaging budget, for the time limit)
 CLASS2_MONO_PHOTONS = 50_000
+# each geometry's Lucy iteration on the card run both ways, the eager step
+# loop and replays of the CUDA graph that run_lucy_iteration captures
+# (graph_witness, in phases 4, 8, 14 and 16-18): the working steps of the
+# main path's first iteration that each run takes (None: the whole
+# iteration), and their generator's seed
+GRAPH_WITNESS_STEPS = dict(tutorial=None, class2=300, box=200)
+GRAPH_WITNESS_SEED = 20
+# graph_witness's reports by geometry, and check_step_counts' by phase, for
+# results.json and the kernels line
+GRAPH_WITNESS = {}
+STEP_COUNTS = {}
 
 
 def phase(msg):
@@ -1150,6 +1183,36 @@ def band_fraction(temperature, wav_min, wav_max):
     return integral(band) / integral(np.ones_like(band))
 
 
+def check_step_counts(what, launches, counts, steps, iterations):
+    """The Lucy steps of a main-path run of ``iterations`` iterations
+    (``engine.step_counts`` over it) against its deposit_visit launches
+    and its working steps: each step calls the kernel twice (its masked
+    refill's visits and its own), so the wrapper counts two launches for
+    each step run eagerly or captured into a graph (a replay launches the
+    captured ones again without it), and one an iteration for the flush
+    at its end; every working step ran eagerly or in a replay; the host
+    read the counters at most once a step. Returns the device's
+    launches."""
+    ran = counts['eager'] + counts['replayed']
+    device = 2 * ran + iterations
+    if launches != 2 * (counts['eager'] + counts['captured']) + \
+            iterations or \
+            ran < steps or not counts['replays'] or counts['reads'] > steps:
+        raise AssertionError('%s: deposit_visit launches %d over %d working '
+                             'steps, step counts %s'
+                             % (what, launches, steps, counts))
+    STEP_COUNTS[what] = dict(counts, working=steps,
+                             deposit_visit_wrapper_launches=launches,
+                             deposit_visit_device_launches=device)
+    phase('%s Lucy steps: %d working, %d eager, %d captured, %d replays of '
+          '%d, %d host reads (%.4f a working step); deposit_visit launched '
+          '%d times by its wrapper, %d times on the device'
+          % (what, steps, counts['eager'], counts['captured'],
+             counts['replays'], counts['replayed'], counts['reads'],
+             counts['reads'] / steps, launches, device))
+    return device
+
+
 def run_slice(dv, et, card):
     """Phase 4: the tutorial through run_lucy_model, the port's run_model
     without its .rtout file: 4 Lucy iterations, then imaging. Returns
@@ -1159,18 +1222,22 @@ def run_slice(dv, et, card):
     the dusty cells)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.transport import engine
     from hyperion_tpu_torch.util.constants import lsun
 
     m = tutorial_model()
     dv.launches = 0
     et.launches = 0
+    engine.reset_step_counts()
     t0 = time.time()
-    with imaging_syncs() as syncs, peel_events(et) as peels:
+    with imaging_syncs() as syncs, peel_events(et) as peels, \
+            first_lucy_iteration() as first:
         run = run_lucy_model(m, device='cuda')
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dv.launches
     launches_et = et.launches
+    counts = dict(engine.step_counts)
 
     temp = run.result.temperature[0]
     dusty = run.density0[0] > 0
@@ -1189,10 +1256,7 @@ def run_slice(dv, et, card):
               'occupancy %.4f [%s]'
               % (i, row['wall'], row['photons'] / row['wall'], row['steps'],
                  row['events'] / (row['steps'] * row['lanes']), card))
-    # one launch per step, plus one per refill (at most one per step)
-    if not steps < launches <= 2 * steps:
-        raise AssertionError('deposit_visit launches %d vs %d steps'
-                             % (launches, steps))
+    check_step_counts('slice', launches, counts, steps, 4)
     img = check_imaging('slice', run, 1_000_000, syncs, card)
     if img['killed_int'] or launches_et == 0:
         raise AssertionError('slice imaging: killed %d, escape_tau launches '
@@ -1224,6 +1288,7 @@ def run_slice(dv, et, card):
           'wall (run_lucy_model), T %.1f .. %.1f K, deposit_visit launches '
           '%d over %d steps [%s]'
           % (wall, temp[dusty].min(), temp.max(), launches, steps, card))
+    graph_witness('tutorial', first, GRAPH_WITNESS_STEPS['tutorial'], card)
     ref = dict(temperature=temp, se1=run.iterations[0]['specific_energy'],
                dusty=dusty)
     return launches, launches_et, [dict(row) for row in run.perf.rows[:4]], \
@@ -1286,23 +1351,31 @@ def physics_on_card(card):
     engine.run_lucy_iteration(geo, dt, st, density, jid, jfrac, gen, 200000,
                               131072, config)
     torch.cuda.synchronize()
+    engine.reset_step_counts()
     t0 = time.time()
     out = engine.run_lucy_iteration(geo, dt, st, density, jid, jfrac, gen,
                                     2_000_000, 131072, config)
     e_current = float(out[1])
     torch.cuda.synchronize()
     wall = time.time() - t0
+    counts = dict(engine.step_counts)
     if e_current != 2_000_000 or int(out[3]) or int(out[4]):
         raise AssertionError('bench quickstart: E %g killed %d/%d'
                              % (e_current, int(out[3]), int(out[4])))
     bench = dict(photons=2_000_000, wall_s=wall, photons_per_sec=2e6 / wall,
                  steps=int(out[5]),
-                 occupancy=int(out[7]) / (int(out[5]) * 131072))
+                 occupancy=int(out[7]) / (int(out[5]) * 131072),
+                 step_counts=counts,
+                 host_reads_per_step=counts['reads'] / int(out[5]))
     phase('bench quickstart config: %.4f s, %.1f photons/s, %d steps, '
-          'occupancy %.4f [%s]' % (wall, bench['photons_per_sec'],
-                                   bench['steps'], bench['occupancy'], card))
+          'occupancy %.4f, %d graph replays of %d steps, %.4f host reads per '
+          'step [%s]' % (wall, bench['photons_per_sec'], bench['steps'],
+                         bench['occupancy'], counts['replays'],
+                         counts['replayed'], bench['host_reads_per_step'],
+                         card))
 
-    # host synchronisations per step, counted by torch's sync debug mode
+    # host synchronisations inside the step (none: the driver reads the
+    # counters), counted by torch's sync debug mode
     carry = engine._init_lucy_carry(dt, density, 2_000_000, 131072)
     step = engine.make_lucy_step(geo, dt, st, density, jid, jfrac,
                                  dict(config, check_frequency=0.001))
@@ -1407,6 +1480,180 @@ def transport_syncs():
         yield counts
     finally:
         lucy.run_lucy_iteration = inner
+
+
+class _FirstIteration(Exception):
+    pass
+
+
+@contextlib.contextmanager
+def first_lucy_iteration(stop=False):
+    """Record the arguments of the first Lucy iteration
+    (``lucy.run_lucy_iteration``) run inside the block; yields a dict that
+    gets them as 'args' (a list) and 'kw'. With ``stop`` the run inside
+    the block ends there, before the iteration."""
+    from hyperion_tpu_torch.transport import lucy
+
+    rec = {}
+    inner = lucy.run_lucy_iteration
+
+    def recorded(*args, **kw):
+        if not rec:
+            rec.update(args=list(args), kw=dict(kw))
+        if stop:
+            raise _FirstIteration
+        return inner(*args, **kw)
+
+    lucy.run_lucy_iteration = recorded
+    try:
+        yield rec
+    except _FirstIteration:
+        pass
+    finally:
+        lucy.run_lucy_iteration = inner
+
+
+def first_iteration_args(model, batch_size=None):
+    """The arguments of a model's first Lucy iteration on the card as
+    run_lucy_model gives them, without running it (``--graph``)."""
+    from hyperion_tpu_torch.model import run_lucy_model
+
+    with first_lucy_iteration(stop=True) as rec:
+        run_lucy_model(model, device='cuda', batch_size=batch_size)
+    return rec
+
+
+def graph_rand_check(card, shape=(27, 125_000), k=2, replays=3):
+    """A CUDA graph of ``k`` torch.rand calls from a generator registered
+    with it, replayed ``replays`` times, draws what as many eager calls
+    draw from the same seed, and leaves the generator where they leave it;
+    set back and redrawn, as the engine gives back the draws of a replay's
+    steps after an iteration's end, it draws them again. Returns the
+    report."""
+    import torch
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(GRAPH_WITNESS_SEED)
+    eager = [torch.rand(shape, generator=gen, device=dev)
+             for _ in range(k * replays)]
+    eager_state = gen.get_state()
+    gen.manual_seed(GRAPH_WITNESS_SEED)
+    bufs = [torch.empty(shape, device=dev) for _ in range(k)]
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for b in bufs:
+            torch.rand(shape, generator=gen, device=dev, out=b)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    got = []
+    for _ in range(replays):
+        state = gen.get_state()
+        graph.replay()
+        got += [b.clone() for b in bufs]
+    same = all(torch.equal(a, b) for a, b in zip(got, eager))
+    same_state = torch.equal(gen.get_state(), eager_state)
+    # give back the last replay's draws but the first, and draw it again
+    gen.set_state(state)
+    again = torch.rand(shape, generator=gen, device=dev)
+    redraw = torch.equal(again, eager[-k])
+    phase('captured torch.rand: %d replays of a graph of %d draws of %s '
+          'from the registered generator equal to the %d eager draws: %s; '
+          'generator state after equal: %s; set back and redrawn equal: %s '
+          '[%s]' % (replays, k, shape, k * replays, same, same_state, redraw,
+                    card))
+    if not (same and same_state and redraw):
+        raise AssertionError('captured torch.rand differs from the eager '
+                             'draws')
+    return dict(shape=list(shape), per_graph=k, replays=replays, equal=same,
+                state_equal=same_state, redraw_equal=redraw)
+
+
+def graph_witness(what, first, max_steps, card, recorder=None,
+                  wrap_step=None):
+    """The main path's first Lucy iteration (``first``: its recorded
+    arguments) run twice on the card from one generator seed, cut at
+    ``max_steps`` working steps (None: the whole iteration): as the eager
+    step loop (``engine.drive_steps``, a read of the counters after each
+    step) and as run_lucy_iteration runs it (replays of one CUDA graph of
+    GRAPH_STEPS steps, a read after each). Steps, killed_int, killed_geo,
+    events, n_photons_cell and energy_current must be equal, energy_sum
+    and the spectrum bins within RTOL (deposit_visit's float atomics add
+    in another order). ``recorder``: a context manager factory around the
+    eager run (the kernels' recorders), ``wrap_step`` wraps its step.
+    Returns (report, what the recorder yielded)."""
+    import torch
+    from hyperion_tpu_torch.transport import engine
+
+    args, kw = list(first['args']), first['kw']
+    if max_steps is not None:
+        args[9] = dict(args[9], max_steps=max_steps)
+    cap = int(args[9]['max_steps'])
+    runs, recorded = {}, None
+    for how in ('graph', 'eager'):
+        gen = args[6] = torch.Generator(device='cuda').manual_seed(
+            GRAPH_WITNESS_SEED)
+        engine.reset_step_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if how == 'graph':
+            out = engine.run_lucy_iteration(*args, **kw)
+        else:
+            carry, step = engine.start_lucy_iteration(*args[:6], *args[7:],
+                                                      **kw)
+            with (recorder() if recorder else
+                  contextlib.nullcontext()) as recorded:
+                _, n = engine.drive_steps(
+                    carry, wrap_step(step) if wrap_step else step, gen, cap)
+            out = engine.finish_lucy_iteration(carry, n)
+        torch.cuda.synchronize()
+        runs[how] = (out, time.time() - t0, dict(engine.step_counts))
+    (e, e_wall, e_counts), (g, g_wall, g_counts) = runs['eager'], \
+        runs['graph']
+    equal = dict(n_steps=e[5] == g[5],
+                 n_photons_cell=bool(torch.equal(e[2], g[2])),
+                 killed_int=int(e[3]) == int(g[3]),
+                 killed_geo=int(e[4]) == int(g[4]),
+                 n_events=int(e[7]) == int(g[7]),
+                 energy_current=float(e[1]) == float(g[1]))
+    errs = []
+    for a, b in ((g[0], e[0]), (g[6], e[6])):
+        err = (a.double() - b.double()).abs()
+        errs.append(float((err / b.double().abs().clamp_min(1e-30)).max())
+                    if err.numel() else 0.0)
+        if not bool((err <= RTOL * b.double().abs()).all()):
+            equal['energy_sum'] = False
+    steps = e[5]
+    rep = dict(
+        steps=steps, cap=cap, killed_int=int(e[3]), killed_geo=int(e[4]),
+        n_events=int(e[7]), lanes=int(args[8]), equal=equal,
+        energy_sum_max_rel_err=errs[0], spectrum_max_rel_err=errs[1],
+        eager_ms_per_step=e_wall * 1e3 / steps,
+        graph_ms_per_step=g_wall * 1e3 / steps,
+        speedup=e_wall / g_wall, graph_steps=engine.GRAPH_STEPS,
+        graph_counts=g_counts, eager_reads_per_step=e_counts['reads'] / steps,
+        graph_reads_per_step=g_counts['reads'] / steps)
+    GRAPH_WITNESS[what] = rep
+    phase('%s Lucy iteration 1 (%s, B=%d) both ways: graph of %d steps '
+          '(%d replays, %d eager steps) against the eager step loop, %d '
+          'working steps both, killed %d/%d, events %d; equal: %s; '
+          'energy_sum max rel err %.3g; eager %.3f ms per step (%.3f reads '
+          'per step), graph %.3f ms per step (%.4f reads per step), %.2fx '
+          '[%s]' % (what, 'whole' if max_steps is None else
+                    'first %d steps' % max_steps, rep['lanes'],
+                    engine.GRAPH_STEPS, g_counts['replays'],
+                    g_counts['eager'], steps, rep['killed_int'],
+                    rep['killed_geo'], rep['n_events'],
+                    ', '.join(k for k, v in equal.items() if v), errs[0],
+                    rep['eager_ms_per_step'], rep['eager_reads_per_step'],
+                    rep['graph_ms_per_step'], rep['graph_reads_per_step'],
+                    rep['speedup'], card))
+    if not all(equal.values()) or not g_counts['replays']:
+        raise AssertionError('%s: the graph run differs from the eager one: '
+                             '%s' % (what, rep))
+    return rep, recorded
 
 
 def report_iterations(what, rows, syncs, n_photons, card):
@@ -1588,19 +1835,22 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
     phase 11)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.transport import engine
 
     m = class2_model(n_photons, n_iterations, n_imaging)
     dv.launches = 0
     et.launches = 0
+    engine.reset_step_counts()
     t0 = time.time()
     with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
-            peel_events(et) as peels:
+            peel_events(et) as peels, first_lucy_iteration() as first:
         run = run_lucy_model(m, device='cuda', max_steps=max_steps,
                              imaging_max_steps=imaging_max_steps)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dv.launches
     launches_et = et.launches
+    counts = dict(engine.step_counts)
     temp = run.result.temperature[0]
     dusty = run.density0[0] > 0
     if not np.isfinite(temp).all() or not (temp[dusty] > 0).all():
@@ -1629,14 +1879,13 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
              n_img, launches_et / n_img, peels['events'] / n_img, card))
     # one launch per peel event (class2 has no forced first interaction)
     check_peels('class2', peels, launches_et, n_img, forced=False)
-    if not steps < launches <= 2 * steps:
-        raise AssertionError('class2: deposit_visit launches %d vs %d steps'
-                             % (launches, steps))
+    check_step_counts('class2', launches, counts, steps, len(rows))
     phase('class2: %d iterations (converged: %s) in %.3f s, T %.1f .. %.1f '
           'K, killed_int %d, deposit_visit launches %d over %d steps [%s]'
           % (run.result.iterations, run.result.converged, wall,
              temp[dusty].min(), temp.max(), run.result.killed_int, launches,
              steps, card))
+    graph_witness('class2', first, GRAPH_WITNESS_STEPS['class2'], card)
     data = run.imaging.peeled[0]['datasets']
     return launches, launches_et, dict(
         photons=n_photons, max_steps=max_steps, wall_s=wall,
@@ -1654,6 +1903,7 @@ def yso_thick_phase(dv, card, n_photons, n_iterations):
     ``n_photons`` photons per iteration. Nothing may be killed. Returns
     (launches, report)."""
     import torch
+    from hyperion_tpu_torch.transport import engine
     from hyperion_tpu_torch.transport.lucy import run_lucy
 
     geo, dt, st, density = yso_thick_tables()
@@ -1667,6 +1917,7 @@ def yso_thick_phase(dv, card, n_photons, n_iterations):
         t_last[0] = now
 
     dv.launches = 0
+    engine.reset_step_counts()
     with transport_syncs() as syncs:
         res = run_lucy(geo, dt, st, density,
                        torch.Generator(device='cuda').manual_seed(1),
@@ -1675,6 +1926,8 @@ def yso_thick_phase(dv, card, n_photons, n_iterations):
                        **YSO_THICK)
     launches = dv.launches
     rows = report_iterations('yso_thick', rows, syncs, n_photons, card)
+    check_step_counts('yso_thick', launches, dict(engine.step_counts),
+                      sum(r['steps'] for r in rows), len(rows))
     if any(r['killed_int'] for r in rows):
         raise AssertionError('yso_thick: photons killed: %s'
                              % [r['killed_int'] for r in rows])
@@ -2679,8 +2932,9 @@ def class1_cyl_model(n_w=200, n_z=200, n_photons=100_000, n_iterations=1,
 @contextlib.contextmanager
 def source_picks(n_rows, device):
     """Tally the source rows that the emission draws (``pick_sources``, one
-    draw per lane of every refill, as the Lucy and imaging steps call it):
-    yields an int64 (n_rows,) tensor on ``device``."""
+    draw per lane of every refill, as the Lucy and imaging steps call it;
+    the Lucy step's masked refill draws in every step, and a graph's
+    replays add theirs): yields an int64 (n_rows,) tensor on ``device``."""
     import torch
     from hyperion_tpu_torch.transport import engine, imaging, stable
 
@@ -2689,7 +2943,8 @@ def source_picks(n_rows, device):
 
     def counted(st, u):
         rows = inner(st, u)
-        tally.add_(torch.bincount(rows, minlength=n_rows))
+        # (bincount would read the device, which a graph capture refuses)
+        tally.index_add_(0, rows, torch.ones_like(rows))
         return rows
 
     mods = (stable, engine, imaging)
@@ -2704,17 +2959,21 @@ def source_picks(n_rows, device):
 
 @contextlib.contextmanager
 def deposit_calls(dv, first, last):
-    """Record the deposit_visit calls number ``first`` to ``last`` (from 0)
-    made inside the block, as :func:`record_calls` does."""
+    """Record the eager deposit_visit calls number ``first`` to ``last``
+    (from 0) made inside the block, as :func:`record_calls` does; calls
+    captured into a CUDA graph are neither recorded nor numbered (their
+    lanes are the graph's, which each replay writes anew)."""
+    import torch
     calls, n = [], [0]
     run = dv.DepositVisit.__call__
 
     def recording(self, cell_dep, dep, enter, uid):
-        if first <= n[0] < last:
-            calls.append((None if dep is None else cell_dep.clone(),
-                          None if dep is None else dep.clone(),
-                          enter.clone(), uid.clone()))
-        n[0] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            if first <= n[0] < last:
+                calls.append((None if dep is None else cell_dep.clone(),
+                              None if dep is None else dep.clone(),
+                              enter.clone(), uid.clone()))
+            n[0] += 1
         run(self, cell_dep, dep, enter, uid)
 
     dv.DepositVisit.__call__ = recording
@@ -3316,14 +3575,16 @@ def orion_amr_model(n_photons, n_iterations, n_imaging, raytracing=RAYTRACING,
 @contextlib.contextmanager
 def mrw_jumps():
     """Count the Lucy steps' MRW jumps (``engine.mrw_jump_update``'s
-    lanes); yields a list that gets one device count per step."""
+    lanes) on the device, where a graph's replays add theirs too; yields
+    a () int64 tensor on the card."""
+    import torch
     from hyperion_tpu_torch.transport import engine
 
-    counts = []
+    counts = torch.zeros((), dtype=torch.int64, device='cuda')
     inner = engine.mrw_jump_update
 
     def counted(dt, mrw, u, mrw_now, *args):
-        counts.append(mrw_now.sum())
+        counts.add_(mrw_now.sum())
         return inner(dt, mrw, u, mrw_now, *args)
 
     engine.mrw_jump_update = counted
@@ -3359,7 +3620,7 @@ def forced_weights():
 
 def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
                  max_steps, imaging_max_steps, mrw=False, batch_size=None,
-                 more_kernels=None):
+                 more_kernels=None, wrap_step=None):
     """Run a config on the card through run_lucy_model with the recorders
     of phases 6, 10 and 13 and the launch counts reset just before; the
     shared checks: killed_geo 0 in every iteration, energy_current the
@@ -3367,8 +3628,11 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     only at the step caps (the share killed there reported), the SEDs and
     images finite and >= 0, one escape_tau launch in each peel event
     (:func:`check_peels`), no raytraced photon outside the grid or its
-    cell, each kernel launched; then each kernel against its plain version
-    on this run's own calls. ``more_kernels``: {name: module} of other
+    cell, each kernel launched; the first Lucy iteration's first
+    GRAPH_WITNESS_STEPS['box'] steps run both ways (:func:`graph_witness`);
+    then each kernel against its plain version on this run's own calls
+    (deposit_visit on the calls of that eager run, whose step
+    ``wrap_step`` wraps). ``more_kernels``: {name: module} of other
     kernels whose ``launches`` count is reset and read with these. Returns
     ({kernel: launches}, run, report)."""
     import torch
@@ -3383,8 +3647,7 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     dv.launches = et.launches = et.column_launches = 0
     t0 = time.time()
     with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
-            peel_events(et) as peels, \
-            deposit_calls(dv, 40, 120) as dcalls, \
+            peel_events(et) as peels, first_lucy_iteration() as first, \
             walk_calls(WALK_WINDOWS) as wcalls, column_calls() as ccalls, \
             mrw_jumps() as jumps:
         run = run_lucy_model(model, device='cuda', batch_size=batch_size,
@@ -3412,7 +3675,7 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     if img.killed_int and img.n_steps < imaging_max_steps:
         raise AssertionError('%s imaging: killed_int %d below the cap (%d '
                              'steps)' % (what, img.killed_int, img.n_steps))
-    n_jumps = int(sum(int(j) for j in jumps))
+    n_jumps = int(jumps)
     # the share of the photons killed at the step caps: Lucy's over all
     # its iterations
     lucy_killed = sum(r['killed_int'] for r in rows) / (n_photons * len(rows))
@@ -3459,7 +3722,11 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
         raise AssertionError('%s: a kernel was not launched: %s'
                              % (what, launches))
 
-    # the kernels on this run's own calls
+    # the graph against the eager loop; then the kernels on this run's own
+    # calls
+    out['graph_witness'], dcalls = graph_witness(
+        what, first, GRAPH_WITNESS_STEPS['box'], card,
+        recorder=lambda: deposit_calls(dv, 40, 120), wrap_step=wrap_step)
     n_dust, n_cells = run.density0.shape
     err = check_calls(dv, dcalls, n_dust, n_cells, dev, '%s calls' % what)
     t = time_calls(dv, dcalls, n_dust, n_cells, dev)
@@ -3639,19 +3906,20 @@ def hierarchical_kernels(records, launches):
 @contextlib.contextmanager
 def locate_calls(first, last):
     """Record the locate kernel's calls (``VoronoiLocate.locate`` and
-    ``walk_from`` with their cells) made inside the block: those of Lucy
-    steps ``first`` to ``last`` (from 0) of the first Lucy iteration, and
-    those of the raytracing pass's dust batches (the positions in cells);
-    yields {'lucy': calls, 'raytracing': calls, 'locators': the
-    VoronoiLocate objects made}, each call (locator, start or None, x, y,
-    z, cells), cloned."""
-    from hyperion_tpu_torch.transport import engine, raytrace
+    ``walk_from`` with their cells) made inside the block: those of steps
+    ``first`` to ``last`` (from 0) of a Lucy step that ``rec['wrap']``
+    wraps (the eager loop of :func:`graph_witness`: a graph's captured
+    calls hold its own lanes, which each replay writes anew), and those of
+    the raytracing pass's dust batches (the positions in cells); yields
+    {'lucy': calls, 'raytracing': calls, 'locators': the VoronoiLocate
+    objects made, 'wrap': the step wrapper}, each call (locator, start or
+    None, x, y, z, cells), cloned."""
+    from hyperion_tpu_torch.transport import raytrace
     from hyperion_tpu_torch.transport import voronoi_locate as vl
 
-    rec = dict(lucy=[], raytracing=[], locators=[])
-    state = dict(where=None, made=0)
+    state = dict(where=None)
     cls = vl.VoronoiLocate
-    inner = (cls.__init__, cls.locate, cls.walk_from, engine.make_lucy_step,
+    inner = (cls.__init__, cls.locate, cls.walk_from,
              raytrace.raytrace_dust_batch)
 
     def init(self, geo):
@@ -3671,34 +3939,35 @@ def locate_calls(first, last):
     def walk_from(self, start, x, y, z):
         return keep(self, start, x, y, z, inner[2](self, start, x, y, z))
 
-    def make(*args, **kw):
-        step = inner[3](*args, **kw)
-        state['made'] += 1
-        first_iteration = state['made'] == 1
+    def wrap(step):
+        n = [0]
 
         def counted(carry, generator):
-            if first_iteration and first <= carry.n_steps < last:
+            if first <= n[0] < last:
                 state['where'] = 'lucy'
+            n[0] += 1
             try:
                 step(carry, generator)
             finally:
                 state['where'] = None
+        counted.draw = step.draw
         return counted
 
     def dust(*args, **kw):
         state['where'] = 'raytracing'
         try:
-            return inner[4](*args, **kw)
+            return inner[3](*args, **kw)
         finally:
             state['where'] = None
 
+    rec = dict(lucy=[], raytracing=[], locators=[], wrap=wrap)
     cls.__init__, cls.locate, cls.walk_from = init, locate, walk_from
-    engine.make_lucy_step, raytrace.raytrace_dust_batch = make, dust
+    raytrace.raytrace_dust_batch = dust
     try:
         yield rec
     finally:
         cls.__init__, cls.locate, cls.walk_from = inner[:3]
-        engine.make_lucy_step, raytrace.raytrace_dust_batch = inner[3:]
+        raytrace.raytrace_dust_batch = inner[3]
 
 
 def check_locate(what, calls, card):
@@ -3937,14 +4206,15 @@ def voronoi_cloud_phase(dv, et, card, n_sites, n_photons, n_iterations,
     0, one escape_tau launch in each peel event, no raytraced photon
     outside its cell; deposit_visit on 80 Lucy calls, escape_tau kind 5 on
     the walks of imaging steps 1-20 and 41-60 and escape_column on every
-    column call against their plain versions), and: killed_int 0 with
-    every Lucy iteration below its step cap; the cells' volumes partition
-    the box and the grid's dust mass, the cells' summed rho V from the
-    engine's own volumes, is the 1 Msun given; the binned SED within 3%
-    of the sources' 1.2e4 Lsun; the locate kernel launched on the main
-    path, its cells equal to the plain version's on every call of Lucy
-    steps 41-80 and of the raytracing pass's positions (:func:`check_locate`),
-    and its lanes at the cap counted; then the lattice oracle
+    column call against their plain versions; graph_witness), and:
+    killed_int 0 with every Lucy iteration below its step cap; the cells'
+    volumes partition the box and the grid's dust mass, the cells' summed
+    rho V from the engine's own volumes, is the 1 Msun given; the binned
+    SED within 3% of the sources' 1.2e4 Lsun; the locate kernel launched
+    on the main path, its cells equal to the plain version's on every call
+    of Lucy steps 41-80 (of graph_witness's eager run) and of the
+    raytracing pass's positions (:func:`check_locate`), and its lanes at
+    the cap counted; then the lattice oracle
     (:func:`voronoi_lattice_check`). Returns ({kernel: launches},
     report)."""
     import torch
@@ -3975,7 +4245,7 @@ def voronoi_cloud_phase(dv, et, card, n_sites, n_photons, n_iterations,
         launches, run, out = box_grid_run(
             'voronoi_cloud', 'voronoi', dv, et, card, m, n_photons,
             n_imaging, max_steps, imaging_max_steps,
-            more_kernels=dict(voronoi_locate=vl))
+            more_kernels=dict(voronoi_locate=vl), wrap_step=lcalls['wrap'])
     engine_locators = [loc for loc in lcalls['locators'] if loc._cuda and
                        loc.dtype == torch.float32]
     at_cap = sum(loc.lanes_at_cap() for loc in engine_locators)
@@ -4122,8 +4392,9 @@ def dryrun_tables(device):
 def parallel_rank():
     """Phase 19 on each rank (``chip_smoke:parallel_rank``, started by
     hyperion_tpu_torch.parallel.launch): (a) the tutorial at phase 4's size
-    through run_lucy_model, rank 0 recording its first 20 deposit_visit
-    calls; (b) one Lucy iteration of it with the grid cut into slabs; (c)
+    through run_lucy_model, rank 0 recording its first 20 eager
+    deposit_visit calls (:func:`deposit_calls`; each iteration's first
+    step runs eagerly before its graph's capture); (b) one Lucy iteration of it with the grid cut into slabs; (c)
     the dryrun's thick MRW 8^3 case, slab-sharded. Returns this rank's
     records (the launcher returns rank 0's)."""
     import torch
@@ -4132,6 +4403,7 @@ def parallel_rank():
     from hyperion_tpu_torch.parallel.spatial import \
         run_lucy_iteration_spatial
     from hyperion_tpu_torch.transport import deposit_visit as dv
+    from hyperion_tpu_torch.transport import engine
     from hyperion_tpu_torch.transport import escape_tau as et
     group = mesh.active_group()
     device = group.device
@@ -4142,6 +4414,7 @@ def parallel_rank():
     m = tutorial_model()
     dv.launches = 0
     et.launches = 0
+    engine.reset_step_counts()
     mesh.reset_stats()
     t0 = time.time()
     with deposit_calls(dv, 0, 20 if group.rank == 0 else 0) as calls:
@@ -4149,11 +4422,13 @@ def parallel_rank():
     torch.cuda.synchronize()
     wall = time.time() - t0
     n_dv, n_et = dv.launches, et.launches
+    counts = dict(engine.step_counts)
     stats = dict(mesh.stats)
     sed = run.imaging.peeled[0]['datasets']['seds'][0][0, 0, 0, 0]
     out['a'] = dict(
         wall_s=wall, rows=[dict(r) for r in run.perf.rows],
         deposit_visit_launches=n_dv, escape_tau_launches=n_et,
+        step_counts=counts,
         iterations=run.result.iterations,
         temperature=run.result.temperature[0],
         band=float(sed.sum()) * np.log(1000.0 / 0.3) / 60,
@@ -4266,26 +4541,34 @@ def parallel_phase(card, ref):
     if abs(t_ratio - 1.0) > 0.01:
         raise AssertionError('parallel (a): median temperature ratio %.5f '
                              'against phase 4' % t_ratio)
-    if a['deposit_visit_calls'] != 20:
+    c = a['step_counts']
+    if a['deposit_visit_calls'] != min(20, 2 * c['eager']):
         raise AssertionError('parallel (a): rank 0 recorded %d deposit_visit '
-                             'calls' % a['deposit_visit_calls'])
-    # rank 0's own steps are at most the ranks' most; one launch a step and
-    # one a refill (at most one a step)
-    if not 0 < a['deposit_visit_launches'] <= 2 * n_lucy or \
+                             'calls of %d eager steps'
+                             % (a['deposit_visit_calls'], c['eager']))
+    # rank 0's own steps are at most the ranks' most; two calls a step (its
+    # masked refill's and its own), counted by the wrapper for the steps
+    # run eagerly or captured into a graph, and a flush an iteration
+    if not 0 < a['deposit_visit_launches'] == 2 * (
+            c['eager'] + c['captured']) + a['iterations'] or \
+            not c['replays'] or c['reads'] > n_lucy or \
             not a['escape_tau_launches']:
         raise AssertionError('parallel (a): rank 0 launched deposit_visit '
-                             '%d times over at most %d steps, escape_tau %d '
-                             'times' % (a['deposit_visit_launches'], n_lucy,
-                                        a['escape_tau_launches']))
+                             '%d times, step counts %s over at most %d '
+                             'steps, escape_tau %d times'
+                             % (a['deposit_visit_launches'], c, n_lucy,
+                                a['escape_tau_launches']))
     phase('parallel (a) imaging: %d photons in %.3f s, %d steps, %.3f '
           'ms per step; band luminosity %.5f x expected; median T / phase '
-          '4\'s %.5f; rank 0: deposit_visit launches %d, escape_tau %d, its '
-          'first 20 deposit_visit calls equal to the plain version (max abs '
-          'err %.3e); collectives %d, %.1f us each, %.1f us per iteration; '
-          'wall %.3f s [%s]'
+          '4\'s %.5f; rank 0: deposit_visit launches %d (%d graph replays '
+          'of %d steps), escape_tau %d, its first %d eager deposit_visit '
+          'calls equal to the plain version (max abs err %.3e); collectives '
+          '%d, %.1f us each, %.1f us per iteration; wall %.3f s [%s]'
           % (img['photons'], img['wall'], img['steps'],
-             img['wall'] * 1e3 / img['steps'], a['band'] / expected, t_ratio, a['deposit_visit_launches'],
-             a['escape_tau_launches'], a['deposit_visit_max_abs_err'],
+             img['wall'] * 1e3 / img['steps'], a['band'] / expected, t_ratio,
+             a['deposit_visit_launches'], c['replays'], c['replayed'],
+             a['escape_tau_launches'], a['deposit_visit_calls'],
+             a['deposit_visit_max_abs_err'],
              a['mesh']['collectives'], a['mesh']['collective_us'],
              a['mesh']['collective_us_per_iteration'], a['wall_s'], card))
     rec['a'] = dict({k: v for k, v in a.items() if k != 'temperature'},
@@ -4342,6 +4625,33 @@ def parallel_phase(card, ref):
     return a['deposit_visit_launches'], a['escape_tau_launches'], rec
 
 
+def graph_phase(card):
+    """``--graph``: each geometry's first Lucy iteration both ways
+    (:func:`graph_witness`) on the models of phases 4, 8, 14, 16, 17 and
+    18, built here and run only up to their first iteration's start."""
+    models = [('tutorial', lambda: tutorial_model(), None, 'tutorial'),
+              ('class2', lambda: class2_model(
+                  CLASS2_CUT['n_photons'], 1, CLASS2_CUT['n_imaging']), None,
+               'class2'),
+              ('class1_cyl', lambda: class1_cyl_model(
+                  n_photons=CLASS1_CYL_CUT['n_photons'],
+                  n_imaging=CLASS1_CYL_CUT['n_imaging']), None, 'box'),
+              ('sph_octree', lambda: sph_octree_model(
+                  SPH_OCT_CUT['n_photons'], 1,
+                  SPH_OCT_CUT['n_imaging'])[0], None, 'box'),
+              ('orion_amr', lambda: orion_amr_model(
+                  AMR_CUT['n_photons'], 1, AMR_CUT['n_imaging'])[0],
+               AMR_CUT['batch_size'], 'box'),
+              ('voronoi_cloud', lambda: voronoi_cloud_model(
+                  VORONOI_CLOUD['n_sites'], VORONOI_CUT['n_photons'], 1,
+                  VORONOI_CUT['n_imaging'])[0], None, 'box')]
+    for what, make, batch, cut in models:
+        t0 = time.time()
+        first = first_iteration_args(make(), batch_size=batch)
+        phase('%s: model and tables in %.1f s' % (what, time.time() - t0))
+        graph_witness(what, first, GRAPH_WITNESS_STEPS[cut], card)
+
+
 def main():
     import argparse
     import torch
@@ -4366,6 +4676,12 @@ def main():
                     help='run only phases 1, 2 and 19 (two ranks sharing the '
                     'card), with phase 4\'s single-rank run as its '
                     'reference')
+    ap.add_argument('--graph', action='store_true',
+                    help='run only phases 1 and 2, the captured torch.rand '
+                    'check and each geometry\'s first Lucy iteration both '
+                    'ways, the eager step loop and the CUDA graph (the '
+                    'graph_witness checks of phases 4, 8, 14 and 16-18, '
+                    'on models built here)')
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -4507,6 +4823,19 @@ def main():
                         'host_us', 'plain_ms', 'bound_us', 'bound_by',
                         'longest_walk')} for r in cols])
 
+    if args.graph:
+        record['graph_rand'] = graph_rand_check(card)
+        graph_phase(card)
+        record['graph_witness'] = GRAPH_WITNESS
+        (OUT / 'graph.json').write_text(json.dumps(record, indent=1,
+                                                   default=_jsonable))
+        print(json.dumps({'graph_witness': {
+            k: {f: v[f] for f in ('steps', 'eager_ms_per_step',
+                                  'graph_ms_per_step', 'speedup')}
+            for k, v in GRAPH_WITNESS.items()}}), flush=True)
+        print(result_line, flush=True)
+        return 0
+
     if args.cylindrical:
         cyl = cylindrical_phases()
         (OUT / 'cylindrical.json').write_text(json.dumps(record, indent=1))
@@ -4568,7 +4897,9 @@ def main():
     record.update(kernel_checks=checks, kernel_timings=timings,
                   tutorial_contention=hot)
 
-    # 4. the slice, through the kernels
+    # 4. the slice, through the kernels (after the check that a captured
+    # torch.rand draws what the eager one draws)
+    record['graph_rand'] = graph_rand_check(card)
     launches['deposit_visit']['tutorial'], launches['escape_tau']['tutorial'], \
         iterations, wall, img, se4, ref4 = run_phase(4, run_slice, dv, et,
                                                      card)
@@ -4628,6 +4959,8 @@ def main():
     phase('phases 3-19 in %.1f s' % (time.time() - t_start))
 
     record['launches'] = launches
+    record['graph_witness'] = GRAPH_WITNESS
+    record['step_counts'] = STEP_COUNTS
     record['wall_s'] = time.time() - t_start
     (OUT / 'results.json').write_text(json.dumps(record, indent=1,
                                                  default=_jsonable))
@@ -4652,6 +4985,7 @@ def main():
                     device_us=t['device_us'], host_us=t['host_us'],
                     bound_us=t['bound_us'],
                     launches_by_phase=launches['deposit_visit'],
+                    lucy_step_counts=STEP_COUNTS,
                     yso_device_us=yso_t['device_us'],
                     yso_host_us=yso_t['host_us'],
                     yso_bound_us=yso_t['bound_us'],

@@ -11,15 +11,19 @@ unique-photon cell visits through the ``deposit_visit`` kernel; with
 spectrum bins the deposits are also binned by frequency.
 
 All random numbers of a step are drawn in one ``torch.rand`` call from the
-iteration's generator; the physics functions take uniforms. The loop is
-driven from the host and reads the device once per step: the alive count,
-and with source re-absorption the count of photons waiting for
-re-emission in the same read. The MRW branch is computed masked in every
-step of an MRW run (a gate on "any lane jumps" would need a second read).
-Map sources place their photons in the grid's cells, and a map with an
-LTE spectrum draws its frequencies from the dust emissivity there
-(``se_rho``, the specific energy times the density of the previous
-iteration)."""
+iteration's generator; the physics functions take uniforms. A step reads
+nothing on the host: the budget, the uid counter, the alive and waiting
+counts and the count of working steps live on the device, the refill runs
+in every step masked by a gate computed there (as the JAX step refills),
+and every result is written into the carry's own tensors. On a CUDA
+device the iteration runs as replays of one CUDA graph of GRAPH_STEPS
+steps, the host reading the counters once after each replay (the JAX
+package runs the same loop as one device-resident ``lax.while_loop``); on
+the CPU the same step runs eagerly and the counters are read after each.
+The MRW branch is computed masked in every step of an MRW run. Map sources
+place their photons in the grid's cells, and a map with an LTE spectrum
+draws its frequencies from the dust emissivity there (``se_rho``, the
+specific energy times the density of the previous iteration)."""
 
 import math
 from dataclasses import dataclass
@@ -48,6 +52,24 @@ from .stable import (emit_extra_rows, emit_packets,
 N_UNIFORMS = 27
 U_EM_EXTRA = N_UNIFORMS
 
+# the Lucy steps that one CUDA graph holds: a replay runs this many steps,
+# and the host reads the iteration's counters once after it. Picked on an
+# H100 from 4 to 64 (PERF.md): a capture costs more than K times a step's
+# host time, an iteration captures anew, and larger graphs replayed no
+# faster
+GRAPH_STEPS = 4
+
+# how this process ran its Lucy steps since the last reset: steps run
+# eagerly, steps captured into graphs, graph replays and the steps they
+# ran, and host reads of the counters (chip_smoke.py and
+# scripts/profile_step.py read them)
+step_counts = dict(eager=0, captured=0, replays=0, replayed=0, reads=0)
+
+
+def reset_step_counts():
+    for k in step_counts:
+        step_counts[k] = 0
+
 
 @dataclass
 class PacketState:
@@ -75,15 +97,17 @@ class PacketState:
 @dataclass
 class LucyCarry:
     packets: PacketState
-    # host integers: the budget and uid counter change only at refills,
-    # by the host-known number of refilled lanes; n_alive and n_pending
-    # (photons waiting for re-emission by their source) are the step's
-    # one read of the device
-    budget: int
-    uid_counter: int
-    n_alive: int
-    n_pending: int
-    n_steps: int
+    # () int64 device counters: the photons left to emit and the ids
+    # consumed, changed by each refill; the alive lanes and the photons
+    # waiting for re-emission by their source, set at the end of each step
+    # for the next step's refill gate; the working steps, those that began
+    # with budget, a live lane or a waiting photon (a step after the
+    # iteration's end changes nothing and is not counted)
+    budget: torch.Tensor
+    uid_counter: torch.Tensor
+    n_alive: torch.Tensor
+    n_pending: torch.Tensor
+    n_steps: torch.Tensor
     energy_current: torch.Tensor   # () float64
     # energy_sum (n_dust, n_cells) and the (n_cells,) int64 unique-photon
     # visit counts (ref last_photon_id dedup, grid_propagate_3d.f90:91-97)
@@ -232,7 +256,10 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
                    config, mrw=None, spec_bins=None, spec_bin_frac=None,
                    se_rho=None):
     """The step of one Lucy iteration: ``step(carry, generator)`` advances
-    the carry by one step, in place.
+    the carry by one step, in place, reading nothing on the host (so that
+    a CUDA graph can hold it); ``step.draw(carry, generator)`` draws one
+    step's uniforms, as the step does, and ``step.refill(carry, u, gate)``
+    is its refill (scripts/profile_step.py times it masked off).
 
     density, jnu_var_id/frac: (n_dust, n_cells), the emissivity locator
     from the previous iteration's specific energy (ref precompute_jnu_var,
@@ -277,21 +304,24 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
                 n_bins, device=density.device)[None, :]) * n_cells
             var0 = torch.arange(n_dust, device=density.device) * dt.n_var
 
-    def refill(carry, u):
+    def refill(carry, u, gate):
         """Emit fresh packets into dead lanes while budget remains
         (replaces the reference's chunk scheduler), and re-emit photons
         re-absorbed by a source from that source: they keep their energy,
         uid and interaction count (ref iter_lucy.f90:158-183), and one
-        re-absorbed more than n_reabs_max times in a row is killed."""
+        re-absorbed more than n_reabs_max times in a row is killed. Every
+        lane is computed; ``gate`` (a () bool) masks the whole refill
+        off, which then changes nothing."""
         p = carry.packets
         B = p.x.shape[0]
         dead = ~p.alive
         if reabs_on:
-            pending = p.reemit_src >= 0
+            pending = (p.reemit_src >= 0) & gate
             dead = dead & ~pending
         rank = torch.cumsum(dead, dim=0)
-        can_fresh = dead & (rank <= carry.budget)
-        n_new = min(B - carry.n_alive - carry.n_pending, carry.budget)
+        can_fresh = dead & (rank <= carry.budget) & gate
+        n_new = torch.minimum(B - carry.n_alive - carry.n_pending,
+                              carry.budget) * gate
         u_sphere = (u[U_EM_CAP], u[U_EM_CAP_PHI], u[U_EM_OUT],
                     u[U_EM_OUT_PHI]) if sphere else None
         src = None
@@ -311,38 +341,40 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
         chi_n, kappa_n, alb_n = update_optical_constants(dt, new['nu'])
 
         def m(old, new_, mask=can):
-            return torch.where(mask if old.dim() == 1 else mask[:, None],
-                               new_, old)
+            """Write ``new_`` (a tensor or a number) into the lane tensor
+            ``old`` where ``mask``."""
+            mask = mask if old.dim() == 1 else mask[:, None]
+            if isinstance(new_, torch.Tensor):
+                torch.where(mask, new_, old, out=old)
+            else:
+                old.masked_fill_(mask, new_)
 
         # fresh photons take ids from the consumed-budget counter; int32
         # holds them (run_lucy caps the budget below 2**31 - 1)
         uid_new = (carry.uid_counter + rank).to(torch.int32)
-        n_reabs, reemit_src = p.n_reabs, p.reemit_src
         if reabs_on:
-            n_reabs = torch.where(can_fresh, 0, torch.where(
-                reemit_ok, n_reabs + 1, n_reabs))
-            reemit_src = torch.where(pending, -1, reemit_src)
-        packets = PacketState(
-            x=m(p.x, new['x']), y=m(p.y, new['y']), z=m(p.z, new['z']),
-            kx=m(p.kx, new['kx']), ky=m(p.ky, new['ky']),
-            kz=m(p.kz, new['kz']), nu=m(p.nu, new['nu']),
-            energy=m(p.energy, new['energy'], can_fresh),
-            cell=m(p.cell, cell_new),
-            tau=m(p.tau, random_exp(u[U_EM_TAU])),
-            n_inter=torch.where(can_fresh, 0, p.n_inter),
-            n_mrw=torch.where(can, 0, p.n_mrw),
-            n_reabs=n_reabs, reemit_src=reemit_src,
-            uid=m(p.uid, uid_new, can_fresh),
-            # photons emitted outside the grid simply escape (run_model
-            # checks that point and sphere sources lie inside it)
-            alive=p.alive | (can & (cell_new != ESCAPED)),
-            chi=m(p.chi, chi_n), kappa=m(p.kappa, kappa_n),
-            albedo=m(p.albedo, alb_n))
+            # fresh photons start a run of re-absorptions at 0, re-emitted
+            # ones count one more
+            m(p.n_reabs, torch.where(reemit_ok, p.n_reabs + 1, 0))
+            m(p.reemit_src, -1, pending)
+        for name in ('x', 'y', 'z', 'kx', 'ky', 'kz', 'nu'):
+            m(getattr(p, name), new[name])
+        m(p.energy, new['energy'], can_fresh)
+        m(p.cell, cell_new)
+        m(p.tau, random_exp(u[U_EM_TAU]))
+        m(p.n_inter, 0, can_fresh)
+        m(p.n_mrw, 0)
+        m(p.uid, uid_new, can_fresh)
+        # photons emitted outside the grid simply escape (run_model checks
+        # that point and sphere sources lie inside it)
+        p.alive |= can & (cell_new != ESCAPED)
+        m(p.chi, chi_n)
+        m(p.kappa, kappa_n)
+        m(p.albedo, alb_n)
         # the emission cell of a fresh photon counts as visited; no deposits
         emit_idx = torch.where(can_fresh & (cell_new != ESCAPED), cell_new,
                                n_cells)
-        carry.stats(None, None, emit_idx, packets.uid)
-        carry.packets = packets
+        carry.stats(None, None, emit_idx, p.uid)
         if reabs_on:
             carry.killed_int += reabs_kill.sum()
         carry.energy_current += torch.where(can_fresh, new['energy'],
@@ -373,18 +405,25 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
         carry.energy_sum_spec.view(-1).index_add_(0, torch.cat(idx),
                                                   torch.cat(val))
 
+    def draw(carry, generator):
+        x = carry.packets.x
+        return torch.rand((n_rows, x.shape[0]), generator=generator,
+                          device=x.device, dtype=dtype)
+
     def step(carry, generator):
-        p0 = carry.packets
-        B = p0.x.shape[0]
-        u = torch.rand((n_rows, B), generator=generator,
-                       device=p0.x.device, dtype=dtype)
-        # refill only when >= 1/4 of the lanes are dead (or none is alive),
-        # or a re-absorbed photon waits: a refill is an emission pass over
-        # every lane
-        if (carry.budget > 0 and (carry.n_alive * 4 <= 3 * B or
-                                  carry.n_alive == 0)) or carry.n_pending:
-            refill(carry, u)
         p = carry.packets
+        B = p.x.shape[0]
+        u = draw(carry, generator)
+        # a working step: budget left, a live lane or a waiting photon
+        carry.n_steps += (carry.budget > 0) | (carry.n_alive > 0) | \
+            (carry.n_pending > 0)
+        # refill when >= 1/4 of the lanes are dead (or none is alive), or a
+        # re-absorbed photon waits (the gate the JAX step computes; the
+        # emission pass runs over every lane either way)
+        gate = ((carry.budget > 0) & ((carry.n_alive * 4 <= 3 * B) |
+                                      (carry.n_alive == 0))) | \
+            (carry.n_pending > 0)
+        refill(carry, u, gate)
 
         cell_safe = p.cell.clamp_min(0)
         rho_rows = rho_t[cell_safe]
@@ -527,23 +566,27 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
             alive = alive & ~bad
             carry.killed_geo += bad.sum()
 
-        carry.packets = PacketState(
-            x=x, y=y, z=z, kx=kx, ky=ky, kz=kz, nu=evt['nu'],
-            energy=p.energy, cell=cell, tau=tau, n_inter=n_inter,
-            n_mrw=n_mrw, n_reabs=n_reabs, reemit_src=reemit_src, uid=p.uid,
-            alive=alive, chi=evt['chi'], kappa=kappa, albedo=albedo)
+        if reabs_on:
+            put(p, n_reabs=n_reabs, reemit_src=reemit_src)
+            carry.n_pending.copy_((reemit_src >= 0).sum())
+        put(p, x=x, y=y, z=z, kx=kx, ky=ky, kz=kz, nu=evt['nu'], cell=cell,
+            tau=tau, n_inter=n_inter, n_mrw=n_mrw, alive=alive,
+            chi=evt['chi'], kappa=kappa, albedo=albedo)
         carry.killed_int += killed_now.sum()
         carry.n_events += (moving | mrw_now).sum() if mrw is not None \
             else moving.sum()
-        carry.n_steps += 1
-        # the step's one host synchronisation
-        if reabs_on:
-            carry.n_alive, carry.n_pending = torch.stack(
-                [alive.sum(), (reemit_src >= 0).sum()]).tolist()
-        else:
-            carry.n_alive = int(alive.sum())
+        carry.n_alive.copy_(alive.sum())
 
+    step.draw = draw
+    step.refill = refill
     return step
+
+
+def put(packets, **fields):
+    """Write each field's new values into the packets' own tensor (a CUDA
+    graph's replay then reads what the previous step wrote)."""
+    for name, value in fields.items():
+        getattr(packets, name).copy_(value)
 
 
 def _init_lucy_carry(dt, density, n_photons, batch_size, n_bins=0):
@@ -568,9 +611,13 @@ def _init_lucy_carry(dt, density, n_photons, batch_size, n_bins=0):
         alive=zeros(B, dtype=torch.bool),
         chi=zeros(B, n_dust), kappa=zeros(B, n_dust),
         albedo=zeros(B, n_dust))
+    def count(n=0):
+        return torch.full((), n, dtype=torch.int64, device=device)
+
     return LucyCarry(
-        packets=packets, budget=int(n_photons), uid_counter=0, n_alive=0,
-        n_pending=0, n_steps=0, energy_current=zeros(dtype=torch.float64),
+        packets=packets, budget=count(int(n_photons)), uid_counter=count(),
+        n_alive=count(), n_pending=count(), n_steps=count(),
+        energy_current=zeros(dtype=torch.float64),
         stats=DepositVisit(n_dust, n_cells, device, dtype),
         energy_sum_spec=zeros(n_dust, n_bins, n_cells),
         killed_int=zeros(dtype=torch.int64),
@@ -578,27 +625,145 @@ def _init_lucy_carry(dt, density, n_photons, batch_size, n_bins=0):
         n_events=zeros(dtype=torch.int64))
 
 
-def run_lucy_iteration(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
-                       generator, n_photons, batch_size, config, mrw=None,
-                       spec_bins=None, spec_bin_frac=None, se_rho=None):
-    """One Lucy iteration on one device.
+def read_counts(carry):
+    """The host's one read of the iteration's counters: (live, working
+    steps), live while budget, a live lane or a waiting photon is left."""
+    budget, n_alive, n_pending, n_steps = torch.stack(
+        [carry.budget, carry.n_alive, carry.n_pending,
+         carry.n_steps]).tolist()
+    step_counts['reads'] += 1
+    return budget > 0 or n_alive > 0 or n_pending > 0, n_steps
 
-    Returns (energy_sum (n_dust, n_cells), energy_current, n_photons_cell,
-    killed_int, killed_geo, n_steps, energy_sum_spec (n_dust, n_bins,
-    n_cells), n_events), the tuple of the JAX ``lucy_iteration_impl``."""
+
+def drive_steps(carry, step, generator, max_steps, counts=None):
+    """Run the iteration one step at a time, reading the counters after
+    each, until it ends or has run ``max_steps`` working steps.
+    ``counts``: the last :func:`read_counts`, if the caller has one.
+    Returns the last read."""
+    live, n = read_counts(carry) if counts is None else counts
+    while live and n < max_steps:
+        step(carry, generator)
+        step_counts['eager'] += 1
+        live, n = read_counts(carry)
+    return live, n
+
+
+def drive_blocks(carry, step, generator, max_steps, k, block):
+    """Run the iteration in blocks of ``k`` steps, ``block()`` running one
+    (a graph's replay on the card), reading the counters once after each,
+    while a whole block fits under ``max_steps``; then the last steps one
+    at a time (:func:`drive_steps`). The steps of a block after the
+    iteration's end change nothing but draw their uniforms: the generator
+    is then set back to where the iteration's last working step left it,
+    so that the iteration consumes what the step-at-a-time loop consumes.
+    Returns the last read."""
+    live, n = read_counts(carry)
+    while live and n + k <= max_steps:
+        state = generator.get_state()
+        block()
+        live, n_after = read_counts(carry)
+        if not live and n_after - n < k:
+            generator.set_state(state)
+            for _ in range(n_after - n):
+                step.draw(carry, generator)
+        n = n_after
+    return drive_steps(carry, step, generator, max_steps, (live, n))
+
+
+def capture_steps(carry, step, generator, k):
+    """A CUDA graph of ``k`` steps of the iteration on the current stream,
+    which must not be the default one: the carry's tensors, its tables and
+    its kernels' state are the graph's inputs and outputs, and
+    ``generator`` is registered with it, so that a replay runs k more
+    steps and advances the generator as k eager steps would. The carry
+    must have run a step eagerly first (the lazily built tables and
+    kernels). Anything in the step that synchronises makes the capture
+    raise, and so does this."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    graph.capture_begin()
+    try:
+        for _ in range(k):
+            step(carry, generator)
+    except BaseException:
+        try:
+            graph.capture_end()
+        except RuntimeError:
+            pass
+        raise
+    graph.capture_end()
+    step_counts['captured'] += k
+    return graph
+
+
+def drive_graph(carry, step, generator, max_steps):
+    """Run the iteration on the card as replays of one CUDA graph of
+    GRAPH_STEPS steps (:func:`drive_blocks`): the first step runs eagerly
+    on a side stream (the warm-up before a capture), then the capture on
+    that stream. An iteration that ends or reaches ``max_steps`` before a
+    whole block runs its steps eagerly. Returns the last read."""
+    k = GRAPH_STEPS
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream(device=main.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        live, n = drive_steps(carry, step, generator, min(max_steps, 1))
+        graph = capture_steps(carry, step, generator, k) \
+            if live and n + k <= max_steps else None
+    main.wait_stream(side)
+    if graph is None:
+        return drive_steps(carry, step, generator, max_steps, (live, n))
+
+    def replay():
+        graph.replay()
+        step_counts['replays'] += 1
+        step_counts['replayed'] += k
+
+    return drive_blocks(carry, step, generator, max_steps, k, replay)
+
+
+def start_lucy_iteration(geometry, dt, st, density, jnu_var_id,
+                         jnu_var_frac, n_photons, batch_size, config,
+                         mrw=None, spec_bins=None, spec_bin_frac=None,
+                         se_rho=None):
+    """The carry and the step of one Lucy iteration (the arguments of
+    :func:`run_lucy_iteration` but the generator)."""
     n_bins = 0 if spec_bins is None else spec_bins.shape[0] - 1
     carry = _init_lucy_carry(dt, density, n_photons, batch_size, n_bins)
     step = make_lucy_step(geometry, dt, st, density, jnu_var_id,
                           jnu_var_frac, config, mrw=mrw, spec_bins=spec_bins,
                           spec_bin_frac=spec_bin_frac, se_rho=se_rho)
-    max_steps = int(config['max_steps'])
-    while (carry.budget > 0 or carry.n_alive > 0 or carry.n_pending > 0) \
-            and carry.n_steps < max_steps:
-        step(carry, generator)
-    # lanes still alive (or waiting for re-emission) at max_steps are
-    # killed (the bounded-step safety net)
+    return carry, step
+
+
+def finish_lucy_iteration(carry, n_steps):
+    """The tuple of :func:`run_lucy_iteration` from a carry that has run
+    ``n_steps`` working steps: lanes still alive (or waiting for
+    re-emission) at max_steps are killed (the bounded-step safety net)."""
+    carry.stats.flush()
     p = carry.packets
     killed_int = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()
     return (carry.stats.energy_sum, carry.energy_current,
             carry.stats.n_photons_cell, killed_int, carry.killed_geo,
-            carry.n_steps, carry.energy_sum_spec, carry.n_events)
+            n_steps, carry.energy_sum_spec, carry.n_events)
+
+
+def run_lucy_iteration(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
+                       generator, n_photons, batch_size, config, mrw=None,
+                       spec_bins=None, spec_bin_frac=None, se_rho=None):
+    """One Lucy iteration on one device: on a CUDA device as replays of a
+    CUDA graph of GRAPH_STEPS steps (:func:`drive_graph`), on the CPU one
+    eager step at a time (:func:`drive_steps`).
+
+    Returns (energy_sum (n_dust, n_cells), energy_current, n_photons_cell,
+    killed_int, killed_geo, n_steps, energy_sum_spec (n_dust, n_bins,
+    n_cells), n_events), the tuple of the JAX ``lucy_iteration_impl``;
+    n_steps a host int, the others tensors."""
+    carry, step = start_lucy_iteration(
+        geometry, dt, st, density, jnu_var_id, jnu_var_frac, n_photons,
+        batch_size, config, mrw=mrw, spec_bins=spec_bins,
+        spec_bin_frac=spec_bin_frac, se_rho=se_rho)
+    max_steps = int(config['max_steps'])
+    drive = drive_graph if density.device.type == 'cuda' else drive_steps
+    _, n_steps = drive(carry, step, generator, max_steps)
+    return finish_lucy_iteration(carry, n_steps)

@@ -51,7 +51,7 @@ def emit_extra_rows(st, geometry):
     """The rows of ``u_extra`` that the source rows draw from: 0 without
     map, box or beam rows, else N_EMIT_EXTRA, and for a map on a grid whose
     positions take more than 3 uniforms (the Voronoi grid) the rest of
-    them after those (``gtable.position_uniforms``). (reads the device)"""
+    them after those (``gtable.position_uniforms``)."""
     if not st.has_extra:
         return 0
     return N_EMIT_EXTRA + (geometry.POSITION_ROWS - 3 if st.has_map else 0)
@@ -88,6 +88,17 @@ class SourceTables:
     # (0,) otherwise, as in the JAX package
     lte: torch.Tensor
 
+    def __post_init__(self):
+        # host bools read from the tables once, when they are made (a step
+        # reads nothing on the host); not fields, so that the tables'
+        # fields stay the JAX package's
+        code = self.type_code
+        self._flags = dict(
+            sphere=bool(((code == SPHERE) | (code == EXTERN_SPH)).any()),
+            extra=self.has_map or bool(
+                ((code == EXTERN_BOX) | (code == PLANE_PARALLEL)).any()),
+            intersect=bool(self.intersect.any()))
+
     @property
     def n_sources(self):
         return self.position.shape[0]
@@ -95,9 +106,18 @@ class SourceTables:
     @property
     def has_sphere(self):
         """Does any row emit from a sphere's surface, outward (a star) or
-        inward (an external sphere)? (reads the device)"""
-        return bool(((self.type_code == SPHERE) |
-                     (self.type_code == EXTERN_SPH)).any())
+        inward (an external sphere)?"""
+        return self._flags['sphere']
+
+    @property
+    def has_extra(self):
+        """Does any row draw from ``u_extra`` (:func:`emit_packets`)?"""
+        return self._flags['extra']
+
+    @property
+    def any_intersect(self):
+        """Can any row re-absorb a photon?"""
+        return self._flags['intersect']
 
     @property
     def has_map(self):
@@ -106,19 +126,6 @@ class SourceTables:
     @property
     def has_lte(self):
         return self.lte.shape[0] > 0
-
-    @property
-    def has_extra(self):
-        """Does any row draw from ``u_extra`` (:func:`emit_packets`)?
-        (reads the device)"""
-        return self.has_map or bool(
-            ((self.type_code == EXTERN_BOX) |
-             (self.type_code == PLANE_PARALLEL)).any())
-
-    @property
-    def any_intersect(self):
-        """Can any row re-absorb a photon? (reads the device)"""
-        return bool(self.intersect.any())
 
 
 def _spectrum_cdf(source, n_grid):
