@@ -35,16 +35,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
    nothing killed, energy_current the photon count, the SED and image
    finite and >= 0, the band-integrated peeled luminosity (sum of nu L_nu
    dln nu) within 2% of L_sun times the 6000 K blackbody's share of 0.3 to
-   1000 um (the box's tau is ~0.015), the imaging wall, steps, ms per step
-   and host reads per step (at most 1.05); both kernels' launch counts are
+   1000 um (the box's tau is ~0.015), the imaging wall, steps, ms per step,
+   its steps run as graph replays with at most IMAGING_READS host
+   synchronisations a step, set-up included (check_imaging); both kernels'
+   launch counts are
    reset just before and read just after, beside the Lucy steps run
    eagerly, captured into CUDA graphs and replayed (check_step_counts).
    Before it, a CUDA graph of torch.rand calls from a registered generator
    draws what the eager calls draw (graph_rand_check); after it, the first
    Lucy iteration runs whole both ways, as the eager step loop and as
    run_lucy_iteration's graph replays (graph_witness: steps, killed, events,
-   n_photons_cell and energy_current equal, energy_sum within RTOL, each
-   way's ms per step);
+   n_photons_cell, energy_current and the generators' states equal,
+   energy_sum within RTOL, each way's ms per step), and so does the imaging
+   iteration, as the eager step loop and as run_final's graph replays
+   (imaging_witness: steps, killed, events, energy_current and the
+   generators' states equal, every cube within RTOL, each way's ms per
+   step, host reads a step, replays and peak memory);
 5. physics on the card in float32: the optically thin inverse-square check
    of tests/test_engine_lucy.py, one iteration of bench.py's quickstart
    configuration, the host synchronisations per step, and the binned-image
@@ -68,9 +74,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the photon count, the SEDs finite and >= 0 and the 80 degree view
    fainter than the 20 degree one at the shortest wavelength; per
    iteration wall, photons/s, steps, ms per step, occupancy, killed_int and
-   host syncs per step (at most 1.05); escape_tau launches per imaging
+   host syncs per step (at most 1.05 a Lucy step, IMAGING_READS an
+   imaging step); escape_tau launches per imaging
    step beside the peel events per step (one launch in each event); the
-   first Lucy iteration's first 300 steps both ways (graph_witness);
+   first Lucy iteration's first 300 steps both ways (graph_witness) and
+   the imaging iteration's first 200 (imaging_witness);
 9. bench.py's yso_thick configuration through transport.lucy.run_lucy as
    bench.py calls it, cut to 1 iteration of 10,000 photons (bench.py: 2
    of 2,000,000; ``--yso-thick-photons N`` runs phases 1, 2 and 9 alone
@@ -79,9 +87,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
 10. escape_tau against its plain version on the very walk calls of
    imaging steps 1-20 and 41-60 (WALK_WINDOWS) of the quickstart
    (cartesian, B = 125,000) and of class2 (spherical-polar, B = 50,000),
-   recorded from imaging_runner.run_imaging: one call per peel event with
-   the event's V views as (V, B) directions (and one per forced first
-   interaction). In each window, the kernel (which walks in float64) with
+   recorded from imaging_runner.run_imaging with its steps driven eagerly
+   (walk_calls; a window that records nothing fails): one call per peel
+   event with the event's V views as (V, B) directions (and one per forced
+   first interaction). In each window, the kernel (which walks in float64) with
    float64 lanes within 1e-10 relative of the float64 plain version on
    every ray, with float32 lanes within 1e-6 relative of it on every ray
    (ESCAPE_TAU_RTOL32 says why) and equal to its own plain version; the
@@ -112,7 +121,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    rows predict (raytrace_table_offset; MONO_N_SIGMA says why) at every
    wavelength, nothing killed, no
    raytraced photon outside the grid or its cell, escape_tau launched in
-   both;
+   both; (a)'s source pass at 0.5 um and its dust pass at 100 um both
+   ways (imaging_witness);
 13. the column mode of escape_tau against its plain version on the very
    column calls of phases 11 (spherical-polar, B = 50,000, 3 views) and 12
    (b) (cartesian, B = 125,000, 1 view), recorded from run_lucy_model:
@@ -135,11 +145,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the 10 degree view's, one escape_tau launch in each peel event, no
    raytraced photon outside the grid or its cell; walls, steps, ms per
    step, occupancy and host reads per stage; the first Lucy iteration's
-   first 200 steps both ways (graph_witness, as in phases 16-18). Then the
-   three kernels against their plain versions on this run's own calls, by
-   the methods of phases 6 (deposit_visit, 80 Lucy calls of
-   graph_witness's eager run), 10 (escape_tau, the
-   WALK_WINDOWS imaging steps) and 13 (escape_column, the raytracing
+   first 200 steps both ways (graph_witness, as in phases 16-18) and the
+   imaging iteration's first 100 (imaging_witness). Then the three
+   kernels against their plain versions on this run's own calls, by the
+   methods of phases 6 (deposit_visit, 80 Lucy calls of graph_witness's
+   eager run), 10 (escape_tau, the WALK_WINDOWS imaging steps of
+   imaging_witness's eager run) and 13 (escape_column, the raytracing
    calls), with their times;
 15. the other sources of ROADMAP.md item 4 on the card in float32: a
    plane-parallel beam through a slab of pure absorbers of tau 1 (escaped
@@ -206,12 +217,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
 phases 1, 2, 14 (with its parts of phases 6, 10 and 13) and 15;
 ``--hierarchical`` phases 1, 2, 16 and 17; ``--voronoi`` phases 1, 2 and
 18; ``--parallel`` phases 1, 2 and 19 (with phase 4, its reference);
-``--graph`` phases 1 and 2, graph_rand_check and graph_witness on the
-models of phases 4, 8, 14 and 16-18, built and run to the start of their
-first Lucy iteration.
+``--graph`` phases 1 and 2, graph_rand_check, and graph_witness and
+imaging_witness on the models of phases 4, 8, 14 and 16-18, built and run
+to the start of their first Lucy iteration (the imaging iteration from a
+zero specific energy), and phase 12's monochromatic source pass.
 
-On the card run_lucy_iteration runs each Lucy iteration as replays of a
-CUDA graph of GRAPH_STEPS steps (hyperion_tpu_torch/transport/engine.py):
+On the card run_lucy_iteration runs each Lucy iteration, run_final the
+imaging iteration and run_mono_pass each monochromatic pass as replays of
+a CUDA graph of GRAPH_STEPS steps (hyperion_tpu_torch/transport/engine.py):
 its first step runs eagerly, the next GRAPH_STEPS are captured, and a
 replay launches the captured kernels again without their wrappers. Each
 kernel's launch count (its wrapper's: a launch captured into a graph
@@ -228,6 +241,7 @@ It needs no network and imports nothing of JAX or of hyperion_tpu.
 """
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -286,10 +300,10 @@ CLASS2_CUT = dict(n_photons=200_000, n_iterations=1, max_steps=2500,
 # the counts of examples/class2_sed.py: 5 iterations of 200,000; at a
 # 2,000-step cap the iteration's fixed host reads came to 1.051 per step,
 # over report_iterations' 1.05) and
-# 50,000 imaging photons capped at 1,500 steps (uncut: 500,000; at 1,250
-# the imaging's fixed host reads, its tables' and the raytracing pass's,
-# came to 1.050 per step, over check_imaging's 1.05); the raytracing
-# photons are RAYTRACING's, uncut. Lanes alive at a cap are killed and
+# 50,000 imaging photons capped at 1,500 steps (uncut: 500,000; its
+# graph-run steps with the tables' fixed reads come to 0.259 host
+# synchronisations a step, under check_imaging's IMAGING_READS); the
+# raytracing photons are RAYTRACING's, uncut. Lanes alive at a cap are killed and
 # counted in killed_int.
 CLASS1_CYL_CUT = dict(n_photons=100_000, n_iterations=1, max_steps=2500,
                       n_imaging=50_000, imaging_max_steps=1500)
@@ -322,7 +336,7 @@ ORION_AMR = dict(level_widths_pc=(0.2, 0.1, 0.05), fab_cells=32,
 # photons in as many lanes (one emission, no refill) capped at 500 steps,
 # and 131,072 imaging photons capped at 500 steps (uncut: 1,000,000
 # photons each; fewer imaging steps would spread its fixed host reads
-# over too few for check_imaging's 1.05 per step).
+# over too few for check_imaging's IMAGING_READS a step: 0.290 at 500).
 # The core is thick: on the H100 a first run of 1,000,000 photons at B =
 # 131,072 had emitted 163,842 of them after 3,000 steps (~2,400 steps a
 # photon; PERF.md), and the caps keep the whole script well inside its
@@ -465,6 +479,9 @@ CLASS2_MONO_WAVELENGTHS = [100.0, 300.0, 1000.0]
 # -1.17%.
 MONO_WAVELENGTHS = [0.5, 1.0, 10.0, 100.0, 1000.0]
 MONO_PHOTONS = 500_000
+# the dust pass that phase 12's witness runs both ways: 100 um's (the
+# box's dust, at tens of K, emits next to nothing at 0.5 um)
+MONO_WITNESS_DUST = 3
 MONO_ANALYTIC_RTOL = 0.02
 MONO_N_SIGMA = 5.0
 # phase 11's monochromatic check: source and dust photons per wavelength
@@ -477,6 +494,16 @@ CLASS2_MONO_PHOTONS = 50_000
 # iteration), and their generator's seed
 GRAPH_WITNESS_STEPS = dict(tutorial=None, class2=300, box=200)
 GRAPH_WITNESS_SEED = 20
+# each geometry's imaging iteration (and the quickstart's monochromatic
+# passes) run both ways too (imaging_witness, in phases 4, 8, 12, 14 and
+# 16-18): the working steps each run takes (None: whole); a box grid's
+# eager run records phase 10's walks of WALK_WINDOWS, so at least 60
+IMAGING_WITNESS_STEPS = dict(tutorial=None, class2=200, box=100)
+# check_imaging's bound on the main path's host synchronisations a working
+# imaging step: the replays of GRAPH_STEPS = 4 steps read the counters once
+# each, and the tables' set-up adds a fixed few (0.254-0.290 a step in all
+# on phases 4, 8, 14 and 16-18's runs, PERF.md)
+IMAGING_READS = 0.3
 # graph_witness's reports by geometry, and check_step_counts' by phase, for
 # results.json and the kernels line
 GRAPH_WITNESS = {}
@@ -1136,8 +1163,14 @@ def check_peels(what, peels, launches, n_steps, forced):
 
 def check_imaging(what, run, n_photons, syncs, card):
     """The imaging row of a run: energy_current the photon count, no
-    geometry kills, at most 1.05 host reads per step, the peeled arrays
-    finite and >= 0. Returns the row with ms per step and reads per step."""
+    geometry kills, at least 90% of the working steps run as replays of
+    CUDA graphs (``engine.imaging_step_counts`` over the run, reset before
+    it), at most IMAGING_READS host synchronisations a working step in all
+    (the reads of the counters and the tables' set-up), the peeled arrays
+    finite and >= 0. Returns the row with ms per step, reads of the
+    counters and synchronisations per step and the step counts."""
+    from hyperion_tpu_torch.transport import engine
+
     img = run.imaging
     rows = [r for r in run.perf.rows if r['label'] == 'imaging']
     if len(rows) != 1 or img is None:
@@ -1146,21 +1179,28 @@ def check_imaging(what, run, n_photons, syncs, card):
     if img.energy_current != n_photons:
         raise AssertionError('%s imaging: energy_current %r'
                              % (what, img.energy_current))
+    counts = dict(engine.imaging_step_counts)
+    reads = counts['reads'] / img.n_steps
     per_step = syncs[-1] / img.n_steps
-    if per_step > 1.05:
-        raise AssertionError('%s imaging: %.3f host reads per step'
-                             % (what, per_step))
+    if per_step > IMAGING_READS or counts['replayed'] < 0.9 * img.n_steps:
+        raise AssertionError('%s imaging: %.3f host synchronisations, %.3f '
+                             'reads of the counters per step; step counts %s'
+                             % (what, per_step, reads, counts))
     for g in img.peeled:
         for name, (data, _) in g['datasets'].items():
             if not np.isfinite(data).all() or (data < 0).any():
                 raise AssertionError('%s imaging: %s not finite and >= 0'
                                      % (what, name))
     row.update(ms_per_step=img.wall * 1e3 / img.n_steps,
-               host_reads_per_step=per_step,
+               host_reads_per_step=reads, host_syncs_per_step=per_step,
+               step_counts=counts,
                occupancy=img.n_events / (img.n_steps * img.batch_size))
-    phase('%s imaging: %d photons in %.3f s, %d steps, %.3f ms per step, '
-          '%.3f host reads per step, occupancy %.4f, killed_int %d [%s]'
-          % (what, n_photons, img.wall, img.n_steps, row['ms_per_step'],
+    phase('%s imaging: %d photons in %.3f s, %d steps (%d replays of %d, %d '
+          'eager), %.3f ms per step, %.3f host reads of the counters and '
+          '%.3f host synchronisations per step, occupancy %.4f, killed_int '
+          '%d [%s]'
+          % (what, n_photons, img.wall, img.n_steps, counts['replays'],
+             engine.GRAPH_STEPS, counts['eager'], row['ms_per_step'], reads,
              per_step, row['occupancy'], img.killed_int, card))
     return row
 
@@ -1231,7 +1271,7 @@ def run_slice(dv, et, card):
     engine.reset_step_counts()
     t0 = time.time()
     with imaging_syncs() as syncs, peel_events(et) as peels, \
-            first_lucy_iteration() as first:
+            first_lucy_iteration() as first, first_imaging() as fimg:
         run = run_lucy_model(m, device='cuda')
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -1289,6 +1329,8 @@ def run_slice(dv, et, card):
           '%d over %d steps [%s]'
           % (wall, temp[dusty].min(), temp.max(), launches, steps, card))
     graph_witness('tutorial', first, GRAPH_WITNESS_STEPS['tutorial'], card)
+    imaging_witness('tutorial', fimg, IMAGING_WITNESS_STEPS['tutorial'],
+                    card)
     ref = dict(temperature=temp, se1=run.iterations[0]['specific_energy'],
                dusty=dusty)
     return launches, launches_et, [dict(row) for row in run.perf.rows[:4]], \
@@ -1487,30 +1529,51 @@ class _FirstIteration(Exception):
 
 
 @contextlib.contextmanager
-def first_lucy_iteration(stop=False):
-    """Record the arguments of the first Lucy iteration
-    (``lucy.run_lucy_iteration``) run inside the block; yields a dict that
-    gets them as 'args' (a list) and 'kw'. With ``stop`` the run inside
-    the block ends there, before the iteration."""
-    from hyperion_tpu_torch.transport import lucy
-
+def first_call(module, name, stop=False, want=None):
+    """Record the arguments of the first call of ``module.name`` made
+    inside the block (of those whose keywords ``want`` accepts, if given);
+    yields a dict that gets them as 'args' (a list) and 'kw'. With
+    ``stop`` the run inside the block ends there, before the call."""
     rec = {}
-    inner = lucy.run_lucy_iteration
+    inner = getattr(module, name)
 
     def recorded(*args, **kw):
-        if not rec:
+        if not rec and (want is None or want(kw)):
             rec.update(args=list(args), kw=dict(kw))
-        if stop:
-            raise _FirstIteration
+            if stop:
+                raise _FirstIteration
         return inner(*args, **kw)
 
-    lucy.run_lucy_iteration = recorded
+    setattr(module, name, recorded)
     try:
         yield rec
     except _FirstIteration:
         pass
     finally:
-        lucy.run_lucy_iteration = inner
+        setattr(module, name, inner)
+
+
+def first_lucy_iteration(stop=False):
+    """Record the arguments of the first Lucy iteration
+    (``lucy.run_lucy_iteration``) run inside the block (:func:`first_call`)."""
+    from hyperion_tpu_torch.transport import lucy
+    return first_call(lucy, 'run_lucy_iteration', stop)
+
+
+def first_imaging(stop=False):
+    """Record the arguments of the imaging iteration
+    (``imaging.run_final``) run inside the block (:func:`first_call`)."""
+    from hyperion_tpu_torch.transport import imaging
+    return first_call(imaging, 'run_final', stop)
+
+
+def first_mono_pass(mode, f_id=0, stop=False):
+    """Record the arguments of the monochromatic pass of ``mode`` ('source'
+    or 'dust', ``mono.run_mono_pass``) at the frequency index ``f_id`` run
+    inside the block (:func:`first_call`)."""
+    from hyperion_tpu_torch.transport import mono
+    return first_call(mono, 'run_mono_pass', stop,
+                      want=lambda kw: (kw['mode'], kw['f_id']) == (mode, f_id))
 
 
 def first_iteration_args(model, batch_size=None):
@@ -1571,6 +1634,31 @@ def graph_rand_check(card, shape=(27, 125_000), k=2, replays=3):
                 state_equal=same_state, redraw_equal=redraw)
 
 
+def both_ways(run, counts):
+    """``run(how, generator)`` for how 'graph' and 'eager', each from a
+    generator on the card seeded GRAPH_WITNESS_SEED, the iteration's step
+    counts (``counts``, an ``engine`` dict) reset before: {how: (its
+    output, wall seconds, a copy of the counts, the generator's state
+    after)}; the graph run first, its peak device memory (bytes) under
+    'graph_memory'."""
+    import torch
+    from hyperion_tpu_torch.transport import engine
+
+    runs = {}
+    for how in ('graph', 'eager'):
+        gen = torch.Generator(device='cuda').manual_seed(GRAPH_WITNESS_SEED)
+        engine.reset_step_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = run(how, gen)
+        torch.cuda.synchronize()
+        runs[how] = (out, time.time() - t0, dict(counts), gen.get_state())
+        if how == 'graph':
+            runs['graph_memory'] = torch.cuda.max_memory_allocated()
+    return runs
+
+
 def graph_witness(what, first, max_steps, card, recorder=None,
                   wrap_step=None):
     """The main path's first Lucy iteration (``first``: its recorded
@@ -1578,12 +1666,13 @@ def graph_witness(what, first, max_steps, card, recorder=None,
     ``max_steps`` working steps (None: the whole iteration): as the eager
     step loop (``engine.drive_steps``, a read of the counters after each
     step) and as run_lucy_iteration runs it (replays of one CUDA graph of
-    GRAPH_STEPS steps, a read after each). Steps, killed_int, killed_geo,
-    events, n_photons_cell and energy_current must be equal, energy_sum
-    and the spectrum bins within RTOL (deposit_visit's float atomics add
-    in another order). ``recorder``: a context manager factory around the
-    eager run (the kernels' recorders), ``wrap_step`` wraps its step.
-    Returns (report, what the recorder yielded)."""
+    GRAPH_STEPS steps, a read after each) (:func:`both_ways`). Steps,
+    killed_int, killed_geo, events, n_photons_cell, energy_current and the
+    generators' states must be equal, energy_sum and the spectrum bins
+    within RTOL (deposit_visit's float atomics add in another order).
+    ``recorder``: a context manager factory around the eager run (the
+    kernels' recorders), ``wrap_step`` wraps its step. Returns (report,
+    what the recorder yielded)."""
     import torch
     from hyperion_tpu_torch.transport import engine
 
@@ -1591,33 +1680,30 @@ def graph_witness(what, first, max_steps, card, recorder=None,
     if max_steps is not None:
         args[9] = dict(args[9], max_steps=max_steps)
     cap = int(args[9]['max_steps'])
-    runs, recorded = {}, None
-    for how in ('graph', 'eager'):
-        gen = args[6] = torch.Generator(device='cuda').manual_seed(
-            GRAPH_WITNESS_SEED)
-        engine.reset_step_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
+    recorded = []
+
+    def run(how, gen):
+        args[6] = gen
         if how == 'graph':
-            out = engine.run_lucy_iteration(*args, **kw)
-        else:
-            carry, step = engine.start_lucy_iteration(*args[:6], *args[7:],
-                                                      **kw)
-            with (recorder() if recorder else
-                  contextlib.nullcontext()) as recorded:
-                _, n = engine.drive_steps(
-                    carry, wrap_step(step) if wrap_step else step, gen, cap)
-            out = engine.finish_lucy_iteration(carry, n)
-        torch.cuda.synchronize()
-        runs[how] = (out, time.time() - t0, dict(engine.step_counts))
-    (e, e_wall, e_counts), (g, g_wall, g_counts) = runs['eager'], \
-        runs['graph']
+            return engine.run_lucy_iteration(*args, **kw)
+        carry, step = engine.start_lucy_iteration(*args[:6], *args[7:], **kw)
+        with (recorder() if recorder else
+              contextlib.nullcontext()) as rec:
+            _, n = engine.drive_steps(
+                carry, wrap_step(step) if wrap_step else step, gen, cap)
+        recorded.append(rec)
+        return engine.finish_lucy_iteration(carry, n)
+
+    runs = both_ways(run, engine.step_counts)
+    (e, e_wall, e_counts, e_gen), (g, g_wall, g_counts, g_gen) = \
+        runs['eager'], runs['graph']
     equal = dict(n_steps=e[5] == g[5],
                  n_photons_cell=bool(torch.equal(e[2], g[2])),
                  killed_int=int(e[3]) == int(g[3]),
                  killed_geo=int(e[4]) == int(g[4]),
                  n_events=int(e[7]) == int(g[7]),
-                 energy_current=float(e[1]) == float(g[1]))
+                 energy_current=float(e[1]) == float(g[1]),
+                 generator=bool(torch.equal(e_gen, g_gen)))
     errs = []
     for a, b in ((g[0], e[0]), (g[6], e[6])):
         err = (a.double() - b.double()).abs()
@@ -1634,7 +1720,8 @@ def graph_witness(what, first, max_steps, card, recorder=None,
         graph_ms_per_step=g_wall * 1e3 / steps,
         speedup=e_wall / g_wall, graph_steps=engine.GRAPH_STEPS,
         graph_counts=g_counts, eager_reads_per_step=e_counts['reads'] / steps,
-        graph_reads_per_step=g_counts['reads'] / steps)
+        graph_reads_per_step=g_counts['reads'] / steps,
+        graph_max_memory_gb=runs['graph_memory'] / 1e9)
     GRAPH_WITNESS[what] = rep
     phase('%s Lucy iteration 1 (%s, B=%d) both ways: graph of %d steps '
           '(%d replays, %d eager steps) against the eager step loop, %d '
@@ -1653,7 +1740,124 @@ def graph_witness(what, first, max_steps, card, recorder=None,
     if not all(equal.values()) or not g_counts['replays']:
         raise AssertionError('%s: the graph run differs from the eager one: '
                              '%s' % (what, rep))
-    return rep, recorded
+    return rep, recorded[0]
+
+
+def stokes_rel_err(got, ref):
+    """max |got - ref| over the Stokes I of ref's bin (the cube's last
+    axis), 0 where both are 0 (inf where only ``got`` is): a float sum
+    added in another order moves by ~eps times the sum of its terms' sizes,
+    and |Q|, |U|, |V| <= I."""
+    got, ref = got.double(), ref.double()
+    i = ref[..., :1].abs()
+    err = (got - ref).abs()
+    if bool((err[(i == 0).expand_as(err)] > 0).any()):
+        return float('inf')
+    return float((err / i.clamp_min(1e-300)).max()) if err.numel() else 0.0
+
+
+def _imaging_kind():
+    """The imaging iteration's (run, start, finish, counts, outputs): the
+    outputs of a FinalResult (cubes, then energy_current, killed_int,
+    n_steps, n_events)."""
+    from hyperion_tpu_torch.transport import engine, imaging
+    return (imaging.run_final, imaging.start_final, imaging.finish_final,
+            engine.imaging_step_counts,
+            lambda r: ([a for a in r.accums + [r.binned_acc] if a],
+                       (r.energy_current, r.killed_int, r.n_steps,
+                        r.n_events)))
+
+
+def _mono_kind():
+    """A monochromatic pass's, as :func:`_imaging_kind` (its counts:
+    killed_int, n_steps, n_events)."""
+    from hyperion_tpu_torch.transport import engine, mono
+    return (mono.run_mono_pass, mono.start_mono_pass, mono.finish_mono_pass,
+            engine.mono_step_counts,
+            lambda r: (list(r[0]), tuple(r[1:])))
+
+
+IMAGING_WITNESS = {}
+
+
+def imaging_witness(what, rec, max_steps, card, mono=False, recorder=None):
+    """The main path's imaging iteration (or with ``mono`` a monochromatic
+    pass; ``rec``: its recorded arguments) run twice on the card from one
+    generator seed (:func:`both_ways`), cut at ``max_steps`` working steps
+    (None: whole): as the eager step loop (``engine.drive_steps``, inside
+    ``recorder()`` if given) and as run_final (run_mono_pass) runs it,
+    replays of one CUDA graph of GRAPH_STEPS steps. Working steps,
+    killed_int, events, energy_current and the generators' states must be
+    equal, every cube (each group's sums, squares and counts, the binned
+    group's) within RTOL of the eager run's on every bin, Q, U and V
+    against the bin's I (:func:`stokes_rel_err`; ``index_add_``'s float
+    atomics add in another order). Reports ms a step both ways, the graph
+    run's host reads a step, replays and peak device memory. Returns
+    (report, what the recorder yielded)."""
+    import torch
+    from hyperion_tpu_torch.transport import engine
+
+    run_it, start, finish, counts, outputs = \
+        _mono_kind() if mono else _imaging_kind()
+    args, kw = list(rec['args']), dict(rec['kw'])
+    if max_steps is not None:
+        kw['max_steps'] = max_steps
+    cap = kw.pop('max_steps', 100000000)
+    recorded = []
+
+    def run(how, gen):
+        args[6] = gen
+        if how == 'graph':
+            return run_it(*args, max_steps=cap, **kw)
+        with (recorder() if recorder else
+              contextlib.nullcontext()) as got:
+            carry, step = start(*args[:6], *args[7:], **kw)
+            _, n = engine.drive_steps(carry, step, gen, cap)
+        recorded.append(got)
+        return finish(carry, n)
+
+    runs = both_ways(run, counts)
+    (e, e_wall, e_counts, e_gen), (g, g_wall, g_counts, g_gen) = \
+        runs['eager'], runs['graph']
+    (e_cubes, e_nums), (g_cubes, g_nums) = outputs(e), outputs(g)
+    errs = {}
+    for i, (a, b) in enumerate(zip(g_cubes, e_cubes)):
+        ca, cb = a.cubes(), b.cubes()
+        for name in ca:
+            errs['%d.%s' % (i, name)] = stokes_rel_err(ca[name], cb[name])
+    equal = dict(counts=g_nums == e_nums, cubes=len(g_cubes) == len(e_cubes)
+                 and max(errs.values()) <= RTOL,
+                 generator=bool(torch.equal(e_gen, g_gen)))
+    if not e_nums[-1]:
+        raise AssertionError('%s: no event in the witness run' % what)
+    steps = e_nums[-2]
+    rep = dict(
+        steps=steps, cap=cap, counts=e_nums, lanes=int(kw['batch_size']),
+        equal=equal, cube_max_rel_err=max(errs.values()),
+        eager_ms_per_step=e_wall * 1e3 / steps,
+        graph_ms_per_step=g_wall * 1e3 / steps, speedup=e_wall / g_wall,
+        graph_steps=engine.GRAPH_STEPS, graph_counts=g_counts,
+        eager_counts=e_counts,
+        graph_reads_per_step=g_counts['reads'] / steps,
+        graph_max_memory_gb=runs['graph_memory'] / 1e9)
+    IMAGING_WITNESS[what] = rep
+    phase('%s %s (%s, B=%d) both ways: graph of %d steps (%d replays, %d '
+          'eager steps) against the eager step loop, %d working steps both, '
+          'counts %s; equal: %s; cubes max rel err %.3g; eager %.3f ms per '
+          'step, graph %.3f ms per step (%.4f reads per step, %.3f GB peak), '
+          '%.2fx [%s]'
+          % (what, 'monochromatic pass' if mono else 'imaging iteration',
+             'whole' if max_steps is None else 'first %d steps' % max_steps,
+             rep['lanes'], engine.GRAPH_STEPS, g_counts['replays'],
+             g_counts['eager'], steps, e_nums,
+             ', '.join(k for k, v in equal.items() if v),
+             rep['cube_max_rel_err'], rep['eager_ms_per_step'],
+             rep['graph_ms_per_step'], rep['graph_reads_per_step'],
+             rep['graph_max_memory_gb'], rep['speedup'], card))
+    if not all(equal.values()) or not g_counts['replays']:
+        raise AssertionError('%s: the graph run differs from the eager one: '
+                             '%s, errors %s' % (what, rep, errs))
+    return rep, recorded[0]
 
 
 def report_iterations(what, rows, syncs, n_photons, card):
@@ -1843,7 +2047,8 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
     engine.reset_step_counts()
     t0 = time.time()
     with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
-            peel_events(et) as peels, first_lucy_iteration() as first:
+            peel_events(et) as peels, first_lucy_iteration() as first, \
+            first_imaging() as fimg:
         run = run_lucy_model(m, device='cuda', max_steps=max_steps,
                              imaging_max_steps=imaging_max_steps)
     torch.cuda.synchronize()
@@ -1886,6 +2091,7 @@ def class2_phase(dv, et, card, n_photons, n_iterations, max_steps,
              temp[dusty].min(), temp.max(), run.result.killed_int, launches,
              steps, card))
     graph_witness('class2', first, GRAPH_WITNESS_STEPS['class2'], card)
+    imaging_witness('class2', fimg, IMAGING_WITNESS_STEPS['class2'], card)
     data = run.imaging.peeled[0]['datasets']
     return launches, launches_et, dict(
         photons=n_photons, max_steps=max_steps, wall_s=wall,
@@ -1970,36 +2176,47 @@ def walk_calls(windows):
     """Record the escape_tau calls of the imaging steps in each window
     (first, last) of step indices, counted from 0, made inside the block:
     yields {window: calls}, each call the list of its nine lane tensors and
-    t_max (cloned)."""
+    t_max (cloned). Inside the block run_final drives its steps eagerly
+    (``engine.drive_steps``: a captured call's lanes are the graph's,
+    which each replay writes anew), and a window that records no call
+    fails the block."""
+    from hyperion_tpu_torch.transport import engine
     from hyperion_tpu_torch.transport import escape_tau as et
     from hyperion_tpu_torch.transport import imaging
 
     calls = {w: [] for w in windows}
     at = [0]          # the index of the step that runs
-    inner_call, inner_make = et.EscapeTau.__call__, imaging.make_final_step
+    inner = (et.EscapeTau.__call__, imaging.make_final_step,
+             imaging.drive_graph)
 
     def recording(self, *args, t_max=None):
         for (first, last), rec in calls.items():
             if first <= at[0] < last:
                 rec.append([a.clone() for a in args] +
                            [None if t_max is None else t_max.clone()])
-        return inner_call(self, *args, t_max=t_max)
+        return inner[0](self, *args, t_max=t_max)
 
     def counting(*args, **kw):
-        step = inner_make(*args, **kw)
+        step = inner[1](*args, **kw)
 
+        @functools.wraps(step)
         def counted(carry, generator):
-            at[0] = carry.n_steps
+            at[0] = int(carry.n_steps)
             step(carry, generator)
         return counted
 
     et.EscapeTau.__call__ = recording
     imaging.make_final_step = counting
+    imaging.drive_graph = engine.drive_steps
     try:
         yield calls
     finally:
-        et.EscapeTau.__call__ = inner_call
-        imaging.make_final_step = inner_make
+        et.EscapeTau.__call__, imaging.make_final_step, \
+            imaging.drive_graph = inner
+    empty = [w for w, rec in calls.items() if not rec]
+    if empty:
+        raise AssertionError('no escape_tau call recorded in the imaging '
+                             'steps %s' % empty)
 
 
 def record_walks(model, batch, windows):
@@ -2532,8 +2749,9 @@ def mono_model(se, raytracing):
     """examples/quickstart.py (tutorial_model) in monochromatic mode at
     MONO_WAVELENGTHS, its peeled group taking all of them (index range 0 to
     4) with uncertainties, ``se`` (phase 4's specific energy) given to the
-    grid, MONO_PHOTONS source and dust photons per wavelength, with or
-    without raytracing (RAYTRACING's photons)."""
+    grid (None: no specific energy and no Lucy iteration), MONO_PHOTONS
+    source and dust photons per wavelength, with or without raytracing
+    (RAYTRACING's photons)."""
     m = tutorial_model()
     m.set_monochromatic(True, wavelengths=MONO_WAVELENGTHS)
     group = m.peeled_output[0]
@@ -2543,7 +2761,10 @@ def mono_model(se, raytracing):
     m.set_n_photons(initial=500_000, imaging_sources=MONO_PHOTONS,
                     imaging_dust=MONO_PHOTONS,
                     **(RAYTRACING if raytracing else {}))
-    _given_specific_energy(m, se)
+    if se is None:
+        m.set_n_initial_iterations(0)
+    else:
+        _given_specific_energy(m, se)
     return m
 
 
@@ -2567,7 +2788,8 @@ def mono_phase(et, card, se):
         et.launches = 0
         et.column_launches = 0
         t0 = time.time()
-        with column_calls() as calls:
+        with column_calls() as calls, first_mono_pass('source') as src, \
+                first_mono_pass('dust', MONO_WITNESS_DUST) as dust:
             run = run_lucy_model(m, device='cuda')
         torch.cuda.synchronize()
         wall = time.time() - t0
@@ -2582,6 +2804,8 @@ def mono_phase(et, card, se):
         runs[name] = (data['seds'][0][0, 0, 0, 0],
                       data['seds_unc'][0][0, 0, 0, 0],
                       data['frequencies'][0]['nu'], calls)
+        if not ray:
+            passes = dict(source=src, dust=dust)
         out[name] = dict(wall_s=wall, imaging_wall_s=img.wall,
                          steps=img.n_steps, killed_int=img.killed_int,
                          batch=img.batch_size,
@@ -2629,6 +2853,11 @@ def mono_phase(et, card, se):
     if (np.abs(ratio[:2] - 1.0) > MONO_ANALYTIC_RTOL).any() or \
             n_sig.max() > MONO_N_SIGMA:
         raise AssertionError('mono: %s' % out)
+    # (a)'s source pass at 0.5 um and dust pass at 100 um, graph against
+    # eager
+    for mode, rec in passes.items():
+        out['witness_' + mode] = imaging_witness(
+            'mono %s' % mode, rec, None, card, mono=True)[0]
     return (launches['a'][0], launches['b'][0]), launches['b'][1], out, calls
 
 
@@ -3597,18 +3826,20 @@ def mrw_jumps():
 @contextlib.contextmanager
 def forced_weights():
     """Check the forced first interaction's energy factors
-    (``imaging.sample_first_interaction``'s second result) on the device;
-    yields a list that gets, per call, whether all of them are finite and
-    > 0."""
+    (``imaging.sample_first_interaction``'s second result) on the device,
+    where a graph's replays check theirs too; yields a dict of 'calls' (the
+    calls made eagerly or captured) and 'ok', a () bool tensor on the card
+    that stays true while every factor is finite and > 0."""
     import torch
     from hyperion_tpu_torch.transport import imaging
 
-    seen = []
+    seen = dict(calls=0, ok=torch.ones((), dtype=torch.bool, device='cuda'))
     inner = imaging.sample_first_interaction
 
     def recorded(*args, **kw):
         tau, w = inner(*args, **kw)
-        seen.append((torch.isfinite(w) & (w > 0)).all())
+        seen['ok'].logical_and_((torch.isfinite(w) & (w > 0)).all())
+        seen['calls'] += 1
         return tau, w
 
     imaging.sample_first_interaction = recorded
@@ -3622,33 +3853,39 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
                  max_steps, imaging_max_steps, mrw=False, batch_size=None,
                  more_kernels=None, wrap_step=None):
     """Run a config on the card through run_lucy_model with the recorders
-    of phases 6, 10 and 13 and the launch counts reset just before; the
+    of phase 13 and the launch and step counts reset just before; the
     shared checks: killed_geo 0 in every iteration, energy_current the
     photons emitted, temperatures finite and > 0 in dusty cells, killed_int
     only at the step caps (the share killed there reported), the SEDs and
-    images finite and >= 0, one escape_tau launch in each peel event
+    images finite and >= 0, the imaging steps run as graph replays
+    (:func:`check_imaging`), one escape_tau launch in each peel event
     (:func:`check_peels`), no raytraced photon outside the grid or its
     cell, each kernel launched; the first Lucy iteration's first
-    GRAPH_WITNESS_STEPS['box'] steps run both ways (:func:`graph_witness`);
-    then each kernel against its plain version on this run's own calls
-    (deposit_visit on the calls of that eager run, whose step
-    ``wrap_step`` wraps). ``more_kernels``: {name: module} of other
+    GRAPH_WITNESS_STEPS['box'] steps run both ways (:func:`graph_witness`)
+    and the imaging iteration's first IMAGING_WITNESS_STEPS['box']
+    (:func:`imaging_witness`); then each kernel against its plain version
+    on this run's own calls (deposit_visit on the calls of the Lucy
+    witness's eager run, whose step ``wrap_step`` wraps, escape_tau on
+    the WALK_WINDOWS steps of the imaging witness's eager run).
+    ``more_kernels``: {name: module} of other
     kernels whose ``launches`` count is reset and read with these. Returns
     ({kernel: launches}, run, report)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
     from hyperion_tpu_torch.model.run import (_density_array,
                                               build_geometry_tables)
+    from hyperion_tpu_torch.transport import engine
 
     dev = torch.device('cuda')
     more_kernels = more_kernels or {}
     for mod in more_kernels.values():
         mod.launches = 0
     dv.launches = et.launches = et.column_launches = 0
+    engine.reset_step_counts()
     t0 = time.time()
     with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
             peel_events(et) as peels, first_lucy_iteration() as first, \
-            walk_calls(WALK_WINDOWS) as wcalls, column_calls() as ccalls, \
+            first_imaging() as fimg, column_calls() as ccalls, \
             mrw_jumps() as jumps:
         run = run_lucy_model(model, device='cuda', batch_size=batch_size,
                              max_steps=max_steps,
@@ -3727,6 +3964,9 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     out['graph_witness'], dcalls = graph_witness(
         what, first, GRAPH_WITNESS_STEPS['box'], card,
         recorder=lambda: deposit_calls(dv, 40, 120), wrap_step=wrap_step)
+    out['imaging_witness'], wcalls = imaging_witness(
+        what, fimg, IMAGING_WITNESS_STEPS['box'], card,
+        recorder=lambda: walk_calls(WALK_WINDOWS))
     n_dust, n_cells = run.density0.shape
     err = check_calls(dv, dcalls, n_dust, n_cells, dev, '%s calls' % what)
     t = time_calls(dv, dcalls, n_dust, n_cells, dev)
@@ -3843,12 +4083,11 @@ def orion_amr_phase(dv, et, card, n_photons, n_iterations, max_steps,
         launches, run, out = box_grid_run(
             'orion_amr', 'amr', dv, et, card, m, n_photons, n_imaging,
             max_steps, imaging_max_steps, mrw=True, batch_size=batch_size)
-    finite = bool(torch.stack(weights).all()) if weights else False
-    if not finite:
+    if not weights['calls'] or not bool(weights['ok']):
         raise AssertionError('orion_amr: forced first interaction weights '
-                             'not finite (%d calls)' % len(weights))
+                             'not finite (%d calls)' % weights['calls'])
     out.update(model_build_s=build_s, import_=info,
-               forced_weight_calls=len(weights),
+               forced_weight_calls=weights['calls'],
                cut=dict(out['cut'], n_iterations=n_iterations,
                         batch_size=batch_size))
     return launches, out
@@ -3942,6 +4181,7 @@ def locate_calls(first, last):
     def wrap(step):
         n = [0]
 
+        @functools.wraps(step)
         def counted(carry, generator):
             if first <= n[0] < last:
                 state['where'] = 'lucy'
@@ -3950,7 +4190,6 @@ def locate_calls(first, last):
                 step(carry, generator)
             finally:
                 state['where'] = None
-        counted.draw = step.draw
         return counted
 
     def dust(*args, **kw):
@@ -4628,7 +4867,10 @@ def parallel_phase(card, ref):
 def graph_phase(card):
     """``--graph``: each geometry's first Lucy iteration both ways
     (:func:`graph_witness`) on the models of phases 4, 8, 14, 16, 17 and
-    18, built here and run only up to their first iteration's start."""
+    18, built here and run only up to their first iteration's start; then
+    each one's imaging iteration both ways (:func:`imaging_witness`) from
+    a zero specific energy, and phase 12's monochromatic source pass (no
+    specific energy, so no dust pass)."""
     models = [('tutorial', lambda: tutorial_model(), None, 'tutorial'),
               ('class2', lambda: class2_model(
                   CLASS2_CUT['n_photons'], 1, CLASS2_CUT['n_imaging']), None,
@@ -4645,11 +4887,21 @@ def graph_phase(card):
               ('voronoi_cloud', lambda: voronoi_cloud_model(
                   VORONOI_CLOUD['n_sites'], VORONOI_CUT['n_photons'], 1,
                   VORONOI_CUT['n_imaging'])[0], None, 'box')]
+    from hyperion_tpu_torch.model import run_lucy_model
     for what, make, batch, cut in models:
         t0 = time.time()
-        first = first_iteration_args(make(), batch_size=batch)
+        model = make()
+        first = first_iteration_args(model, batch_size=batch)
         phase('%s: model and tables in %.1f s' % (what, time.time() - t0))
         graph_witness(what, first, GRAPH_WITNESS_STEPS[cut], card)
+        # the imaging iteration from a zero specific energy
+        model.set_n_initial_iterations(0)
+        with first_imaging(stop=True) as rec:
+            run_lucy_model(model, device='cuda', batch_size=batch)
+        imaging_witness(what, rec, IMAGING_WITNESS_STEPS[cut], card)
+    with first_mono_pass('source', stop=True) as rec:
+        run_lucy_model(mono_model(None, False), device='cuda')
+    imaging_witness('mono source', rec, None, card, mono=True)
 
 
 def main():
@@ -4827,12 +5079,15 @@ def main():
         record['graph_rand'] = graph_rand_check(card)
         graph_phase(card)
         record['graph_witness'] = GRAPH_WITNESS
+        record['imaging_witness'] = IMAGING_WITNESS
         (OUT / 'graph.json').write_text(json.dumps(record, indent=1,
                                                    default=_jsonable))
-        print(json.dumps({'graph_witness': {
+        print(json.dumps({name: {
             k: {f: v[f] for f in ('steps', 'eager_ms_per_step',
                                   'graph_ms_per_step', 'speedup')}
-            for k, v in GRAPH_WITNESS.items()}}), flush=True)
+            for k, v in reps.items()} for name, reps in (
+                ('graph_witness', GRAPH_WITNESS),
+                ('imaging_witness', IMAGING_WITNESS))}), flush=True)
         print(result_line, flush=True)
         return 0
 
@@ -4960,6 +5215,7 @@ def main():
 
     record['launches'] = launches
     record['graph_witness'] = GRAPH_WITNESS
+    record['imaging_witness'] = IMAGING_WITNESS
     record['step_counts'] = STEP_COUNTS
     record['wall_s'] = time.time() - t_start
     (OUT / 'results.json').write_text(json.dumps(record, indent=1,

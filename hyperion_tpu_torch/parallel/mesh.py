@@ -276,8 +276,8 @@ def run_lucy_iteration_sharded(group, geometry, dt, st, density, jnu_var_id,
 
 
 def _reduce_accums(group, accums):
-    """Sum each :class:`~..transport.imaging.PeelAccum`'s six cubes (their
-    sink slots too) over the group, in place of the rank's own."""
+    """Sum each :class:`~..transport.imaging.PeelAccum`'s six cubes over
+    the group, in place of the rank's own."""
     names = [n + s for n in ('sed', 'img') for s in ('', '2', 'n')]
     flat = [getattr(a, n) for a in accums for n in names]
     red = iter(all_reduce(group, flat))

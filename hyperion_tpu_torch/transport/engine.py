@@ -25,6 +25,7 @@ place their photons in the grid's cells, and a map with an LTE spectrum
 draws its frequencies from the dust emissivity there (``se_rho``, the
 specific energy times the density of the previous iteration)."""
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -52,23 +53,50 @@ from .stable import (emit_extra_rows, emit_packets,
 N_UNIFORMS = 27
 U_EM_EXTRA = N_UNIFORMS
 
-# the Lucy steps that one CUDA graph holds: a replay runs this many steps,
-# and the host reads the iteration's counters once after it. Picked on an
-# H100 from 4 to 64 (PERF.md): a capture costs more than K times a step's
-# host time, an iteration captures anew, and larger graphs replayed no
-# faster
+# the steps that one CUDA graph holds, for the Lucy, imaging and
+# monochromatic iterations alike: a replay runs this many steps, and the
+# host reads the iteration's counters once after it. Picked on an H100
+# from 4 to 64 for the Lucy step (PERF.md): a capture costs more than K
+# times a step's host time, an iteration captures anew, and larger graphs
+# replayed no faster
 GRAPH_STEPS = 4
 
-# how this process ran its Lucy steps since the last reset: steps run
-# eagerly, steps captured into graphs, graph replays and the steps they
-# ran, and host reads of the counters (chip_smoke.py and
-# scripts/profile_step.py read them)
+# how this process ran each iteration's steps since the last reset, one
+# dict an iteration (a step's ``counts``): steps run eagerly, steps
+# captured into graphs, graph replays and the steps they ran, and host
+# reads of the counters (chip_smoke.py and scripts/profile_step.py read
+# them); ``step_counts`` is the Lucy iteration's
 step_counts = dict(eager=0, captured=0, replays=0, replayed=0, reads=0)
+imaging_step_counts = dict(step_counts)
+mono_step_counts = dict(step_counts)
+
+# the () int64 device counters of an iteration's carry that the drivers
+# read: photons left to emit, alive lanes, photons waiting for re-emission
+# and working steps
+COUNTERS = ('budget', 'n_alive', 'n_pending', 'n_steps')
 
 
 def reset_step_counts():
-    for k in step_counts:
-        step_counts[k] = 0
+    for counts in (step_counts, imaging_step_counts, mono_step_counts):
+        for k in counts:
+            counts[k] = 0
+
+
+def own_carry(carry):
+    """Give a carry of the imaging or monochromatic step its own copy of
+    its lanes (the step writes them in place: lanes that share memory with
+    the caller's arrays, as ``torch.as_tensor`` of a numpy array does, are
+    left as they were), and make each of its COUNTERS a () int64 tensor on
+    the lanes' device (a host int given for one becomes one)."""
+    p = carry.packets
+    carry.packets = dataclasses.replace(p, **{
+        f.name: getattr(p, f.name).clone() for f in dataclasses.fields(p)})
+    for name in COUNTERS:
+        value = getattr(carry, name)
+        if not isinstance(value, torch.Tensor):
+            setattr(carry, name, torch.full((), int(value),
+                                            dtype=torch.int64,
+                                            device=p.x.device))
 
 
 @dataclass
@@ -258,8 +286,9 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
     """The step of one Lucy iteration: ``step(carry, generator)`` advances
     the carry by one step, in place, reading nothing on the host (so that
     a CUDA graph can hold it); ``step.draw(carry, generator)`` draws one
-    step's uniforms, as the step does, and ``step.refill(carry, u, gate)``
-    is its refill (scripts/profile_step.py times it masked off).
+    step's uniforms, as the step does, ``step.refill(carry, u, gate)`` is
+    its refill (scripts/profile_step.py times it masked off) and
+    ``step.counts`` the dict the drivers count its steps in.
 
     density, jnu_var_id/frac: (n_dust, n_cells), the emissivity locator
     from the previous iteration's specific energy (ref precompute_jnu_var,
@@ -341,13 +370,7 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
         chi_n, kappa_n, alb_n = update_optical_constants(dt, new['nu'])
 
         def m(old, new_, mask=can):
-            """Write ``new_`` (a tensor or a number) into the lane tensor
-            ``old`` where ``mask``."""
-            mask = mask if old.dim() == 1 else mask[:, None]
-            if isinstance(new_, torch.Tensor):
-                torch.where(mask, new_, old, out=old)
-            else:
-                old.masked_fill_(mask, new_)
+            put_where(old, new_, mask)
 
         # fresh photons take ids from the consumed-budget counter; int32
         # holds them (run_lucy caps the budget below 2**31 - 1)
@@ -579,7 +602,18 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
 
     step.draw = draw
     step.refill = refill
+    step.counts = step_counts
     return step
+
+
+def put_where(lane, value, mask):
+    """Write ``value`` (a tensor or a number) into the lane tensor ``lane``
+    ((B,) or (B, n)) where the (B,) ``mask`` holds, in place."""
+    mask = mask if lane.dim() == 1 else mask[:, None]
+    if isinstance(value, torch.Tensor):
+        torch.where(mask, value, lane, out=lane)
+    else:
+        lane.masked_fill_(mask, value)
 
 
 def put(packets, **fields):
@@ -625,43 +659,46 @@ def _init_lucy_carry(dt, density, n_photons, batch_size, n_bins=0):
         n_events=zeros(dtype=torch.int64))
 
 
-def read_counts(carry):
-    """The host's one read of the iteration's counters: (live, working
-    steps), live while budget, a live lane or a waiting photon is left."""
+def read_counts(carry, counts=step_counts):
+    """The host's one read of an iteration's counters (COUNTERS), tallied
+    in ``counts``: (live, working steps), live while budget, a live lane or
+    a waiting photon is left."""
     budget, n_alive, n_pending, n_steps = torch.stack(
-        [carry.budget, carry.n_alive, carry.n_pending,
-         carry.n_steps]).tolist()
-    step_counts['reads'] += 1
+        [getattr(carry, name) for name in COUNTERS]).tolist()
+    counts['reads'] += 1
     return budget > 0 or n_alive > 0 or n_pending > 0, n_steps
 
 
-def drive_steps(carry, step, generator, max_steps, counts=None):
-    """Run the iteration one step at a time, reading the counters after
-    each, until it ends or has run ``max_steps`` working steps.
-    ``counts``: the last :func:`read_counts`, if the caller has one.
-    Returns the last read."""
-    live, n = read_counts(carry) if counts is None else counts
+def drive_steps(carry, step, generator, max_steps, last=None):
+    """Run an iteration one step at a time, reading the counters after
+    each, until it ends or has run ``max_steps`` working steps. The
+    drivers serve any carry with the COUNTERS and any step with ``draw``
+    and ``counts`` (the Lucy, imaging and monochromatic steps). ``last``:
+    the last :func:`read_counts`, if the caller has one. Returns the last
+    read."""
+    counts = step.counts
+    live, n = read_counts(carry, counts) if last is None else last
     while live and n < max_steps:
         step(carry, generator)
-        step_counts['eager'] += 1
-        live, n = read_counts(carry)
+        counts['eager'] += 1
+        live, n = read_counts(carry, counts)
     return live, n
 
 
-def drive_blocks(carry, step, generator, max_steps, k, block):
-    """Run the iteration in blocks of ``k`` steps, ``block()`` running one
+def drive_blocks(carry, step, generator, max_steps, k, block, last=None):
+    """Run an iteration in blocks of ``k`` steps, ``block()`` running one
     (a graph's replay on the card), reading the counters once after each,
     while a whole block fits under ``max_steps``; then the last steps one
     at a time (:func:`drive_steps`). The steps of a block after the
     iteration's end change nothing but draw their uniforms: the generator
     is then set back to where the iteration's last working step left it,
     so that the iteration consumes what the step-at-a-time loop consumes.
-    Returns the last read."""
-    live, n = read_counts(carry)
+    ``last`` as :func:`drive_steps`'. Returns the last read."""
+    live, n = read_counts(carry, step.counts) if last is None else last
     while live and n + k <= max_steps:
         state = generator.get_state()
         block()
-        live, n_after = read_counts(carry)
+        live, n_after = read_counts(carry, step.counts)
         if not live and n_after - n < k:
             generator.set_state(state)
             for _ in range(n_after - n):
@@ -671,7 +708,7 @@ def drive_blocks(carry, step, generator, max_steps, k, block):
 
 
 def capture_steps(carry, step, generator, k):
-    """A CUDA graph of ``k`` steps of the iteration on the current stream,
+    """A CUDA graph of ``k`` steps of an iteration on the current stream,
     which must not be the default one: the carry's tensors, its tables and
     its kernels' state are the graph's inputs and outputs, and
     ``generator`` is registered with it, so that a replay runs k more
@@ -692,12 +729,12 @@ def capture_steps(carry, step, generator, k):
             pass
         raise
     graph.capture_end()
-    step_counts['captured'] += k
+    step.counts['captured'] += k
     return graph
 
 
 def drive_graph(carry, step, generator, max_steps):
-    """Run the iteration on the card as replays of one CUDA graph of
+    """Run an iteration on the card as replays of one CUDA graph of
     GRAPH_STEPS steps (:func:`drive_blocks`): the first step runs eagerly
     on a side stream (the warm-up before a capture), then the capture on
     that stream. An iteration that ends or reaches ``max_steps`` before a
@@ -716,10 +753,11 @@ def drive_graph(carry, step, generator, max_steps):
 
     def replay():
         graph.replay()
-        step_counts['replays'] += 1
-        step_counts['replayed'] += k
+        step.counts['replays'] += 1
+        step.counts['replayed'] += k
 
-    return drive_blocks(carry, step, generator, max_steps, k, replay)
+    return drive_blocks(carry, step, generator, max_steps, k, replay,
+                        (live, n))
 
 
 def start_lucy_iteration(geometry, dt, st, density, jnu_var_id,

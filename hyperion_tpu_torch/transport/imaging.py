@@ -15,13 +15,19 @@ by their exit direction into the binned group. With forced first
 interaction the escape optical depth along the emission ray, walked in
 the emission peel's call, reweights the packet (WR99 or Baes16).
 
-One ``(n_rows, B)`` block of uniforms per step, a refill only when a
-quarter of the lanes are dead or a re-absorbed photon waits, and one host
-read per step (the alive count, with the waiting count): no event is gated
-on an ``any()``, since the walk returns at once for lanes that are not
-active. An external sphere's emission peels with its inward normal's
-cosine law, as a star's with its outward one. The monochromatic iteration
-(``mono.py``) peels through :func:`peel_and_bin` too."""
+One ``(n_rows, B)`` block of uniforms per step, and no host read inside
+a step: as in the Lucy step (``engine.py``), the budget and the alive,
+waiting and working-step counts live on the device, the refill runs in
+every step masked by a device gate (a quarter of the lanes dead, or none
+alive, while budget remains; or a re-absorbed photon waiting), and every
+lane field is written into the carry's own tensors. On a CUDA device the
+iteration runs as replays of one CUDA graph of ``engine.GRAPH_STEPS``
+steps, the host reading the counters once a replay; on the CPU one step
+at a time. No event is gated on an ``any()``, since the walk returns at
+once for lanes that are not active. An external sphere's emission peels
+with its inward normal's cosine law, as a star's with its outward one. The
+monochromatic iteration (``mono.py``) peels through :func:`peel_and_bin`
+too."""
 
 import math
 from dataclasses import dataclass, field
@@ -30,8 +36,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .engine import (_select_col, emit_options, sample_emission_nu,
-                     select_dust, update_optical_constants)
+from .engine import (_select_col, drive_graph, drive_steps, emit_options,
+                     imaging_step_counts, own_carry, put, put_where,
+                     sample_emission_nu, select_dust,
+                     update_optical_constants)
 from .escape_tau import EscapeTau
 from .ffi import sample_first_interaction
 from .gtable import ESCAPED
@@ -333,10 +341,10 @@ def _floor_index(f, n):
 
 
 class PeelAccum:
-    """The six cubes of one group, each a flat buffer with one trailing
-    sink slot that takes the masked-out lanes: sed (n_view, n_ap, n_nu,
-    n_orig, n_stokes) and img (n_view, n_y, n_x, n_nu, n_orig, n_stokes),
-    each with its sum of squares and count (filled with uncertainties)."""
+    """The six cubes of one group, each a flat buffer: sed (n_view, n_ap,
+    n_nu, n_orig, n_stokes) and img (n_view, n_y, n_x, n_nu, n_orig,
+    n_stokes), each with its sum of squares and count (filled with
+    uncertainties)."""
 
     def __init__(self, group, device, dtype):
         g = group
@@ -344,30 +352,30 @@ class PeelAccum:
         self.img_shape = (g.n_view, g.n_y, g.n_x, g.n_nu, g.n_orig,
                           g.n_stokes)
         for name, shape in (('sed', self.sed_shape), ('img', self.img_shape)):
-            n = math.prod(shape) + 1
             for suffix in ('', '2', 'n'):
                 setattr(self, name + suffix,
-                        torch.zeros(n, dtype=dtype, device=device))
+                        torch.zeros(math.prod(shape), dtype=dtype,
+                                    device=device))
 
     def cubes(self):
-        """{name: cube} without the sink slots (views)."""
+        """{name: cube} (views)."""
         out = {}
         for name, shape in (('sed', self.sed_shape), ('img', self.img_shape)):
             for suffix in ('', '2', 'n'):
-                out[name + suffix] = getattr(self, name + suffix)[:-1] \
-                    .view(shape)
+                out[name + suffix] = getattr(self, name + suffix).view(shape)
         return out
 
 
 def _deposit(group, flat, flat2, flatn, spatial_idx, ok_base, inu, nu_ok,
              tr, io, flux_s):
-    """Add the lanes' fluxes into one cube (flat, with its sink slot): one
-    ``index_add_`` for the sums, and with uncertainties one each for the
-    squares and the counts. With ``tr`` (B, n_filt) a lane lands in every
-    filter channel weighted by its transmission, else in its ``inu`` bin.
-    The fluxes take the cube's type (float64 cubes of float32 lanes: the
-    monochromatic iteration's)."""
-    sink = flat.shape[0] - 1
+    """Add the lanes' fluxes into one cube (flat): one ``index_add_`` for
+    the sums, and with uncertainties one each for the squares and the
+    counts. With ``tr`` (B, n_filt) a lane lands in every filter channel
+    weighted by its transmission, else in its ``inu`` bin. A masked-out
+    lane adds a zero at its own clamped bin, so that the masked lanes'
+    atomics do not all land on one address (PERF.md). The fluxes take the
+    cube's type (float64 cubes of float32 lanes: the monochromatic
+    iteration's)."""
     S = group.n_stokes
     vals = torch.stack(flux_s, dim=-1)                     # (B, S)
     s_off = torch.arange(S, device=flat.device)
@@ -383,7 +391,7 @@ def _deposit(group, flat, flat2, flatn, spatial_idx, ok_base, inu, nu_ok,
         idx = idx0[..., None] + s_off                      # (B, F, S)
         vals = vals[:, None, :] * tr[..., None]
         ok = okf[..., None]
-    idx = torch.where(ok, idx, sink).reshape(-1)
+    idx = idx.reshape(-1)
     val = torch.where(ok, vals, 0.0).reshape(-1).to(flat.dtype)
     flat.index_add_(0, idx, val)
     if group.uncertainties:
@@ -685,25 +693,35 @@ class FinalPacketState:
 @dataclass
 class FinalCarry:
     packets: FinalPacketState
-    # host integers, as in the Lucy carry: the budget changes only at
-    # refills; n_alive and n_pending are the step's one read of the device
-    budget: int
-    n_alive: int
-    n_pending: int
-    n_steps: int
+    # () int64 device counters, as in the Lucy carry (engine.COUNTERS; the
+    # carry owns its lanes and counters, engine.own_carry): the photons
+    # left to emit, changed by each refill; the alive lanes and the photons
+    # waiting for re-emission, set at the end of each step for the next
+    # step's refill gate; the working steps
+    budget: torch.Tensor
+    n_alive: torch.Tensor
+    n_pending: torch.Tensor
+    n_steps: torch.Tensor
     energy_current: torch.Tensor   # () float64
     accums: list
     binned_acc: Optional[PeelAccum]
     killed_int: torch.Tensor       # () int64
     n_events: torch.Tensor         # () int64, lanes that moved or jumped
 
+    def __post_init__(self):
+        own_carry(self)
+
 
 def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
                     jnu_var_frac, groups, config, binned=None, mrw=None,
                     se_rho=None):
     """The step of the imaging iteration: ``step(carry, generator)``
-    advances the carry by one step, in place. ``walk_geometry``: the grid's
-    float64 tables, which the escape-tau walk runs on (``escape_tau.py``).
+    advances the carry by one step, in place, reading nothing on the host
+    (so that a CUDA graph can hold it); ``step.draw``, ``step.refill`` and
+    ``step.counts`` as the Lucy step's (``engine.make_lucy_step``). After
+    the iteration's end (no budget, nothing alive or waiting) a step
+    changes nothing. ``walk_geometry``: the grid's float64 tables, which
+    the escape-tau walk runs on (``escape_tau.py``).
 
     ``config``: n_inter_max, kill_on_scatter, kill_on_absorb,
     forced_first_interaction, ffi_algorithm, ffi_baes16_xi,
@@ -734,21 +752,24 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
         n_mrw_max = int(config['n_mrw_max'])
         alpha_t = mrw.alpha_inv_planck
 
-    def refill(carry, u):
+    def refill(carry, u, gate):
         """Emit fresh packets into dead lanes while budget remains, and
         re-emit photons re-absorbed by a source (keeping their energy; FFI
         never applies to them, ref iter_final.f90:219-243); peel the
         emissions with the energy before the FFI reweight (ref
-        iter_final.f90:120)."""
+        iter_final.f90:120). Every lane is computed and peels masked;
+        ``gate`` (a () bool) masks the whole refill off, which then
+        changes nothing."""
         p = carry.packets
         B = p.x.shape[0]
         dead = ~p.alive
         if reabs_on:
-            pending = p.reemit_src >= 0
+            pending = (p.reemit_src >= 0) & gate
             dead = dead & ~pending
         rank = torch.cumsum(dead, dim=0)
-        can_fresh = dead & (rank <= carry.budget)
-        n_new = min(B - carry.n_alive - carry.n_pending, carry.budget)
+        can_fresh = dead & (rank <= carry.budget) & gate
+        n_new = torch.minimum(B - carry.n_alive - carry.n_pending,
+                              carry.budget) * gate
         u_sphere = (u[U_EM_CAP], u[U_EM_CAP_PHI], u[U_EM_OUT],
                     u[U_EM_OUT_PHI]) if sphere else None
         src = None
@@ -819,50 +840,53 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
             tau_new = random_exp(u[U_EM_TAU])
 
         def m(old, new_, mask=can):
-            return torch.where(mask if old.dim() == 1 else mask[:, None],
-                               new_, old)
+            put_where(old, new_, mask)
 
-        n_reabs, reemit_src = p.n_reabs, p.reemit_src
         if reabs_on:
-            n_reabs = torch.where(can_fresh, 0, torch.where(
-                reemit_ok, n_reabs + 1, n_reabs))
-            reemit_src = torch.where(pending, -1, reemit_src)
-        zero = torch.zeros_like(p.x)
-        packets = FinalPacketState(
-            x=m(p.x, new['x']), y=m(p.y, new['y']), z=m(p.z, new['z']),
-            kx=m(p.kx, new['kx']), ky=m(p.ky, new['ky']),
-            kz=m(p.kz, new['kz']), nu=m(p.nu, new['nu']),
-            energy=m(p.energy, energy_new), cell=m(p.cell, cell_new),
-            tau=m(p.tau, tau_new),
-            n_inter=torch.where(can_fresh, 0, p.n_inter),
-            n_mrw=torch.where(can, 0, p.n_mrw), n_reabs=n_reabs,
-            reemit_src=reemit_src,
-            alive=p.alive | (emitted & (energy_new > 0.0)),
-            reprocessed=p.reprocessed & ~can, scattered=p.scattered & ~can,
-            source_id=m(p.source_id, new['source']),
-            dust_id=torch.where(can, 0, p.dust_id),
-            n_scat=torch.where(can, 0, p.n_scat),
-            chi=m(p.chi, chi_n), kappa=m(p.kappa, kappa_n),
-            albedo=m(p.albedo, alb_n),
-            q=m(p.q, zero), u=m(p.u, zero), v=m(p.v, zero))
-        carry.packets = packets
+            # fresh photons start a run of re-absorptions at 0, re-emitted
+            # ones count one more
+            m(p.n_reabs, torch.where(reemit_ok, p.n_reabs + 1, 0))
+            m(p.reemit_src, -1, pending)
+        p.alive |= emitted & (energy_new > 0.0)
+        for name in ('x', 'y', 'z', 'kx', 'ky', 'kz', 'nu'):
+            m(getattr(p, name), new[name])
+        m(p.energy, energy_new)
+        m(p.cell, cell_new)
+        m(p.tau, tau_new)
+        m(p.n_inter, 0, can_fresh)
+        m(p.source_id, new['source'])
+        for name in ('n_mrw', 'dust_id', 'n_scat', 'reprocessed', 'scattered',
+                     'q', 'u', 'v'):
+            m(getattr(p, name), 0)
+        m(p.chi, chi_n)
+        m(p.kappa, kappa_n)
+        m(p.albedo, alb_n)
         if reabs_on:
             carry.killed_int += reabs_kill.sum()
         carry.energy_current += torch.where(can_fresh, new['energy'],
                                             0.0).sum(dtype=torch.float64)
         carry.budget -= n_new
 
+    def draw(carry, generator):
+        x = carry.packets.x
+        return torch.rand((n_rows, x.shape[0]), generator=generator,
+                          device=x.device, dtype=density.dtype)
+
     def step(carry, generator):
-        p0 = carry.packets
-        B = p0.x.shape[0]
-        u = torch.rand((n_rows, B), generator=generator,
-                       device=p0.x.device, dtype=density.dtype)
-        # refill only when >= 1/4 of the lanes are dead (or none is alive),
-        # or a re-absorbed photon waits
-        if (carry.budget > 0 and (carry.n_alive * 4 <= 3 * B or
-                                  carry.n_alive == 0)) or carry.n_pending:
-            refill(carry, u)
         p = carry.packets
+        B = p.x.shape[0]
+        u = draw(carry, generator)
+        # a working step: budget left, a live lane or a waiting photon
+        carry.n_steps += (carry.budget > 0) | (carry.n_alive > 0) | \
+            (carry.n_pending > 0)
+        # refill when >= 1/4 of the lanes are dead (or none is alive) while
+        # budget remains, or a re-absorbed photon waits (the JAX step
+        # refills every step; the emission pass runs over every lane
+        # either way)
+        gate = ((carry.budget > 0) & ((carry.n_alive * 4 <= 3 * B) |
+                                      (carry.n_alive == 0))) | \
+            (carry.n_pending > 0)
+        refill(carry, u, gate)
 
         cell_safe = p.cell.clamp_min(0)
         rho_rows = rho_t[cell_safe]
@@ -1037,25 +1061,23 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
                         kx, ky, kz, nu, p.energy, prov_escape, escaped,
                         stokes_in=(q, uq, vq))
 
-        carry.packets = FinalPacketState(
-            x=x, y=y, z=z, kx=kx_new, ky=ky_new, kz=kz_new, nu=nu_new,
-            energy=p.energy, cell=cell, tau=tau, n_inter=n_inter,
-            n_mrw=torch.where(interacting, 0, n_mrw), n_reabs=n_reabs,
-            reemit_src=reemit_src, alive=alive, reprocessed=reprocessed,
-            scattered=scattered, source_id=p.source_id, dust_id=dust_id,
-            n_scat=n_scat, chi=chi, kappa=kappa, albedo=albedo,
-            q=q_new, u=u_new, v=v_new)
+        if reabs_on:
+            put(p, n_reabs=n_reabs, reemit_src=reemit_src)
+            carry.n_pending.copy_((reemit_src >= 0).sum())
+        put(p, x=x, y=y, z=z, kx=kx_new, ky=ky_new, kz=kz_new, nu=nu_new,
+            cell=cell, tau=tau, n_inter=n_inter,
+            n_mrw=torch.where(interacting, 0, n_mrw), alive=alive,
+            reprocessed=reprocessed, scattered=scattered, dust_id=dust_id,
+            n_scat=n_scat, chi=chi, kappa=kappa, albedo=albedo, q=q_new,
+            u=u_new, v=v_new)
         carry.killed_int += killed_now.sum()
         carry.n_events += (moving | mrw_now).sum() if mrw is not None \
             else moving.sum()
-        carry.n_steps += 1
-        # the step's one host synchronisation
-        if reabs_on:
-            carry.n_alive, carry.n_pending = torch.stack(
-                [alive.sum(), (reemit_src >= 0).sum()]).tolist()
-        else:
-            carry.n_alive = int(alive.sum())
+        carry.n_alive.copy_(alive.sum())
 
+    step.draw = draw
+    step.refill = refill
+    step.counts = imaging_step_counts
     return step
 
 
@@ -1086,7 +1108,7 @@ def _init_final_carry(dt, density, groups, n_photons, batch_size,
         chi=zeros(B, n_dust), kappa=zeros(B, n_dust),
         albedo=zeros(B, n_dust), q=zeros(B), u=zeros(B), v=zeros(B))
     return FinalCarry(
-        packets=packets, budget=int(n_photons), n_alive=0, n_pending=0,
+        packets=packets, budget=n_photons, n_alive=0, n_pending=0,
         n_steps=0, energy_current=zeros(dtype=torch.float64),
         accums=[PeelAccum(g, device, dtype) for g in groups],
         binned_acc=None if binned_group is None else
@@ -1143,22 +1165,31 @@ def start_final(geometry, dt, st, density, specific_energy, groups,
     return carry, step
 
 
+def finish_final(carry, n_steps):
+    """The :class:`FinalResult` of a carry that has run ``n_steps``
+    working steps: lanes still alive (or waiting for re-emission) are
+    killed and counted in killed_int."""
+    p = carry.packets
+    killed_int = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()
+    killed_int, n_events = torch.stack([killed_int, carry.n_events]).tolist()
+    return FinalResult(carry.accums, carry.binned_acc,
+                       float(carry.energy_current), killed_int, n_steps,
+                       n_events)
+
+
 def run_final(geometry, dt, st, density, specific_energy, groups, generator,
               n_photons, max_steps=100000000, **options):
     """Run the imaging iteration on one device and return a
-    :class:`FinalResult`.
+    :class:`FinalResult`: on a CUDA device as replays of a CUDA graph of
+    ``engine.GRAPH_STEPS`` steps (``engine.drive_graph``), on the CPU one
+    step at a time (``engine.drive_steps``), as the Lucy iteration runs.
 
     ``options`` are the keywords of :func:`start_final`; ``generator`` the
     ``torch.Generator`` on the density's device. Lanes still alive (or
-    waiting for re-emission) after ``max_steps`` steps are killed and
-    counted in killed_int."""
+    waiting for re-emission) after ``max_steps`` working steps are killed
+    and counted in killed_int."""
     carry, step = start_final(geometry, dt, st, density, specific_energy,
                               groups, n_photons, **options)
-    while (carry.budget > 0 or carry.n_alive > 0 or carry.n_pending > 0) \
-            and carry.n_steps < max_steps:
-        step(carry, generator)
-    p = carry.packets
-    killed_int = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()
-    return FinalResult(carry.accums, carry.binned_acc,
-                       float(carry.energy_current), int(killed_int),
-                       carry.n_steps, int(carry.n_events))
+    drive = drive_graph if density.device.type == 'cuda' else drive_steps
+    _, n_steps = drive(carry, step, generator, max_steps)
+    return finish_final(carry, n_steps)

@@ -19,12 +19,14 @@ photon's same weight into one bin), which are scaled (sources:
 energy_total / n; dust: 1, the photons carrying their share) and summed.
 
 The step follows ``imaging.make_final_step``: one ``(n_rows, B)`` block of
-uniforms per step from a ``torch.Generator``, a refill only when a quarter
-of the lanes are dead or a re-absorbed photon waits, and one host read per
-step (the alive and waiting counts, which with the host's budget decide
-whether the pass goes on); no event is gated on an ``any()``. The host
-tables (:func:`source_mono_energies`, :func:`dust_mono_cell_pdfs`) are
-numpy."""
+uniforms per step from a ``torch.Generator``, the counters on the device,
+the refill in every step masked by the imaging step's device gate, the
+lanes written in place and no host read inside a step; no event is gated
+on an ``any()``. Each pass builds its own step, and on a CUDA device runs
+as replays of its own CUDA graph of ``engine.GRAPH_STEPS`` steps (the
+host reading the counters once a replay), on the CPU one step at a time.
+The host tables (:func:`source_mono_energies`,
+:func:`dust_mono_cell_pdfs`) are numpy."""
 
 from dataclasses import dataclass
 from functools import partial
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import run_mono_pass_sharded
-from .engine import select_dust, update_optical_constants
+from .engine import (drive_graph, drive_steps, mono_step_counts, own_carry,
+                     put, put_where, select_dust, update_optical_constants)
 from .ffi import sample_first_interaction
 from .gtable import ESCAPED, position_uniforms
 from .imaging import PeelAccum, Provenance, peel_and_bin
@@ -184,15 +187,18 @@ class MonoPacketState:
 @dataclass
 class MonoCarry:
     packets: MonoPacketState
-    # host integers: the budget changes only at refills; n_alive and
-    # n_pending are the step's one read of the device
-    budget: int
-    n_alive: int
-    n_pending: int
-    n_steps: int
+    # () int64 device counters, as in the imaging carry (engine.COUNTERS;
+    # the carry owns its lanes and counters, engine.own_carry)
+    budget: torch.Tensor
+    n_alive: torch.Tensor
+    n_pending: torch.Tensor
+    n_steps: torch.Tensor
     accums: list
     killed_int: torch.Tensor   # () int64
     n_events: torch.Tensor     # () int64, lanes that moved
+
+    def __post_init__(self):
+        own_carry(self)
 
 
 def _init_mono_carry(groups, n_photons, batch_size, device, dtype):
@@ -214,7 +220,7 @@ def _init_mono_carry(groups, n_photons, batch_size, device, dtype):
     # float64 cubes: a point source's direct light adds the same weight
     # into one bin for every photon, and in float32 each of 10^5 such adds
     # can round the same way by up to half a unit of 2^-24 of the sum
-    return MonoCarry(packets=packets, budget=int(n_photons), n_alive=0,
+    return MonoCarry(packets=packets, budget=n_photons, n_alive=0,
                      n_pending=0, n_steps=0,
                      accums=[PeelAccum(g, device, torch.float64)
                              for g in groups],
@@ -228,7 +234,10 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
                    f_id, nu_value, chi_vec, albedo_vec, src_energy=None,
                    cell_cdf=None, mean_prob=None):
     """The step of one pass at one frequency: ``step(carry, generator)``
-    advances a :class:`MonoCarry` in place. ``mode`` 'source' (with
+    advances a :class:`MonoCarry` in place, reading nothing on the host;
+    ``step.draw``, ``step.refill`` and ``step.counts`` as the imaging
+    step's, and after the pass's end a step changes nothing. ``mode``
+    'source' (with
     ``src_energy`` (n_rows,), each row's energy at the frequency) or 'dust'
     (with ``cell_cdf`` (n_dust, n_cells) and ``mean_prob`` (n_dust,), each
     dust's photon energy); ``f_id`` the frequency's index in the model's
@@ -271,17 +280,21 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
             new[k] = new[k].contiguous()
         return new
 
-    def refill(carry, u):
+    def refill(carry, u, gate):
+        """Emit fresh photons into dead lanes and re-emit the waiting
+        ones, computed over every lane; ``gate`` (a () bool) masks the
+        whole refill off, which then changes nothing."""
         p = carry.packets
         B = p.x.shape[0]
         nu, chi_rows = consts(B, p.x.device)
         dead = ~p.alive
         if reabs_on:
-            pending = p.reemit_src >= 0
+            pending = (p.reemit_src >= 0) & gate
             dead = dead & ~pending
         rank = torch.cumsum(dead, dim=0)
-        can_fresh = dead & (rank <= carry.budget)
-        n_new = min(B - carry.n_alive - carry.n_pending, carry.budget)
+        can_fresh = dead & (rank <= carry.budget) & gate
+        n_new = torch.minimum(B - carry.n_alive - carry.n_pending,
+                              carry.budget) * gate
         reemit_ok = None
         if reabs_on:
             # re-emitted at the same frequency with the photon's energy (ref
@@ -374,39 +387,41 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
             tau_new = random_exp(u[U_EM_TAU])
             e_ffi = e_new
 
-        def m(old, new_):
-            return torch.where(can, new_, old)
+        def m(old, new_, mask=can):
+            put_where(old, new_, mask)
 
-        n_reabs, reemit_src = p.n_reabs, p.reemit_src
         if reabs_on:
-            n_reabs = torch.where(can_fresh, 0, torch.where(
-                reemit_ok, n_reabs + 1, n_reabs))
-            reemit_src = torch.where(pending, -1, reemit_src)
-        zero = torch.zeros_like(p.x)
-        carry.packets = MonoPacketState(
-            x=m(p.x, x), y=m(p.y, y), z=m(p.z, z), kx=m(p.kx, kx),
-            ky=m(p.ky, ky), kz=m(p.kz, kz), energy=m(p.energy, e_ffi),
-            energy_initial=torch.where(can_fresh, e_new, p.energy_initial),
-            cell=m(p.cell, cell_new), tau=m(p.tau, tau_new),
-            n_inter=torch.where(can_fresh, 0, p.n_inter), n_reabs=n_reabs,
-            reemit_src=reemit_src, alive=p.alive | emitted,
-            reprocessed=m(p.reprocessed, reproc),
-            scattered=p.scattered & ~can,
-            source_id=m(p.source_id, source_id),
-            dust_id=m(p.dust_id, dust_id),
-            n_scat=torch.where(can, 0, p.n_scat), q=m(p.q, zero),
-            u=m(p.u, zero), v=m(p.v, zero))
+            m(p.n_reabs, torch.where(reemit_ok, p.n_reabs + 1, 0))
+            m(p.reemit_src, -1, pending)
+        p.alive |= emitted
+        for name, value in (('x', x), ('y', y), ('z', z), ('kx', kx),
+                            ('ky', ky), ('kz', kz), ('energy', e_ffi),
+                            ('cell', cell_new), ('tau', tau_new),
+                            ('reprocessed', reproc), ('source_id', source_id),
+                            ('dust_id', dust_id)):
+            m(getattr(p, name), value)
+        m(p.energy_initial, e_new, can_fresh)
+        m(p.n_inter, 0, can_fresh)
+        for name in ('scattered', 'n_scat', 'q', 'u', 'v'):
+            m(getattr(p, name), 0)
         carry.budget -= n_new
 
+    def draw(carry, generator):
+        x = carry.packets.x
+        return torch.rand((N_UNIFORMS + n_extra + n_pos, x.shape[0]),
+                          generator=generator, device=x.device, dtype=dtype)
+
     def step(carry, generator):
-        p0 = carry.packets
-        B = p0.x.shape[0]
-        u = torch.rand((N_UNIFORMS + n_extra + n_pos, B),
-                       generator=generator, device=p0.x.device, dtype=dtype)
-        if (carry.budget > 0 and (carry.n_alive * 4 <= 3 * B or
-                                  carry.n_alive == 0)) or carry.n_pending:
-            refill(carry, u)
         p = carry.packets
+        B = p.x.shape[0]
+        u = draw(carry, generator)
+        # a working step, and the imaging step's refill gate
+        carry.n_steps += (carry.budget > 0) | (carry.n_alive > 0) | \
+            (carry.n_pending > 0)
+        gate = ((carry.budget > 0) & ((carry.n_alive * 4 <= 3 * B) |
+                                      (carry.n_alive == 0))) | \
+            (carry.n_pending > 0)
+        refill(carry, u, gate)
         nu, chi_rows = consts(B, p.x.device)
 
         active = p.alive
@@ -476,44 +491,61 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
         def s(new_, old):
             return torch.where(interacting, new_, old)
 
-        carry.packets = MonoPacketState(
-            x=x, y=y, z=z, kx=s(sx, p.kx), ky=s(sy, p.ky), kz=s(sz, p.kz),
-            energy=energy, energy_initial=p.energy_initial, cell=cell,
-            tau=s(random_exp(u[U_TAU]), tau), n_inter=n_inter,
-            n_reabs=n_reabs, reemit_src=reemit_src, alive=alive,
-            reprocessed=p.reprocessed, scattered=p.scattered | interacting,
-            source_id=p.source_id, dust_id=dust_id, n_scat=n_scat,
-            q=s(q_s, p.q), u=s(u_s, p.u), v=s(v_s, p.v))
+        if reabs_on:
+            put(p, n_reabs=n_reabs, reemit_src=reemit_src)
+            carry.n_pending.copy_((reemit_src >= 0).sum())
+        put(p, x=x, y=y, z=z, kx=s(sx, p.kx), ky=s(sy, p.ky), kz=s(sz, p.kz),
+            energy=energy, cell=cell, tau=s(random_exp(u[U_TAU]), tau),
+            n_inter=n_inter, alive=alive, scattered=p.scattered | interacting,
+            dust_id=dust_id, n_scat=n_scat, q=s(q_s, p.q), u=s(u_s, p.u),
+            v=s(v_s, p.v))
         carry.killed_int += over.sum()
         carry.n_events += moving.sum()
-        carry.n_steps += 1
-        # the step's one host synchronisation
-        if reabs_on:
-            carry.n_alive, carry.n_pending = torch.stack(
-                [alive.sum(), (reemit_src >= 0).sum()]).tolist()
-        else:
-            carry.n_alive = int(alive.sum())
+        carry.n_alive.copy_(alive.sum())
 
+    step.draw = draw
+    step.refill = refill
+    step.counts = mono_step_counts
     return step
+
+
+def start_mono_pass(geometry, walk, dt, st, density, groups, n_photons,
+                    batch_size, config, mode, f_id, nu_value, chi_vec,
+                    albedo_vec, **tables):
+    """The carry and the step of one pass (the arguments of
+    :func:`run_mono_pass` but the generator and ``max_steps``)."""
+    carry = _init_mono_carry(groups, n_photons, batch_size, density.device,
+                             density.dtype)
+    step = make_mono_step(geometry, walk, dt, st, density, groups, config,
+                          mode, f_id, nu_value, chi_vec, albedo_vec, **tables)
+    return carry, step
+
+
+def finish_mono_pass(carry, n_steps):
+    """The tuple of :func:`run_mono_pass` from a carry that has run
+    ``n_steps`` working steps: lanes still alive or waiting are killed and
+    counted."""
+    p = carry.packets
+    killed = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()
+    killed, n_events = torch.stack([killed, carry.n_events]).tolist()
+    return carry.accums, killed, n_steps, n_events
 
 
 def run_mono_pass(geometry, walk, dt, st, density, groups, generator,
                   n_photons, batch_size, config, mode, f_id, nu_value,
                   chi_vec, albedo_vec, max_steps=100000000, **tables):
     """One pass (``mode`` 'source' or 'dust') at one frequency; ``tables``
-    the keywords of :func:`make_mono_step`. Returns (accums, killed_int,
-    n_steps, n_events) with raw energies; lanes still alive or waiting
-    after ``max_steps`` steps are killed and counted."""
-    carry = _init_mono_carry(groups, n_photons, batch_size, density.device,
-                             density.dtype)
-    step = make_mono_step(geometry, walk, dt, st, density, groups, config,
-                          mode, f_id, nu_value, chi_vec, albedo_vec, **tables)
-    while (carry.budget > 0 or carry.n_alive > 0 or carry.n_pending > 0) \
-            and carry.n_steps < max_steps:
-        step(carry, generator)
-    p = carry.packets
-    killed = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()
-    return carry.accums, int(killed), carry.n_steps, int(carry.n_events)
+    the keywords of :func:`make_mono_step`. On a CUDA device the pass runs
+    as replays of its own CUDA graph (``engine.drive_graph``), on the CPU
+    one step at a time. Returns (accums, killed_int, n_steps, n_events)
+    with raw energies; lanes still alive or waiting after ``max_steps``
+    working steps are killed and counted."""
+    carry, step = start_mono_pass(geometry, walk, dt, st, density, groups,
+                                  n_photons, batch_size, config, mode, f_id,
+                                  nu_value, chi_vec, albedo_vec, **tables)
+    drive = drive_graph if density.device.type == 'cuda' else drive_steps
+    _, n_steps = drive(carry, step, generator, max_steps)
+    return finish_mono_pass(carry, n_steps)
 
 
 def _add_scaled(final, acc, scale):

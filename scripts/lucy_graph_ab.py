@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""The port's Lucy iterations on one card, one package against another in
-turns: the iterations of chip_smoke.py's phases 4, 5, 8 and 9.
+"""The port's Lucy, imaging and monochromatic iterations on one card, one
+package against another in turns: the iterations of chip_smoke.py's
+phases 4, 5, 8, 9 and 12.
 
     python3 scripts/lucy_graph_ab.py --old DIR [--turns old,new,new,old]
                                      [--workloads tutorial,quickstart,
-                                                  class2,yso_thick]
+                                                  class2,yso_thick,
+                                                  tutorial_imaging,
+                                                  class2_imaging,
+                                                  quickstart_mono]
 
 DIR holds another commit's ``hyperion_tpu_torch/`` (``git archive <rev>
 hyperion_tpu_torch | tar -x -C DIR``); "new" is this checkout's, and
@@ -20,12 +24,23 @@ this checkout's chip_smoke.py) and runs, on the card in float32:
 - class2: phase 8's Lucy iteration (200,000 photons, B = 50,000, capped at
   2,500 steps) through run_lucy_model, its imaging left out;
 - yso_thick: phase 9's iteration (10,000 photons, B = 4,096) through
-  transport.lucy.run_lucy.
+  transport.lucy.run_lucy;
+- tutorial_imaging: phase 4's imaging iteration (1,000,000 photons, B =
+  125,000) through run_lucy_model with no Lucy iteration (a zero specific
+  energy: a step's work does not depend on it);
+- class2_imaging: phase 8's imaging iteration (100,000 photons, B =
+  50,000, capped at 1,000 steps), the same way;
+- quickstart_mono: phase 12 (a)'s monochromatic iteration (500,000 source
+  and 500,000 dust photons at each of 5 wavelengths), the grid given a
+  uniform 30 K specific energy.
 
-Each iteration's wall (host clock, the card synchronised), steps,
-photons/s and ms a step; with the graph driver also its replays and host
-reads a step (``engine.step_counts``). Prints one JSON object of all turns
-and writes it to chiprun_out/lucy_graph_ab.json.
+A turn builds its package's kernels first, untimed. Each iteration's
+wall (host clock, the card synchronised; an imaging
+iteration's the runner's own, around run_final or the monochromatic
+passes), steps, photons/s and ms a step; with the graph driver also its
+replays and host reads a step (``engine.step_counts``, and the imaging
+and monochromatic iterations' own counts). Prints one JSON object of all
+turns and writes it to chiprun_out/lucy_graph_ab.json.
 """
 
 import argparse
@@ -37,7 +52,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-WORKLOADS = ('tutorial', 'quickstart', 'class2', 'yso_thick')
+WORKLOADS = ('tutorial', 'quickstart', 'class2', 'yso_thick',
+             'tutorial_imaging', 'class2_imaging', 'quickstart_mono')
+# each imaging workload's step counts in the engine module
+IMAGING_COUNTS = dict(tutorial_imaging='imaging_step_counts',
+                      class2_imaging='imaging_step_counts',
+                      quickstart_mono='mono_step_counts')
 
 
 def rows_of(run):
@@ -103,15 +123,56 @@ def yso_thick():
     return YSO_THICK_CUT['n_photons'], rows
 
 
+def imaging_rows(run):
+    """The imaging iteration's row: the runner's wall and steps."""
+    return [dict(wall=run.imaging.wall, steps=run.imaging.n_steps)]
+
+
+def tutorial_imaging():
+    from chip_smoke import tutorial_model
+    from hyperion_tpu_torch.model import run_lucy_model
+    m = tutorial_model()
+    m.set_n_initial_iterations(0)
+    return 1_000_000, imaging_rows(run_lucy_model(m, device='cuda'))
+
+
+def class2_imaging():
+    from chip_smoke import CLASS2_CUT, class2_model
+    from hyperion_tpu_torch.model import run_lucy_model
+    m = class2_model(CLASS2_CUT['n_photons'], 1, CLASS2_CUT['n_imaging'])
+    m.set_n_initial_iterations(0)
+    return CLASS2_CUT['n_imaging'], imaging_rows(run_lucy_model(
+        m, device='cuda',
+        imaging_max_steps=CLASS2_CUT['imaging_max_steps']))
+
+
+def quickstart_mono():
+    import numpy as np
+    from chip_smoke import (MONO_PHOTONS, MONO_WAVELENGTHS, mono_model,
+                            tutorial_model)
+    from hyperion_tpu_torch.model import run_lucy_model
+    m = tutorial_model()
+    dust = m._dust_objects()[0]
+    se = [dust.temperature2specific_energy(np.full(m.grid.shape, 30.0))
+          .ravel()]
+    return 2 * MONO_PHOTONS * len(MONO_WAVELENGTHS), imaging_rows(
+        run_lucy_model(mono_model(se, False), device='cuda'))
+
+
 def run_turn(workloads):
     """One turn in this process: each workload's iterations."""
     import torch
     from chip_smoke import card_line
-    from hyperion_tpu_torch.transport import engine
+    from hyperion_tpu_torch.transport import _build, engine
 
     out = dict(card=card_line(), package=str(Path(engine.__file__)
                                              .parents[2]),
                graph_steps=getattr(engine, 'GRAPH_STEPS', None))
+    # the package's kernels built before the first workload (a package's
+    # first turn builds them, which no iteration should be timed with)
+    t0 = time.time()
+    _build.build('deposit_visit', 'escape_tau', 'voronoi_locate')
+    out['build_s'] = time.time() - t0
     for name in workloads:
         if hasattr(engine, 'reset_step_counts'):
             engine.reset_step_counts()
@@ -121,8 +182,10 @@ def run_turn(workloads):
             r.update(photons_per_sec=photons / r['wall'],
                      ms_per_step=r['wall'] * 1e3 / r['steps'])
         rec = dict(photons=photons, iterations=rows)
-        if hasattr(engine, 'step_counts'):
-            c = dict(engine.step_counts)
+        counts = getattr(engine, IMAGING_COUNTS.get(name, 'step_counts'),
+                         None)
+        if counts is not None:
+            c = dict(counts)
             steps = sum(r['steps'] for r in rows)
             rec.update(step_counts=c, reads_per_step=c['reads'] / steps)
         out[name] = rec

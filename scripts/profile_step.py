@@ -2,46 +2,59 @@
 """Where a transport step of the port spends its time, on one card.
 
     python3 scripts/profile_step.py [--model tutorial|yso_thick|quickstart|
-                                     class2|quickstart_imaging|
-                                     class2_imaging]
+                                     class2|sph_octree|quickstart_imaging|
+                                     class2_imaging|quickstart_mono]
                                     [--warmup 20] [--steps 48]
-                                    [--package DIR]
+                                    [--package DIR] [--graph-steps K]
+                                    [--sink-ab]
 
 Lucy models: the tutorial (examples/quickstart.py: 32^3 cells, 500,000
 photons, B = 125,000) built with the port's front end; bench.py's yso_thick
 configuration (64 x 32 spherical-polar cells, MRW, a re-absorbing star,
 B = 4,096; chip_smoke.yso_thick_engine); bench.py's quickstart
 configuration (chip_smoke phase 5: 15^3 cells, gray dust of albedo 0.3,
-2,000,000 photons, B = 131,072); and class2's first Lucy iteration as
+2,000,000 photons, B = 131,072); class2's first Lucy iteration as
 chip_smoke's phase 8 runs it (examples/class2_sed.py: 96 x 32 cells, MRW,
-a re-absorbing star, 200,000 photons, B = 50,000), its arguments taken
-from run_lucy_model. Imaging models: the imaging iteration of the
-quickstart (1,000,000 photons, one view with an SED and a 128 x 128 image,
-forced first interaction, B = 125,000) or of class2 (three views, B =
-50,000), with a zero specific energy (the step's launches do not depend
-on it).
+a re-absorbing star, 200,000 photons, B = 50,000); and config 4's
+(sph_octree, chip_smoke phase 16: an octree of ~12,400 nodes, 1,000,000
+photons, B = 131,072), their arguments taken from run_lucy_model. Imaging
+models: the imaging iteration of the quickstart (1,000,000 photons, one
+view with an SED and a 128 x 128 image, forced first interaction, B =
+125,000) or of class2 (three views, B = 50,000), with a zero specific
+energy (the step's launches do not depend on it); the monochromatic
+source pass at 1 um of the quickstart in phase 12's monochromatic mode
+(500,000 photons, B = 125,000).
 
 Each runs ``--warmup`` eager steps, then profiles ``--steps`` eager steps
 with torch.profiler (CPU and CUDA activities) and times as many unprofiled
-steps with the host clock around work that ends in a synchronise. For a
-Lucy model, a second copy of the iteration is then run the way
-``engine.run_lucy_iteration`` runs it on the card: ``--warmup`` eager
-steps, a CUDA graph of GRAPH_STEPS steps captured, and ``--steps`` /
-GRAPH_STEPS replays each followed by the host's read of the counters,
-profiled and then timed (and the capture and the first replay timed
-alone); and a CUDA graph of GRAPH_STEPS refills masked
-off (a step in which no lane is refilled still runs its refill's emission
-pass) is timed with CUDA events. Prints one JSON object: device kernels
-and their launches per step, the host's launch calls per step (kernels,
-graphs, copies and sets), device busy time per step and its share of the
-profiled span, the deposit_visit and escape_tau kernels' device time and
-launches per step, host milliseconds per step, the ten kernels with the
-most device time, and for a Lucy model the same for the graph run and the
-masked refill's device microseconds.
+steps with the host clock around work that ends in a synchronise. Then
+(a package whose step has ``draw``) a second copy of the iteration is run
+the way the drivers run it on the card (``engine.drive_graph``):
+``--warmup`` eager steps, a CUDA graph of GRAPH_STEPS steps captured, and
+``--steps`` / GRAPH_STEPS replays each followed by the host's read of the
+counters, profiled and then timed (and the capture and the first replay
+timed alone); a CUDA graph of GRAPH_STEPS refills masked off (a step in
+which no lane is refilled still runs its refill's emission pass) is timed
+with CUDA events and profiled, its device time split into the
+``index_add_`` kernels (the peel cubes' and the visits' sums), the
+escape_tau kernel and the rest; and the geometry's ``find_cell`` on the
+carry's lanes (kernels a call, device us a call in a graph of 10 calls).
+With ``--sink-ab`` (imaging and monochromatic models) the step's graph
+and the masked refill's graph are captured twice, the peel cubes'
+``_deposit`` sending masked lanes to one slot of the cube (as a sink slot
+did before) or leaving each at its own clamped in-range index, with a
+zero value, and replayed in turns (sink, own, own, sink) from one saved
+carry state, timed with CUDA events. Prints one JSON object: device kernels and their
+launches per step, the host's launch calls per step (kernels, graphs,
+copies and sets), device busy time per step and its share of the profiled
+span, the deposit_visit and escape_tau kernels' device time and launches
+per step, host milliseconds per step, the ten kernels with the most device
+time, and the graph, refill, find_cell and sink figures.
 
 ``--package DIR`` imports hyperion_tpu_torch from DIR (another commit's
 copy, e.g. ``git archive <rev> hyperion_tpu_torch | tar -x -C DIR``); a
-package without the graph driver gets the eager figures alone.
+step without ``draw`` (an eager-only package's) gets the eager figures
+alone.
 """
 
 import argparse
@@ -54,6 +67,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+LUCY = ('tutorial', 'yso_thick', 'quickstart', 'class2', 'sph_octree')
+MODELS = LUCY + ('quickstart_imaging', 'class2_imaging', 'quickstart_mono')
+# escape_tau.cu's kernel (both modes), by its name in a trace
+ESCAPE_TAU = 'walk_kernel'
+# the index_add_ kernels (the peel cubes' and spectrum bins' sums)
+INDEX_ADD = re.compile(r'index(Func|_add)', re.I)
 # the host's calls that put work on the device
 HOST_LAUNCH = re.compile(r'^cu(da)?(LaunchKernel|LaunchKernelExC|'
                          r'LaunchCooperativeKernel|GraphLaunch|MemcpyAsync|'
@@ -118,15 +137,14 @@ def quickstart_engine(warmup):
                        warmup=warmup) + (geo,)
 
 
-def class2_engine(warmup):
-    """class2's first Lucy iteration as chip_smoke's phase 8 runs it (the
-    arguments run_lucy_model gives it), run through ``warmup`` steps."""
+def first_iteration_engine(model, warmup):
+    """A model's first Lucy iteration as run_lucy_model gives it on the
+    card (chip_smoke.first_iteration_args), run through ``warmup`` steps."""
     import torch
-    from chip_smoke import CLASS2_CUT, class2_model, first_iteration_args
+    from chip_smoke import first_iteration_args
     from hyperion_tpu_torch.transport import engine
 
-    first = first_iteration_args(class2_model(
-        CLASS2_CUT['n_photons'], 1, CLASS2_CUT['n_imaging']))
+    first = first_iteration_args(model)
     args, kw = first['args'], first['kw']
     geo, dt, st, density, jid, jfrac, gen, n_photons, batch, config = args
     n_bins = 0 if kw.get('spec_bins') is None else \
@@ -141,12 +159,54 @@ def class2_engine(warmup):
     return carry, step, gen, geo
 
 
-def lucy_engine(name, warmup):
-    from chip_smoke import tutorial_engine, yso_thick_engine
-    return {'tutorial': lambda: tutorial_engine(warmup=warmup),
-            'yso_thick': lambda: yso_thick_engine(warmup=warmup),
-            'quickstart': lambda: quickstart_engine(warmup),
-            'class2': lambda: class2_engine(warmup)}[name]()
+def mono_engine(warmup):
+    """The quickstart's monochromatic source pass at 1 um (chip_smoke
+    phase 12's model, ``mono_model`` without a specific energy, so without
+    its dust passes; B = 125,000 as there), its arguments taken from
+    run_lucy_model, run through ``warmup`` steps: (carry, step, generator,
+    geometry)."""
+    import torch
+    from chip_smoke import first_mono_pass, mono_model
+    from hyperion_tpu_torch.model import run_lucy_model
+    from hyperion_tpu_torch.transport import mono
+
+    with first_mono_pass('source', f_id=1, stop=True) as rec:
+        run_lucy_model(mono_model(None, False), device='cuda')
+    geo, walk, dt, st, density, groups, _, n_photons = rec['args']
+    kw = rec['kw']
+    kw.pop('max_steps', None)
+    carry = mono._init_mono_carry(groups, n_photons, kw.pop('batch_size'),
+                                  density.device, density.dtype)
+    step = mono.make_mono_step(geo, walk, dt, st, density, groups,
+                               kw.pop('config'), **kw)
+    gen = torch.Generator(device=density.device).manual_seed(1)
+    for _ in range(warmup):
+        step(carry, gen)
+    torch.cuda.synchronize()
+    return carry, step, gen, geo
+
+
+def build(name, warmup):
+    """The named model's iteration on the card, run through ``warmup``
+    steps: (carry, step, generator, geometry)."""
+    from chip_smoke import (CLASS2_CUT, SPH_OCT_CUT, class2_model,
+                            sph_octree_model, tutorial_engine, tutorial_model,
+                            yso_thick_engine)
+    return {
+        'tutorial': lambda: tutorial_engine(warmup=warmup),
+        'yso_thick': lambda: yso_thick_engine(warmup=warmup),
+        'quickstart': lambda: quickstart_engine(warmup),
+        'class2': lambda: first_iteration_engine(class2_model(
+            CLASS2_CUT['n_photons'], 1, CLASS2_CUT['n_imaging']), warmup),
+        'sph_octree': lambda: first_iteration_engine(sph_octree_model(
+            SPH_OCT_CUT['n_photons'], 1, SPH_OCT_CUT['n_imaging'])[0],
+            warmup),
+        'quickstart_imaging': lambda: imaging_engine(tutorial_model(),
+                                                     125_000, warmup),
+        'class2_imaging': lambda: imaging_engine(
+            class2_model(n_photons=200_000, n_iterations=1,
+                         n_imaging=100_000), 50_000, warmup),
+        'quickstart_mono': lambda: mono_engine(warmup)}[name]()
 
 
 def profiled(run, n_steps):
@@ -178,7 +238,7 @@ def profiled(run, n_steps):
         by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
     busy_us = sum(us for us, _ in by_name.values())
     dv = [v for k, v in by_name.items() if 'deposit_visit' in k]
-    et = [v for k, v in by_name.items() if 'escape_tau' in k]
+    et = [v for k, v in by_name.items() if ESCAPE_TAU in k]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     n = n_steps
     return dict(
@@ -197,20 +257,122 @@ def profiled(run, n_steps):
                      for k, (us, c) in top])
 
 
-def graph_figures(name, warmup, n_steps):
-    """A second copy of the Lucy iteration run as on the card's main path:
-    replays of a CUDA graph of GRAPH_STEPS steps, the host reading the
-    counters after each; then the masked refill's device time."""
+def read(engine, carry, step):
+    """The drivers' read of the counters (a package whose read_counts
+    takes no counts counts every read as the Lucy iteration's)."""
+    if hasattr(step, 'counts'):
+        return engine.read_counts(carry, step.counts)
+    return engine.read_counts(carry)
+
+
+def capture(torch, k, body):
+    """A CUDA graph of ``k`` calls of ``body()`` on a side stream."""
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for _ in range(k):
+            body()
+        graph.capture_end()
+    main.wait_stream(side)
+    return graph
+
+
+def event_us(torch, graph, n=20, per=1):
+    """Median device us of a graph's replay (CUDA events), over ``per``."""
     import numpy as np
+    times = []
+    for _ in range(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) * 1e3 / per)
+    return float(np.median(times))
+
+
+def kernel_split(torch, run, n):
+    """Device us of the kernels of ``run()`` over ``n``: all, the
+    index_add_ sums, escape_tau, and the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def us(match):
+        return sum(e.time_range.elapsed_us() for e in kernels
+                   if match(e.name)) / n
+    return dict(device_us=us(lambda name: True),
+                index_add_us=us(lambda name: bool(INDEX_ADD.search(name))),
+                escape_tau_us=us(lambda name: ESCAPE_TAU in name),
+                launches=len(kernels) / n)
+
+
+def refill_figures(carry, step, gen, k):
+    """K refills masked off, captured: device us a refill (CUDA events) and
+    its split (a profile of 5 replays)."""
+    import torch
+    u = step.draw(carry, gen)
+    gate = torch.zeros((), dtype=torch.bool, device=u.device)
+    step.refill(carry, u, gate)
+    graph = capture(torch, k, lambda: step.refill(carry, u, gate))
+    out = dict(masked_refill_us=event_us(torch, graph, per=k))
+
+    def run():
+        for _ in range(5):
+            graph.replay()
+
+    split = kernel_split(torch, run, 5 * k)
+    out.update({'masked_refill_' + key: v for key, v in split.items()})
+    return out
+
+
+def find_cell_figures(carry, geo):
+    """The geometry's find_cell on the carry's lanes: kernels and device us
+    a call (a profile of 10 eager calls; a graph of 10, CUDA events)."""
+    import torch
+    p = carry.packets
+
+    def call():
+        geo.find_cell(p.x, p.y, p.z, p.kx, p.ky, p.kz)
+
+    call()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(10):
+            call()
+
+    split = kernel_split(torch, run, 10)
+    graph = capture(torch, 10, call)
+    return dict(find_cell_launches=split['launches'],
+                find_cell_profiled_us=split['device_us'],
+                find_cell_us=event_us(torch, graph, per=10))
+
+
+def graph_figures(name, warmup, n_steps):
+    """A second copy of the iteration run as the drivers run it on the
+    card: replays of a CUDA graph of GRAPH_STEPS steps, the host reading
+    the counters after each; then the masked refill's device time and the
+    find_cell's."""
     import torch
     from hyperion_tpu_torch.transport import engine
 
-    carry, step, gen, _ = lucy_engine(name, warmup)
+    carry, step, gen, geo = build(name, warmup)
     k = engine.GRAPH_STEPS
     main = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(main)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with torch.cuda.stream(side):
         graph = engine.capture_steps(carry, step, gen, k)
@@ -219,81 +381,144 @@ def graph_figures(name, warmup, n_steps):
     capture_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     graph.replay()
-    engine.read_counts(carry)
+    read(engine, carry, step)
     first_replay_s = time.perf_counter() - t0
     replays = max(1, n_steps // k)
 
     def run():
         for _ in range(replays):
             graph.replay()
-            engine.read_counts(carry)
+            read(engine, carry, step)
 
     run()
     torch.cuda.synchronize()
     out = profiled(run, replays * k)
     out.update(graph_steps=k, replays=replays, capture_s=capture_s,
                first_replay_s=first_replay_s, reads_per_step=1.0 / k,
-               alive_after=int(carry.n_alive), working_steps=int(
-                   carry.n_steps))
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() /
+               1e9, alive_after=int(carry.n_alive),
+               working_steps=int(carry.n_steps))
+    out.update(refill_figures(carry, step, gen, k))
+    out.update(find_cell_figures(carry, geo))
+    return out
 
-    # GRAPH_STEPS refills masked off, captured and timed with CUDA events
+
+def deposit_variant(own_index):
+    """The peel cubes' ``_deposit`` (transport/imaging.py) with its masked
+    lanes sent to the cube's last slot (``own_index`` False: a package
+    whose cubes end in a sink slot sent them there) or left at their own
+    clamped in-range index (True, the package since then), each adding a
+    zero there; the sums are the same either way."""
+    import torch
+
+    def deposit(group, flat, flat2, flatn, spatial_idx, ok_base, inu, nu_ok,
+                tr, io, flux_s):
+        sink = flat.shape[0] - 1
+        S = group.n_stokes
+        vals = torch.stack(flux_s, dim=-1)
+        s_off = torch.arange(S, device=flat.device)
+        if tr is None:
+            ok = (ok_base & nu_ok)[:, None]
+            idx0 = ((spatial_idx * group.n_nu + inu) * group.n_orig + io) * S
+            idx = idx0[:, None] + s_off
+        else:
+            f = torch.arange(group.n_nu, device=flat.device)
+            okf = ok_base[:, None] & (tr > 0.0)
+            idx0 = ((spatial_idx[:, None] * group.n_nu + f) * group.n_orig +
+                    io[:, None]) * S
+            idx = idx0[..., None] + s_off
+            vals = vals[:, None, :] * tr[..., None]
+            ok = okf[..., None]
+        idx = (idx if own_index else torch.where(ok, idx, sink)).reshape(-1)
+        val = torch.where(ok, vals, 0.0).reshape(-1).to(flat.dtype)
+        flat.index_add_(0, idx, val)
+        if group.uncertainties:
+            flat2.index_add_(0, idx, val * val)
+            flatn.index_add_(0, idx, torch.where(
+                ok, torch.ones_like(vals), 0.0).reshape(-1).to(flat.dtype))
+    return deposit
+
+
+def carry_tensors(carry):
+    """Every tensor a carry holds (lanes, counters, cubes)."""
+    import torch
+    out = []
+    for value in vars(carry).values():
+        items = value if isinstance(value, list) else [value]
+        for item in items:
+            if isinstance(item, torch.Tensor):
+                out.append(item)
+            elif item is not None and hasattr(item, '__dict__'):
+                out += [t for t in vars(item).values()
+                        if isinstance(t, torch.Tensor)]
+    return out
+
+
+def sink_ab(name, warmup, replays=10):
+    """The step's graph and the masked refill's graph captured with each
+    ``_deposit`` variant and replayed in turns (sink, own, own, sink) from
+    one saved carry and generator state: device us a step and a refill."""
+    import numpy as np
+    import torch
+    from hyperion_tpu_torch.transport import engine, imaging
+
+    carry, step, gen, _ = build(name, warmup)
+    k = engine.GRAPH_STEPS
+    inner = imaging._deposit
+    graphs = {}
     u = step.draw(carry, gen)
     gate = torch.zeros((), dtype=torch.bool, device=u.device)
-    refills = torch.cuda.CUDAGraph()
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        step.refill(carry, u, gate)
-        refills.capture_begin()
-        for _ in range(k):
-            step.refill(carry, u, gate)
-        refills.capture_end()
-    main.wait_stream(side)
-    times = []
-    for _ in range(20):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        refills.replay()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1) * 1e3 / k)
-    out['masked_refill_us'] = float(np.median(times))
-    return out
+    saved = [t.clone() for t in carry_tensors(carry)]
+    state = gen.get_state()
+    try:
+        for variant in ('sink', 'own'):
+            imaging._deposit = deposit_variant(variant == 'own')
+            step(carry, gen)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                steps = engine.capture_steps(carry, step, gen, k)
+            torch.cuda.current_stream().wait_stream(side)
+            refills = capture(torch, k, lambda: step.refill(carry, u, gate))
+            graphs[variant] = (steps, refills)
+    finally:
+        imaging._deposit = inner
+    times = {v: dict(step_us=[], refill_us=[]) for v in graphs}
+    for variant in ('sink', 'own', 'own', 'sink'):
+        for t, s in zip(carry_tensors(carry), saved):
+            t.copy_(s)
+        gen.set_state(state)
+        steps, refills = graphs[variant]
+        times[variant]['step_us'].append(event_us(torch, steps, replays, k))
+        times[variant]['refill_us'].append(event_us(torch, refills, 5, k))
+    return {v: {key: float(np.mean(x)) for key, x in t.items()} | dict(
+        turns=t) for v, t in times.items()}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=['tutorial', 'yso_thick',
-                                        'quickstart', 'class2',
-                                        'quickstart_imaging',
-                                        'class2_imaging'],
-                    default='tutorial')
+    ap.add_argument('--model', choices=MODELS, default='tutorial')
     ap.add_argument('--warmup', type=int, default=20)
     ap.add_argument('--steps', type=int, default=48)
     ap.add_argument('--package', default=None,
                     help='import hyperion_tpu_torch from this directory')
     ap.add_argument('--graph-steps', type=int, default=None,
                     help='steps a graph holds (engine.GRAPH_STEPS)')
+    ap.add_argument('--sink-ab', action='store_true',
+                    help='time the peel cubes\' two masked-lane layouts')
     args = ap.parse_args()
     if args.package:
         sys.path.insert(0, str(Path(args.package).resolve()))
     import torch
-    from chip_smoke import card_line, class2_model, tutorial_model
+    from chip_smoke import card_line
     from hyperion_tpu_torch.transport import engine
 
     if not torch.cuda.is_available():
         print('profile_step: needs an NVIDIA card', file=sys.stderr)
         return 1
-    lucy = args.model in ('tutorial', 'yso_thick', 'quickstart', 'class2')
-    if lucy:
-        carry, step, gen, geo = lucy_engine(args.model, args.warmup)
-    elif args.model == 'quickstart_imaging':
-        carry, step, gen, geo = imaging_engine(tutorial_model(), 125_000,
-                                               args.warmup)
-    else:
-        carry, step, gen, geo = imaging_engine(
-            class2_model(n_photons=200_000, n_iterations=1,
-                         n_imaging=100_000), 50_000, args.warmup)
+    if args.graph_steps:
+        engine.GRAPH_STEPS = args.graph_steps
+    carry, step, gen, geo = build(args.model, args.warmup)
 
     def run():
         for _ in range(args.steps):
@@ -301,15 +526,17 @@ def main():
 
     out = dict(card=card_line(), torch=torch.__version__, model=args.model,
                package=str(Path(engine.__file__).parents[2]),
-               B=carry.packets.x.shape[0], n_cells=geo.n_cells,
+               B=carry.packets.x.shape[0],
+               n_cells=geo.n_cells,
                steps=args.steps)
     out.update(profiled(run, args.steps))
     out['alive_after'] = int(carry.n_alive)
-    if lucy and hasattr(engine, 'capture_steps'):
-        if args.graph_steps:
-            engine.GRAPH_STEPS = args.graph_steps
-        del carry, step
+    graph = hasattr(step, 'draw')
+    del carry, step
+    if graph:
         out['graph'] = graph_figures(args.model, args.warmup, args.steps)
+    if args.sink_ab and graph and args.model not in LUCY:
+        out['sink_ab'] = sink_ab(args.model, args.warmup)
     print(json.dumps(out, indent=1))
     return 0
 

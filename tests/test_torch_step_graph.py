@@ -162,7 +162,8 @@ def test_graph_iteration_equals_eager_on_the_card():
     """On the card: run_lucy_iteration (replays of a CUDA graph) against
     the eager step loop on the same generator seed, for the tutorial at
     8^3 and class2 with a step cap: counts, steps and killed equal, the
-    float32 energies (float atomics) within rtol 1e-4."""
+    generators left in the same state, the float32 energies (float
+    atomics) within rtol 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the graph runs only there")
     for args, kw in (
@@ -173,7 +174,7 @@ def test_graph_iteration_equals_eager_on_the_card():
                                              n_photons=2000)),
                             device='cuda', batch_size=512)):
         args[CONFIG] = dict(args[CONFIG], max_steps=300)
-        outs = []
+        outs, states = [], []
         for graph in (False, True):
             args[GEN] = torch.Generator(device='cuda').manual_seed(5)
             if graph:
@@ -184,9 +185,10 @@ def test_graph_iteration_equals_eager_on_the_card():
                 _, n = engine.drive_steps(carry, step, args[GEN], 300)
                 out = engine.finish_lucy_iteration(carry, n)
             outs.append(out)
+            states.append(args[GEN].get_state())
         (e0, c0, n0, k0, g0, s0, _, v0), (e1, c1, n1, k1, g1, s1, _, v1) = \
             outs
         assert s0 == s1 and torch.equal(n0, n1) and int(k0) == int(k1)
         assert int(g0) == int(g1) and int(v0) == int(v1)
-        assert float(c0) == float(c1)
+        assert float(c0) == float(c1) and torch.equal(*states)
         torch.testing.assert_close(e1, e0, rtol=1e-4, atol=0.0)
