@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. the card and the software: name and power limit, torch, CUDA, nvcc;
-2. build the deposit_visit, escape_tau and voronoi_locate kernels from
+2. build the deposit_visit, escape_tau and voronoi_locate kernels and the
+   conditional nodes' library (cond_node) from
    hyperion_tpu_torch/transport/csrc, one nvcc per source, all at once;
 3. the kernel against its plain PyTorch version, counts and uids equal and
    float32 energies within rtol 1e-4 of a float64 plain run (the kernel's
@@ -226,7 +227,14 @@ On the card run_lucy_iteration runs each Lucy iteration, run_final the
 imaging iteration and run_mono_pass each monochromatic pass as replays of
 a CUDA graph of GRAPH_STEPS steps (hyperion_tpu_torch/transport/engine.py):
 its first step runs eagerly, the next GRAPH_STEPS are captured, and a
-replay launches the captured kernels again without their wrappers. Each
+replay launches the captured kernels again without their wrappers. A
+step's refill, and the Lucy step's MRW move, are IF conditional nodes of
+the graph (engine.run_if, csrc/cond_node.cu) that a replay skips where
+their gate is false; each iteration counts the bodies that ran, and the
+witnesses and phases 4, 5, 8 and 9 print them beside the working steps
+(check_bodies: the eager loop runs them every step, the graph no more
+often, and a whole tutorial, quickstart or class2 iteration skips some
+refills). Each
 kernel's launch count (its wrapper's: a launch captured into a graph
 counts once, at its capture) is reset just before and read just after
 each main-path run (phases 4, 8, 9, 11, 12, 14, 16, 17, 18 and, on rank
@@ -499,6 +507,12 @@ GRAPH_WITNESS_SEED = 20
 # 16-18): the working steps each run takes (None: whole); a box grid's
 # eager run records phase 10's walks of WALK_WINDOWS, so at least 60
 IMAGING_WITNESS_STEPS = dict(tutorial=None, class2=200, box=100)
+# the witnesses whose graph run must skip its refill in some working step
+# (check_bodies; phase 5 holds the bench quickstart's whole iteration to
+# the same): the refill waits for a quarter of the lanes to die, which the
+# tutorial's whole iterations and class2's first 300 Lucy steps do not see
+# every step
+REFILL_SKIPS = dict(lucy=('tutorial', 'class2'), imaging=('tutorial',))
 # check_imaging's bound on the main path's host synchronisations a working
 # imaging step: the replays of GRAPH_STEPS = 4 steps read the counters once
 # each, and the tables' set-up adds a fixed few (0.254-0.290 a step in all
@@ -1196,12 +1210,13 @@ def check_imaging(what, run, n_photons, syncs, card):
                step_counts=counts,
                occupancy=img.n_events / (img.n_steps * img.batch_size))
     phase('%s imaging: %d photons in %.3f s, %d steps (%d replays of %d, %d '
-          'eager), %.3f ms per step, %.3f host reads of the counters and '
-          '%.3f host synchronisations per step, occupancy %.4f, killed_int '
-          '%d [%s]'
+          'eager), refill bodies %d of the %d steps, %.3f ms per step, %.3f '
+          'host reads of the counters and %.3f host synchronisations per '
+          'step, occupancy %.4f, killed_int %d [%s]'
           % (what, n_photons, img.wall, img.n_steps, counts['replays'],
-             engine.GRAPH_STEPS, counts['eager'], row['ms_per_step'], reads,
-             per_step, row['occupancy'], img.killed_int, card))
+             engine.GRAPH_STEPS, counts['eager'], counts['refills'],
+             img.n_steps, row['ms_per_step'], reads, per_step,
+             row['occupancy'], img.killed_int, card))
     return row
 
 
@@ -1226,15 +1241,16 @@ def band_fraction(temperature, wav_min, wav_max):
 def check_step_counts(what, launches, counts, steps, iterations):
     """The Lucy steps of a main-path run of ``iterations`` iterations
     (``engine.step_counts`` over it) against its deposit_visit launches
-    and its working steps: each step calls the kernel twice (its masked
+    and its working steps: each step calls the kernel twice (its gated
     refill's visits and its own), so the wrapper counts two launches for
     each step run eagerly or captured into a graph (a replay launches the
     captured ones again without it), and one an iteration for the flush
     at its end; every working step ran eagerly or in a replay; the host
     read the counters at most once a step. Returns the device's
-    launches."""
+    launches: a step's own, a refill's where its body ran (every eager
+    step; in a replay where its gate held) and the flushes."""
     ran = counts['eager'] + counts['replayed']
-    device = 2 * ran + iterations
+    device = ran + counts['refills'] + iterations
     if launches != 2 * (counts['eager'] + counts['captured']) + \
             iterations or \
             ran < steps or not counts['replays'] or counts['reads'] > steps:
@@ -1245,11 +1261,13 @@ def check_step_counts(what, launches, counts, steps, iterations):
                              deposit_visit_wrapper_launches=launches,
                              deposit_visit_device_launches=device)
     phase('%s Lucy steps: %d working, %d eager, %d captured, %d replays of '
-          '%d, %d host reads (%.4f a working step); deposit_visit launched '
-          '%d times by its wrapper, %d times on the device'
+          '%d, %d host reads (%.4f a working step); refill bodies %d, MRW '
+          'bodies %d of the %d working steps; deposit_visit launched %d '
+          'times by its wrapper, %d times on the device'
           % (what, steps, counts['eager'], counts['captured'],
              counts['replays'], counts['replayed'], counts['reads'],
-             counts['reads'] / steps, launches, device))
+             counts['reads'] / steps, counts['refills'], counts['mrw_moves'],
+             steps, launches, device))
     return device
 
 
@@ -1411,10 +1429,14 @@ def physics_on_card(card):
                  host_reads_per_step=counts['reads'] / int(out[5]))
     phase('bench quickstart config: %.4f s, %.1f photons/s, %d steps, '
           'occupancy %.4f, %d graph replays of %d steps, %.4f host reads per '
-          'step [%s]' % (wall, bench['photons_per_sec'], bench['steps'],
-                         bench['occupancy'], counts['replays'],
-                         counts['replayed'], bench['host_reads_per_step'],
-                         card))
+          'step, refill bodies %d of the %d working steps [%s]'
+          % (wall, bench['photons_per_sec'], bench['steps'],
+             bench['occupancy'], counts['replays'], counts['replayed'],
+             bench['host_reads_per_step'], counts['refills'], bench['steps'],
+             card))
+    if counts['refills'] >= bench['steps']:
+        raise AssertionError('bench quickstart: the refill ran in every '
+                             'working step: %s' % counts)
 
     # host synchronisations inside the step (none: the driver reads the
     # counters), counted by torch's sync debug mode
@@ -1638,9 +1660,9 @@ def both_ways(run, counts):
     """``run(how, generator)`` for how 'graph' and 'eager', each from a
     generator on the card seeded GRAPH_WITNESS_SEED, the iteration's step
     counts (``counts``, an ``engine`` dict) reset before: {how: (its
-    output, wall seconds, a copy of the counts, the generator's state
-    after)}; the graph run first, its peak device memory (bytes) under
-    'graph_memory'."""
+    output, wall seconds, a copy of the counts with the conditional nodes
+    captured under 'nodes', the generator's state after)}; the graph run
+    first, its peak device memory (bytes) under 'graph_memory'."""
     import torch
     from hyperion_tpu_torch.transport import engine
 
@@ -1653,10 +1675,37 @@ def both_ways(run, counts):
         t0 = time.time()
         out = run(how, gen)
         torch.cuda.synchronize()
-        runs[how] = (out, time.time() - t0, dict(counts), gen.get_state())
+        runs[how] = (out, time.time() - t0,
+                     dict(counts, nodes=engine.cond_nodes), gen.get_state())
         if how == 'graph':
             runs['graph_memory'] = torch.cuda.max_memory_allocated()
     return runs
+
+
+def check_bodies(what, g_counts, e_counts, steps, mrw, must_skip):
+    """The gated bodies (``engine.run_if``) of a witness's graph and eager
+    runs (their step counts ``g_counts`` and ``e_counts``) beside its
+    ``steps`` working steps: raises unless the eager run ran its refill,
+    and with ``mrw`` its MRW move, in every step, and the graph run
+    captured a conditional node for each in every captured step and ran no
+    more bodies than the eager run; with ``must_skip`` (REFILL_SKIPS)
+    unless the graph run skipped a refill in some working step. Returns
+    the text for the phase line."""
+    text = ('refill bodies %d of %d working steps (eager %d), MRW bodies %d '
+            '(eager %d), %d conditional nodes captured'
+            % (g_counts['refills'], steps, e_counts['refills'],
+               g_counts['mrw_moves'], e_counts['mrw_moves'],
+               g_counts['nodes']))
+    ok = (e_counts['refills'] == e_counts['eager'] and
+          e_counts['mrw_moves'] == (e_counts['eager'] if mrw else 0) and
+          g_counts['nodes'] == g_counts['captured'] * (2 if mrw else 1) and
+          g_counts['refills'] <= e_counts['refills'] and
+          g_counts['mrw_moves'] <= e_counts['mrw_moves'] and
+          not (must_skip and g_counts['refills'] >= steps))
+    if not ok:
+        raise AssertionError('%s: gated bodies: %s; step counts %s, eager %s'
+                             % (what, text, g_counts, e_counts))
+    return text
 
 
 def graph_witness(what, first, max_steps, card, recorder=None,
@@ -1719,24 +1768,28 @@ def graph_witness(what, first, max_steps, card, recorder=None,
         eager_ms_per_step=e_wall * 1e3 / steps,
         graph_ms_per_step=g_wall * 1e3 / steps,
         speedup=e_wall / g_wall, graph_steps=engine.GRAPH_STEPS,
-        graph_counts=g_counts, eager_reads_per_step=e_counts['reads'] / steps,
+        graph_counts=g_counts, eager_counts=e_counts,
+        eager_reads_per_step=e_counts['reads'] / steps,
         graph_reads_per_step=g_counts['reads'] / steps,
         graph_max_memory_gb=runs['graph_memory'] / 1e9)
     GRAPH_WITNESS[what] = rep
+    bodies = check_bodies(what, g_counts, e_counts, steps,
+                          kw.get('mrw') is not None,
+                          what in REFILL_SKIPS['lucy'])
     phase('%s Lucy iteration 1 (%s, B=%d) both ways: graph of %d steps '
           '(%d replays, %d eager steps) against the eager step loop, %d '
           'working steps both, killed %d/%d, events %d; equal: %s; '
           'energy_sum max rel err %.3g; eager %.3f ms per step (%.3f reads '
-          'per step), graph %.3f ms per step (%.4f reads per step), %.2fx '
-          '[%s]' % (what, 'whole' if max_steps is None else
-                    'first %d steps' % max_steps, rep['lanes'],
-                    engine.GRAPH_STEPS, g_counts['replays'],
-                    g_counts['eager'], steps, rep['killed_int'],
-                    rep['killed_geo'], rep['n_events'],
-                    ', '.join(k for k, v in equal.items() if v), errs[0],
-                    rep['eager_ms_per_step'], rep['eager_reads_per_step'],
-                    rep['graph_ms_per_step'], rep['graph_reads_per_step'],
-                    rep['speedup'], card))
+          'per step), graph %.3f ms per step (%.4f reads per step), %.2fx; '
+          '%s [%s]'
+          % (what, 'whole' if max_steps is None else
+             'first %d steps' % max_steps, rep['lanes'], engine.GRAPH_STEPS,
+             g_counts['replays'], g_counts['eager'], steps,
+             rep['killed_int'], rep['killed_geo'], rep['n_events'],
+             ', '.join(k for k, v in equal.items() if v), errs[0],
+             rep['eager_ms_per_step'], rep['eager_reads_per_step'],
+             rep['graph_ms_per_step'], rep['graph_reads_per_step'],
+             rep['speedup'], bodies, card))
     if not all(equal.values()) or not g_counts['replays']:
         raise AssertionError('%s: the graph run differs from the eager one: '
                              '%s' % (what, rep))
@@ -1841,11 +1894,13 @@ def imaging_witness(what, rec, max_steps, card, mono=False, recorder=None):
         graph_reads_per_step=g_counts['reads'] / steps,
         graph_max_memory_gb=runs['graph_memory'] / 1e9)
     IMAGING_WITNESS[what] = rep
+    bodies = check_bodies(what, g_counts, e_counts, steps, False,
+                          not mono and what in REFILL_SKIPS['imaging'])
     phase('%s %s (%s, B=%d) both ways: graph of %d steps (%d replays, %d '
           'eager steps) against the eager step loop, %d working steps both, '
           'counts %s; equal: %s; cubes max rel err %.3g; eager %.3f ms per '
           'step, graph %.3f ms per step (%.4f reads per step, %.3f GB peak), '
-          '%.2fx [%s]'
+          '%.2fx; %s [%s]'
           % (what, 'monochromatic pass' if mono else 'imaging iteration',
              'whole' if max_steps is None else 'first %d steps' % max_steps,
              rep['lanes'], engine.GRAPH_STEPS, g_counts['replays'],
@@ -1853,7 +1908,7 @@ def imaging_witness(what, rec, max_steps, card, mono=False, recorder=None):
              ', '.join(k for k, v in equal.items() if v),
              rep['cube_max_rel_err'], rep['eager_ms_per_step'],
              rep['graph_ms_per_step'], rep['graph_reads_per_step'],
-             rep['graph_max_memory_gb'], rep['speedup'], card))
+             rep['graph_max_memory_gb'], rep['speedup'], bodies, card))
     if not all(equal.values()) or not g_counts['replays']:
         raise AssertionError('%s: the graph run differs from the eager one: '
                              '%s, errors %s' % (what, rep, errs))
@@ -4961,7 +5016,8 @@ def main():
 
     # 2. build the libraries, one nvcc each, all at once
     t0 = time.time()
-    libs = _build.build('deposit_visit', 'escape_tau', 'voronoi_locate')
+    libs = _build.build('deposit_visit', 'escape_tau', 'voronoi_locate',
+                        'cond_node')
     phase('built %s in %.2f s' % (', '.join(lib.name for lib in libs),
                                   time.time() - t0))
 

@@ -14,17 +14,20 @@ All random numbers of a step are drawn in one ``torch.rand`` call from the
 iteration's generator; the physics functions take uniforms. A step reads
 nothing on the host: the budget, the uid counter, the alive and waiting
 counts and the count of working steps live on the device, the refill runs
-in every step masked by a gate computed there (as the JAX step refills),
-and every result is written into the carry's own tensors. On a CUDA
-device the iteration runs as replays of one CUDA graph of GRAPH_STEPS
-steps, the host reading the counters once after each replay (the JAX
-package runs the same loop as one device-resident ``lax.while_loop``); on
-the CPU the same step runs eagerly and the counters are read after each.
-The MRW branch is computed masked in every step of an MRW run. Map sources
-place their photons in the grid's cells, and a map with an LTE spectrum
-draws its frequencies from the dust emissivity there (``se_rho``, the
-specific energy times the density of the previous iteration)."""
+under a gate computed there, and every result is written into the
+carry's own tensors. On a CUDA device the iteration runs as replays of one
+CUDA graph of GRAPH_STEPS steps, the host reading the counters once after
+each replay (the JAX package runs the same loop as one device-resident
+``lax.while_loop``); on the CPU the same step runs eagerly and the
+counters are read after each. The JAX step's two ``lax.cond``s, the refill
+and the MRW move, are :func:`run_if`: in a graph an IF conditional node
+that a replay skips where the gate is false, eagerly a body masked by the
+gate. Map sources place their photons in the grid's cells, and a map with
+an LTE spectrum draws its frequencies from the dust emissivity there
+(``se_rho``, the specific energy times the density of the previous
+iteration)."""
 
+import ctypes
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -63,10 +66,14 @@ GRAPH_STEPS = 4
 
 # how this process ran each iteration's steps since the last reset, one
 # dict an iteration (a step's ``counts``): steps run eagerly, steps
-# captured into graphs, graph replays and the steps they ran, and host
-# reads of the counters (chip_smoke.py and scripts/profile_step.py read
+# captured into graphs, graph replays and the steps they ran, host reads
+# of the counters, and the gated bodies that ran (run_if: refills, and the
+# Lucy step's MRW moves; each carry counts its own on the device, read once
+# at the iteration's end: eagerly a body runs every step, in a graph only
+# where its gate holds) (chip_smoke.py and scripts/profile_step.py read
 # them); ``step_counts`` is the Lucy iteration's
-step_counts = dict(eager=0, captured=0, replays=0, replayed=0, reads=0)
+step_counts = dict(eager=0, captured=0, replays=0, replayed=0, reads=0,
+                   refills=0, mrw_moves=0)
 imaging_step_counts = dict(step_counts)
 mono_step_counts = dict(step_counts)
 
@@ -77,21 +84,24 @@ COUNTERS = ('budget', 'n_alive', 'n_pending', 'n_steps')
 
 
 def reset_step_counts():
+    global cond_nodes
     for counts in (step_counts, imaging_step_counts, mono_step_counts):
         for k in counts:
             counts[k] = 0
+    cond_nodes = 0
 
 
 def own_carry(carry):
     """Give a carry of the imaging or monochromatic step its own copy of
     its lanes (the step writes them in place: lanes that share memory with
     the caller's arrays, as ``torch.as_tensor`` of a numpy array does, are
-    left as they were), and make each of its COUNTERS a () int64 tensor on
-    the lanes' device (a host int given for one becomes one)."""
+    left as they were), and make each of its COUNTERS and its count of
+    refills a () int64 tensor on the lanes' device (a host int given for
+    one becomes one)."""
     p = carry.packets
     carry.packets = dataclasses.replace(p, **{
         f.name: getattr(p, f.name).clone() for f in dataclasses.fields(p)})
-    for name in COUNTERS:
+    for name in COUNTERS + ('refills',):
         value = getattr(carry, name)
         if not isinstance(value, torch.Tensor):
             setattr(carry, name, torch.full((), int(value),
@@ -148,6 +158,9 @@ class LucyCarry:
     # lanes that moved (crossing or interaction) or jumped (MRW):
     # n_events/(n_steps*B) is the alive-lane occupancy
     n_events: torch.Tensor         # () int64
+    # () int64 device counts of the gated bodies that ran (run_if)
+    refills: torch.Tensor
+    mrw_moves: torch.Tensor
 
 
 def update_optical_constants(dt, nu):
@@ -441,55 +454,60 @@ def make_lucy_step(geometry, dt, st, density, jnu_var_id, jnu_var_frac,
         carry.n_steps += (carry.budget > 0) | (carry.n_alive > 0) | \
             (carry.n_pending > 0)
         # refill when >= 1/4 of the lanes are dead (or none is alive), or a
-        # re-absorbed photon waits (the gate the JAX step computes; the
-        # emission pass runs over every lane either way)
+        # re-absorbed photon waits (the gate the JAX step computes)
         gate = ((carry.budget > 0) & ((carry.n_alive * 4 <= 3 * B) |
                                       (carry.n_alive == 0))) | \
             (carry.n_pending > 0)
-        refill(carry, u, gate)
+        run_refill(refill, carry, u, gate)
 
         cell_safe = p.cell.clamp_min(0)
         rho_rows = rho_t[cell_safe]
         vid_rows = vid_t[cell_safe]
         vfrac_rows = vfrac_t[cell_safe]
-        x, y, z, kx, ky, kz = p.x, p.y, p.z, p.kx, p.ky, p.kz
-        nu, chi, kappa, albedo = p.nu, p.chi, p.kappa, p.albedo
-        cell, n_mrw, alive = p.cell, p.n_mrw, p.alive
-        active = alive
+        active = p.alive
 
         # --- modified random walk (ref iter_lucy.f90:138-152): lanes deep
-        # in a cell jump; their deposits go to the cell they jump from ---
+        # in a cell jump; their deposits go to the cell they jump from.
+        # The move runs only where a lane jumps (the JAX step's lax.cond);
+        # it writes the packets in place and its deposits into mrw_deps,
+        # which stays zero where it does not run ---
         mrw_deps = None
         if mrw is not None:
             alpha_inv = alpha_t[cell_safe]
-            d_close = geometry.closest_wall_distance(cell_safe, x, y, z)
-            mrw_now = alive & (p.n_inter >= 1) & \
+            d_close = geometry.closest_wall_distance(cell_safe, p.x, p.y,
+                                                     p.z)
+            mrw_now = active & (p.n_inter >= 1) & \
                 (alpha_inv * d_close > mrw.gamma)
-            mrw_deps, x_m, y_m, z_m, (nkx, nky, nkz), nu_m, chi_m, \
-                kappa_m, alb_m = mrw_jump_update(
-                    dt, mrw, u[U_MRW_Y:U_MRW_XI + 1], mrw_now, x, y, z,
-                    p.energy, chi, d_close, alpha_inv, kp_t[cell_safe],
-                    rho_rows, vid_rows, vfrac_rows)
-            n_mrw = n_mrw + mrw_now.to(torch.int32)
-            killed_mrw = mrw_now & (n_mrw > n_mrw_max)
-            # the jump sphere touches the nearest wall: locate with the
-            # new direction so that a tangent landing picks its side
-            cell_rm = geometry.find_cell(x_m, y_m, z_m, nkx, nky, nkz)
-            cell = torch.where(mrw_now & (cell_rm != ESCAPED), cell_rm, cell)
-            x = torch.where(mrw_now, x_m, x)
-            y = torch.where(mrw_now, y_m, y)
-            z = torch.where(mrw_now, z_m, z)
-            kx = torch.where(mrw_now, nkx, kx)
-            ky = torch.where(mrw_now, nky, ky)
-            kz = torch.where(mrw_now, nkz, kz)
-            nu = torch.where(mrw_now, nu_m, nu)
-            chi = torch.where(mrw_now[:, None], chi_m, chi)
-            kappa = torch.where(mrw_now[:, None], kappa_m, kappa)
-            albedo = torch.where(mrw_now[:, None], alb_m, albedo)
-            alive = alive & ~killed_mrw
-            carry.killed_int += killed_mrw.sum()
+            mrw_deps = torch.zeros_like(p.chi)
+
+            def mrw_body():
+                deps, x_m, y_m, z_m, (nkx, nky, nkz), nu_m, chi_m, \
+                    kappa_m, alb_m = mrw_jump_update(
+                        dt, mrw, u[U_MRW_Y:U_MRW_XI + 1], mrw_now, p.x, p.y,
+                        p.z, p.energy, p.chi, d_close, alpha_inv,
+                        kp_t[cell_safe], rho_rows, vid_rows, vfrac_rows)
+                mrw_deps.copy_(deps)
+                p.n_mrw += mrw_now.to(torch.int32)
+                killed_mrw = mrw_now & (p.n_mrw > n_mrw_max)
+                # the jump sphere touches the nearest wall: locate with the
+                # new direction so that a tangent landing picks its side
+                cell_rm = geometry.find_cell(x_m, y_m, z_m, nkx, nky, nkz)
+                put_where(p.cell, cell_rm, mrw_now & (cell_rm != ESCAPED))
+                for name, value in (('x', x_m), ('y', y_m), ('z', z_m),
+                                    ('kx', nkx), ('ky', nky), ('kz', nkz),
+                                    ('nu', nu_m), ('chi', chi_m),
+                                    ('kappa', kappa_m), ('albedo', alb_m)):
+                    put_where(getattr(p, name), value, mrw_now)
+                p.alive &= ~killed_mrw
+                carry.killed_int += killed_mrw.sum()
+                carry.mrw_moves += 1
+
+            run_if(mrw_now.any(), mrw_body)
             # lanes that jumped skip the propagation below
-            active = alive & ~mrw_now
+            active = p.alive & ~mrw_now
+        x, y, z, kx, ky, kz = p.x, p.y, p.z, p.kx, p.ky, p.kz
+        nu, chi, kappa, albedo = p.nu, p.chi, p.kappa, p.albedo
+        cell, n_mrw, alive = p.cell, p.n_mrw, p.alive
 
         # --- distance to the next wall, optical depth through the cell ---
         t_wall, next_cell, ax, wall_coord = geometry.find_wall(
@@ -623,6 +641,116 @@ def put(packets, **fields):
         getattr(packets, name).copy_(value)
 
 
+# the memory pools of the CUDA graphs that capture_steps is capturing (one
+# at a time): run_if routes a body's allocations into its graph's pool
+_capture_pools = []
+# conditional nodes captured since the last reset (reset_step_counts)
+cond_nodes = 0
+# {device: the stream that captures the gated bodies on it}
+_body_streams = {}
+
+
+def run_if(gate, body):
+    """Run ``body()`` where the () bool tensor ``gate`` holds: the port's
+    ``jax.lax.cond`` around a step's refill and MRW move. While the current
+    stream captures a CUDA graph (:func:`capture_steps`), ``body`` is
+    captured into an IF conditional node of that graph, and a replay runs
+    it only where ``gate`` holds at that point of the replay (:func:`if_node`).
+    Otherwise, on the CPU and in eager steps on the card, ``body()`` runs,
+    and masks itself by ``gate``. So a body must change nothing when its
+    gate is false, write only into tensors made before it, and draw no
+    random numbers: then a skipped body leaves the carry and the generator
+    as the masked one does."""
+    if gate.device.type == 'cuda' and torch.cuda.is_current_stream_capturing():
+        if_node(gate, body)
+    else:
+        body()
+
+
+def run_refill(refill, carry, u, gate):
+    """A step's ``refill(carry, u, gate)`` under its gate (:func:`run_if`),
+    counted in ``carry.refills`` where its body runs."""
+    def body():
+        refill(carry, u, gate)
+        carry.refills += 1
+
+    run_if(gate, body)
+
+
+def if_node(gate, body):
+    """Capture ``body()`` into an IF conditional node of the CUDA graph that
+    :func:`capture_steps` is capturing on the current stream
+    (``csrc/cond_node.cu``): a one-thread kernel sets the node's condition
+    from ``gate``, a stream of its own captures the body into the node's
+    graph, and the caching allocator gives the body's tensors memory from
+    the graph's pool. Raises where the node cannot be made or the body
+    cannot be captured; nothing is captured unconditionally instead."""
+    if not _capture_pools:
+        raise RuntimeError("run_if: the current stream captures a graph that "
+                           "capture_steps did not begin")
+    if gate.dtype != torch.bool or gate.dim() != 0:
+        raise ValueError("run_if: the gate must be a () bool tensor, not %s "
+                         "%s" % (gate.dtype, tuple(gate.shape)))
+    global cond_nodes
+    lib, child = _cond_lib(gate.device)
+    pool = _capture_pools[-1]
+    index = gate.device.index
+    parent = torch.cuda.current_stream(gate.device)
+    if parent.cuda_stream == child.cuda_stream:
+        raise RuntimeError("run_if: a gated body cannot hold another")
+    err = lib.cond_begin(parent.cuda_stream, child.cuda_stream,
+                         gate.data_ptr())
+    if err != 0:
+        raise RuntimeError("run_if: no conditional node (cudaError %d)" % err)
+    cond_nodes += 1
+    # the caching allocator gives the graph's pool to the parent's capture
+    # only: the body's stream takes it over until the body is captured
+    # (each begin takes a reference to the pool and each release gives it
+    # back; the graph holds its own)
+    C = torch._C
+    C._cuda_endAllocateToPool(index, pool)
+    try:
+        with torch.cuda.stream(child):
+            C._cuda_beginAllocateCurrentStreamToPool(index, pool)
+            try:
+                body()
+            finally:
+                C._cuda_endAllocateToPool(index, pool)
+                C._cuda_releasePool(index, pool)
+                err = lib.cond_end(child.cuda_stream)
+    finally:
+        C._cuda_beginAllocateCurrentStreamToPool(index, pool)
+        C._cuda_releasePool(index, pool)
+    if err != 0:
+        raise RuntimeError("run_if: the body's capture failed (cudaError %d)"
+                           % err)
+
+
+def _cond_lib(device):
+    """The library of ``csrc/cond_node.cu`` and the stream of the bodies'
+    captures on ``device``: one of the library's own, made at first use
+    (PyTorch's pool of streams hands out the stream that captures the
+    graph again after 32 others)."""
+    from . import _build
+    lib = _build.load('cond_node')
+    if lib.cond_begin.argtypes is None:
+        lib.cond_begin.argtypes = [ctypes.c_void_p] * 3
+        lib.cond_end.argtypes = [ctypes.c_void_p]
+        lib.cond_stream.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+        for fn in (lib.cond_begin, lib.cond_end, lib.cond_stream):
+            fn.restype = ctypes.c_int
+    stream = _body_streams.get(device)
+    if stream is None:
+        handle = ctypes.c_void_p()
+        err = lib.cond_stream(ctypes.byref(handle))
+        if err != 0:
+            raise RuntimeError("run_if: no stream for the bodies (cudaError "
+                               "%d)" % err)
+        stream = _body_streams[device] = torch.cuda.ExternalStream(
+            handle.value, device=device)
+    return lib, stream
+
+
 def _init_lucy_carry(dt, density, n_photons, batch_size, n_bins=0):
     n_dust, n_cells = density.shape
     dtype = density.dtype
@@ -656,7 +784,8 @@ def _init_lucy_carry(dt, density, n_photons, batch_size, n_bins=0):
         energy_sum_spec=zeros(n_dust, n_bins, n_cells),
         killed_int=zeros(dtype=torch.int64),
         killed_geo=zeros(dtype=torch.int64),
-        n_events=zeros(dtype=torch.int64))
+        n_events=zeros(dtype=torch.int64), refills=count(),
+        mrw_moves=count())
 
 
 def read_counts(carry, counts=step_counts):
@@ -715,10 +844,13 @@ def capture_steps(carry, step, generator, k):
     steps and advances the generator as k eager steps would. The carry
     must have run a step eagerly first (the lazily built tables and
     kernels). Anything in the step that synchronises makes the capture
-    raise, and so does this."""
+    raise, and so does this. The step's :func:`run_if` bodies become
+    conditional nodes of the graph."""
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
-    graph.capture_begin()
+    pool = torch.cuda.graph_pool_handle()
+    graph.capture_begin(pool=pool)
+    _capture_pools.append(pool)
     try:
         for _ in range(k):
             step(carry, generator)
@@ -728,6 +860,8 @@ def capture_steps(carry, step, generator, k):
         except RuntimeError:
             pass
         raise
+    finally:
+        _capture_pools.pop()
     graph.capture_end()
     step.counts['captured'] += k
     return graph
@@ -777,7 +911,12 @@ def start_lucy_iteration(geometry, dt, st, density, jnu_var_id,
 def finish_lucy_iteration(carry, n_steps):
     """The tuple of :func:`run_lucy_iteration` from a carry that has run
     ``n_steps`` working steps: lanes still alive (or waiting for
-    re-emission) at max_steps are killed (the bounded-step safety net)."""
+    re-emission) at max_steps are killed (the bounded-step safety net).
+    Adds the gated bodies that ran to ``step_counts``: one host read."""
+    refills, mrw_moves = torch.stack([carry.refills,
+                                      carry.mrw_moves]).tolist()
+    step_counts['refills'] += refills
+    step_counts['mrw_moves'] += mrw_moves
     carry.stats.flush()
     p = carry.packets
     killed_int = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()

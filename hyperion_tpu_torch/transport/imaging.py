@@ -17,17 +17,18 @@ the emission peel's call, reweights the packet (WR99 or Baes16).
 
 One ``(n_rows, B)`` block of uniforms per step, and no host read inside
 a step: as in the Lucy step (``engine.py``), the budget and the alive,
-waiting and working-step counts live on the device, the refill runs in
-every step masked by a device gate (a quarter of the lanes dead, or none
-alive, while budget remains; or a re-absorbed photon waiting), and every
-lane field is written into the carry's own tensors. On a CUDA device the
-iteration runs as replays of one CUDA graph of ``engine.GRAPH_STEPS``
-steps, the host reading the counters once a replay; on the CPU one step
-at a time. No event is gated on an ``any()``, since the walk returns at
-once for lanes that are not active. An external sphere's emission peels
-with its inward normal's cosine law, as a star's with its outward one. The
-monochromatic iteration (``mono.py``) peels through :func:`peel_and_bin`
-too."""
+waiting and working-step counts live on the device, the refill runs
+under a device gate (a quarter of the lanes dead, or none alive, while
+budget remains; or a re-absorbed photon waiting: ``engine.run_if``, in a
+CUDA graph a conditional node skipped where the gate is false, eagerly
+masked by it), and every lane field is written into the carry's own
+tensors. On a CUDA device the iteration runs as replays of one CUDA graph
+of ``engine.GRAPH_STEPS`` steps, the host reading the counters once a
+replay; on the CPU one step at a time. No event is gated on an
+``any()``, since the walk returns at once for lanes that are not active.
+An external sphere's emission peels with its inward normal's cosine law,
+as a star's with its outward one. The monochromatic iteration
+(``mono.py``) peels through :func:`peel_and_bin` too."""
 
 import math
 from dataclasses import dataclass, field
@@ -38,6 +39,7 @@ import torch
 
 from .engine import (_select_col, drive_graph, drive_steps, emit_options,
                      imaging_step_counts, own_carry, put, put_where,
+                     run_refill,
                      sample_emission_nu, select_dust,
                      update_optical_constants)
 from .escape_tau import EscapeTau
@@ -707,6 +709,8 @@ class FinalCarry:
     binned_acc: Optional[PeelAccum]
     killed_int: torch.Tensor       # () int64
     n_events: torch.Tensor         # () int64, lanes that moved or jumped
+    # () int64 device count of the refills that ran (engine.run_if)
+    refills: torch.Tensor = 0
 
     def __post_init__(self):
         own_carry(self)
@@ -881,12 +885,11 @@ def make_final_step(geometry, walk_geometry, dt, st, density, jnu_var_id,
             (carry.n_pending > 0)
         # refill when >= 1/4 of the lanes are dead (or none is alive) while
         # budget remains, or a re-absorbed photon waits (the JAX step
-        # refills every step; the emission pass runs over every lane
-        # either way)
+        # refills every step), as the Lucy step does (engine.run_if)
         gate = ((carry.budget > 0) & ((carry.n_alive * 4 <= 3 * B) |
                                       (carry.n_alive == 0))) | \
             (carry.n_pending > 0)
-        refill(carry, u, gate)
+        run_refill(refill, carry, u, gate)
 
         cell_safe = p.cell.clamp_min(0)
         rho_rows = rho_t[cell_safe]
@@ -1171,7 +1174,9 @@ def finish_final(carry, n_steps):
     killed and counted in killed_int."""
     p = carry.packets
     killed_int = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()
-    killed_int, n_events = torch.stack([killed_int, carry.n_events]).tolist()
+    killed_int, n_events, refills = torch.stack(
+        [killed_int, carry.n_events, carry.refills]).tolist()
+    imaging_step_counts['refills'] += refills
     return FinalResult(carry.accums, carry.binned_acc,
                        float(carry.energy_current), killed_int, n_steps,
                        n_events)

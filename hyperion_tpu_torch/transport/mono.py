@@ -20,11 +20,13 @@ energy_total / n; dust: 1, the photons carrying their share) and summed.
 
 The step follows ``imaging.make_final_step``: one ``(n_rows, B)`` block of
 uniforms per step from a ``torch.Generator``, the counters on the device,
-the refill in every step masked by the imaging step's device gate, the
-lanes written in place and no host read inside a step; no event is gated
-on an ``any()``. Each pass builds its own step, and on a CUDA device runs
-as replays of its own CUDA graph of ``engine.GRAPH_STEPS`` steps (the
-host reading the counters once a replay), on the CPU one step at a time.
+the refill under the imaging step's device gate (``engine.run_if``: in a
+CUDA graph a conditional node skipped where the gate is false, eagerly
+masked), the lanes written in place and no host read inside a step; no
+event is gated on an ``any()``. Each pass builds its own step, and on a
+CUDA device runs as replays of its own CUDA graph of
+``engine.GRAPH_STEPS`` steps (the host reading the counters once a
+replay), on the CPU one step at a time.
 The host tables (:func:`source_mono_energies`,
 :func:`dust_mono_cell_pdfs`) are numpy."""
 
@@ -36,7 +38,8 @@ import torch
 
 from ..parallel.mesh import run_mono_pass_sharded
 from .engine import (drive_graph, drive_steps, mono_step_counts, own_carry,
-                     put, put_where, select_dust, update_optical_constants)
+                     put, put_where, run_refill, select_dust,
+                     update_optical_constants)
 from .ffi import sample_first_interaction
 from .gtable import ESCAPED, position_uniforms
 from .imaging import PeelAccum, Provenance, peel_and_bin
@@ -196,6 +199,8 @@ class MonoCarry:
     accums: list
     killed_int: torch.Tensor   # () int64
     n_events: torch.Tensor     # () int64, lanes that moved
+    # () int64 device count of the refills that ran (engine.run_if)
+    refills: torch.Tensor = 0
 
     def __post_init__(self):
         own_carry(self)
@@ -421,8 +426,10 @@ def make_mono_step(geometry, walk, dt, st, density, groups, config, mode,
         gate = ((carry.budget > 0) & ((carry.n_alive * 4 <= 3 * B) |
                                       (carry.n_alive == 0))) | \
             (carry.n_pending > 0)
-        refill(carry, u, gate)
+        # the lanes' constants are made outside the gated body: a tensor
+        # made in a skipped body holds nothing
         nu, chi_rows = consts(B, p.x.device)
+        run_refill(refill, carry, u, gate)
 
         active = p.alive
         cell_safe = p.cell.clamp_min(0)
@@ -527,7 +534,9 @@ def finish_mono_pass(carry, n_steps):
     counted."""
     p = carry.packets
     killed = carry.killed_int + p.alive.sum() + (p.reemit_src >= 0).sum()
-    killed, n_events = torch.stack([killed, carry.n_events]).tolist()
+    killed, n_events, refills = torch.stack(
+        [killed, carry.n_events, carry.refills]).tolist()
+    mono_step_counts['refills'] += refills
     return carry.accums, killed, n_steps, n_events
 
 

@@ -39,7 +39,8 @@ wall (host clock, the card synchronised; an imaging
 iteration's the runner's own, around run_final or the monochromatic
 passes), steps, photons/s and ms a step; with the graph driver also its
 replays and host reads a step (``engine.step_counts``, and the imaging
-and monochromatic iterations' own counts). Prints one JSON object of all
+and monochromatic iterations' own counts; in a package with gated bodies,
+``engine.run_if``, also the refills and MRW moves that ran). Prints one JSON object of all
 turns and writes it to chiprun_out/lucy_graph_ab.json.
 """
 
@@ -171,7 +172,9 @@ def run_turn(workloads):
     # the package's kernels built before the first workload (a package's
     # first turn builds them, which no iteration should be timed with)
     t0 = time.time()
-    _build.build('deposit_visit', 'escape_tau', 'voronoi_locate')
+    _build.build(*(name for name in ('deposit_visit', 'escape_tau',
+                                     'voronoi_locate', 'cond_node')
+                   if (_build.CSRC / (name + '.cu')).exists()))
     out['build_s'] = time.time() - t0
     for name in workloads:
         if hasattr(engine, 'reset_step_counts'):

@@ -33,7 +33,11 @@ the way the drivers run it on the card (``engine.drive_graph``):
 ``--warmup`` eager steps, a CUDA graph of GRAPH_STEPS steps captured, and
 ``--steps`` / GRAPH_STEPS replays each followed by the host's read of the
 counters, profiled and then timed (and the capture and the first replay
-timed alone); a CUDA graph of GRAPH_STEPS refills masked off (a step in
+timed alone), with the gated bodies that ran a step (the refills, the
+Lucy step's MRW moves: ``engine.run_if``, which a replay skips where the
+gate is false); the cost of a conditional node (a graph of 64 tiny steps
+against the same with a gated body behind a false gate, in turns); a
+CUDA graph of GRAPH_STEPS refills masked off (a step in
 which no lane is refilled still runs its refill's emission pass) is timed
 with CUDA events and profiled, its device time split into the
 ``index_add_`` kernels (the peel cubes' and the visits' sums), the
@@ -392,7 +396,11 @@ def graph_figures(name, warmup, n_steps):
 
     run()
     torch.cuda.synchronize()
+    before = bodies(carry)
     out = profiled(run, replays * k)
+    # the gated bodies that ran in the profiled and the timed replays
+    out.update({'%s_per_step' % name: (n - before[name]) / (2 * replays * k)
+                for name, n in bodies(carry).items()})
     out.update(graph_steps=k, replays=replays, capture_s=capture_s,
                first_replay_s=first_replay_s, reads_per_step=1.0 / k,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() /
@@ -401,6 +409,51 @@ def graph_figures(name, warmup, n_steps):
     out.update(refill_figures(carry, step, gen, k))
     out.update(find_cell_figures(carry, geo))
     return out
+
+
+def bodies(carry):
+    """{name: count} of the gated bodies that a carry has run
+    (``engine.run_if``; a package without them: none)."""
+    return {name: int(getattr(carry, name)) for name in
+            ('refills', 'mrw_moves') if hasattr(carry, name)}
+
+
+def node_figures(n=64):
+    """The cost of a conditional node (``engine.run_if`` in a graph):
+    device us a step of graphs of ``n`` steps, each one tiny kernel, then
+    the same with a gated body of one more such kernel behind a gate
+    false, then true, in turns (CUDA events); a node's cost is the false
+    graph's step less the plain one's."""
+    import numpy as np
+    import torch
+    from hyperion_tpu_torch.transport import engine
+
+    dev = torch.device('cuda')
+    x = torch.zeros((), device=dev)
+    gates = {v: torch.full((), v, dtype=torch.bool, device=dev)
+             for v in (False, True)}
+    graphs = {}
+    for how in ('plain', 'false', 'true'):
+        def step(carry, generator, how=how):
+            x.add_(1.0)
+            if how != 'plain':
+                engine.run_if(gates[how == 'true'], lambda: x.add_(1.0))
+        step.counts = dict(engine.step_counts)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graphs[how] = engine.capture_steps(
+                None, step, torch.Generator(device=dev), n)
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[how].replay()
+    times = {how: [] for how in graphs}
+    for how in ('plain', 'false', 'true', 'true', 'false', 'plain'):
+        times[how].append(event_us(torch, graphs[how], per=n))
+    us = {how: float(np.mean(t)) for how, t in times.items()}
+    return dict(node_us_step_plain=us['plain'],
+                node_us_step_gate_false=us['false'],
+                node_us_step_gate_true=us['true'],
+                node_us=us['false'] - us['plain'], node_turns=times)
 
 
 def deposit_variant(own_index):
@@ -535,6 +588,8 @@ def main():
     del carry, step
     if graph:
         out['graph'] = graph_figures(args.model, args.warmup, args.steps)
+        if hasattr(engine, 'run_if'):
+            out['graph'].update(node_figures())
     if args.sink_ab and graph and args.model not in LUCY:
         out['sink_ab'] = sink_ab(args.model, args.warmup)
     print(json.dumps(out, indent=1))
