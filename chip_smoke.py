@@ -6,8 +6,8 @@
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. the card and the software: name and power limit, torch, CUDA, nvcc;
-2. build the deposit_visit, escape_tau and voronoi_locate kernels and the
-   conditional nodes' library (cond_node) from
+2. build the deposit_visit, escape_tau, voronoi_locate and octree_locate
+   kernels and the conditional nodes' library (cond_node) from
    hyperion_tpu_torch/transport/csrc, one nvcc per source, all at once;
 3. the kernel against its plain PyTorch version, counts and uids equal and
    float32 energies within rtol 1e-4 of a float64 plain run (the kernel's
@@ -176,7 +176,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    raytraced photon outside the grid or its cell, the native library
    loaded; walls, steps, ms per step, occupancy and host reads per stage;
    then the three kernels against their plain versions on this run's own
-   calls (phase 14's way);
+   calls (phase 14's way); the octree's locate kernel (octree_locate: its
+   find_cell and find_wall) launched in the Lucy and the imaging
+   iterations, and bit-equal to its plain versions on every call of three
+   Lucy steps (B = 131,072 float32 lanes), with its device and host time a
+   call and its bound;
 17. BASELINE.md config 5 on one card (orion_amr_model: a BoxLib plotfile
    of 3 levels of 8 fabs of 32^3 cells written here and read by the
    port's parse_orion, a dense core of tau ~ 100 with a 10 Lsun sink, MRW
@@ -410,6 +414,19 @@ LOCATE_FLOPS_PER_LANE = 8
 LOCATE_FLOPS_LATTICE = 15
 LOCATE_FLOPS_PER_NEIGHBOUR = 9
 VORONOI_LOCATE_SOURCE = 'hyperion_tpu_torch/transport/csrc/voronoi_locate.cu'
+OCTREE_LOCATE_SOURCE = 'hyperion_tpu_torch/transport/csrc/octree_locate.cu'
+OCTREE_LOCATE_REPLACES = 'hyperion_tpu/transport/gtable_octree.py:42'
+# the octree locate's operations (octree_locate.cu): per lane the root box
+# test (6 compares) and per level the octant (3 compares); find_wall adds
+# the box exit (3 subtractions, 3 divisions, 2 minima, 3 compares for the
+# axis) and the landing point (3 products, 3 sums)
+OCTREE_OPS_PER_LANE = 6
+OCTREE_OPS_PER_LEVEL = 3
+OCTREE_WALL_OPS = 17
+# the record bytes a level reads (the centre, parent word, leaf mask and
+# children: 64 of a node's 128) and a leaf's walls (48)
+OCTREE_NODE_BYTES = 64
+OCTREE_WALL_BYTES = 48
 # an XLA fori_loop with its lattice start, not a Pallas kernel
 VORONOI_LOCATE_REPLACES = 'hyperion_tpu/transport/gtable_voronoi.py:49'
 # phase 18 (voronoi_cloud): config 4's cloud meshed as a moving-mesh code
@@ -3904,6 +3921,41 @@ def forced_weights():
         imaging.sample_first_interaction = inner
 
 
+@contextlib.contextmanager
+def stage_launches(kernels):
+    """The launches of each kernel module of ``kernels`` ({name: module},
+    its ``launches`` count) made inside the Lucy iterations
+    (``lucy.run_lucy_iteration``) and the imaging iteration
+    (``imaging.run_final``) run inside the block; yields {name: {'lucy': n,
+    'imaging': n}}."""
+    from hyperion_tpu_torch.transport import imaging, lucy
+
+    out = {name: dict(lucy=0, imaging=0) for name in kernels}
+    stages = dict(lucy=(lucy, 'run_lucy_iteration'),
+                  imaging=(imaging, 'run_final'))
+    inner = {stage: getattr(mod, attr) for stage, (mod, attr)
+             in stages.items()}
+
+    def counted(stage):
+        @functools.wraps(inner[stage])
+        def run(*args, **kw):
+            before = {name: mod.launches for name, mod in kernels.items()}
+            try:
+                return inner[stage](*args, **kw)
+            finally:
+                for name, mod in kernels.items():
+                    out[name][stage] += mod.launches - before[name]
+        return run
+
+    for stage, (mod, attr) in stages.items():
+        setattr(mod, attr, counted(stage))
+    try:
+        yield out
+    finally:
+        for stage, (mod, attr) in stages.items():
+            setattr(mod, attr, inner[stage])
+
+
 def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
                  max_steps, imaging_max_steps, mrw=False, batch_size=None,
                  more_kernels=None, wrap_step=None):
@@ -3923,7 +3975,9 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     witness's eager run, whose step ``wrap_step`` wraps, escape_tau on
     the WALK_WINDOWS steps of the imaging witness's eager run).
     ``more_kernels``: {name: module} of other
-    kernels whose ``launches`` count is reset and read with these. Returns
+    kernels whose ``launches`` count is reset and read with these, and
+    split between the Lucy and the imaging iterations
+    (:func:`stage_launches`, the report's 'launches_by_stage'). Returns
     ({kernel: launches}, run, report)."""
     import torch
     from hyperion_tpu_torch.model import run_lucy_model
@@ -3941,7 +3995,7 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
     with transport_syncs() as syncs, imaging_syncs() as img_syncs, \
             peel_events(et) as peels, first_lucy_iteration() as first, \
             first_imaging() as fimg, column_calls() as ccalls, \
-            mrw_jumps() as jumps:
+            mrw_jumps() as jumps, stage_launches(more_kernels) as stages:
         run = run_lucy_model(model, device='cuda', batch_size=batch_size,
                              max_steps=max_steps,
                              imaging_max_steps=imaging_max_steps)
@@ -3984,7 +4038,7 @@ def box_grid_run(what, kind, dv, et, card, model, n_photons, n_imaging,
                mrw_jumps=n_jumps,
                escape_tau_launches_per_step=launches['escape_tau'] /
                img.n_steps, peel_events_per_step=peels['events'] /
-               img.n_steps,
+               img.n_steps, launches_by_stage=stages,
                raytracing=dict(wall_s=ray['wall'], batches=ray['batches'],
                                photons=ray['photons'],
                                outside=ray['outside']),
@@ -4060,8 +4114,13 @@ def sph_octree_phase(dv, et, card, n_photons, n_iterations, max_steps,
     the cube (+1e-9 relative) and at least 95% of it (kernel mass spills
     past the faces); the all-direction binned SED over the dust table's
     frequency range within 3% of the sources' 1.2e4 Lsun (every photon
-    escapes); the native library built and loaded. Returns ({kernel:
-    launches}, report)."""
+    escapes); the native library built and loaded; the locate kernel
+    (octree_locate) launched in the Lucy and in the imaging iterations, and
+    bit-equal to its plain versions on every call of Lucy steps 41-43 of
+    graph_witness's eager run (:func:`check_octree_locate`). Returns
+    ({kernel: launches}, report)."""
+    from hyperion_tpu_torch.transport import octree_locate as ol
+
     t0 = time.time()
     m, info = sph_octree_model(n_photons, n_iterations, n_imaging)
     build_s = time.time() - t0
@@ -4080,9 +4139,22 @@ def sph_octree_phase(dv, et, card, n_photons, n_iterations, max_steps,
     if not 0.95 <= ratio <= 1.0 + 1e-9:
         raise AssertionError('sph_octree: the grid holds %.6f of the '
                              'particles\' dust mass' % ratio)
-    launches, run, out = box_grid_run(
-        'sph_octree', 'octree', dv, et, card, m, n_photons, n_imaging,
-        max_steps, imaging_max_steps)
+    with octree_calls(40, 43) as ocalls:
+        launches, run, out = box_grid_run(
+            'sph_octree', 'octree', dv, et, card, m, n_photons, n_imaging,
+            max_steps, imaging_max_steps,
+            more_kernels=dict(octree_locate=ol), wrap_step=ocalls['wrap'])
+    stages = out['launches_by_stage']['octree_locate']
+    phase('sph_octree: octree_locate %d launches on the main path (a launch '
+          'captured into a graph counts once): %d in the Lucy iterations, %d '
+          'in the imaging iteration [%s]'
+          % (launches['octree_locate'], stages['lucy'], stages['imaging'],
+             card))
+    if not (stages['lucy'] and stages['imaging']):
+        raise AssertionError('sph_octree: octree_locate was not launched in '
+                             'both iterations: %s' % stages)
+    out['octree_locate'] = check_octree_locate(
+        'sph_octree Lucy steps 41-43', ocalls['calls'], card)
     res, img = run.result, run.imaging
     if res.killed_int or any(r['steps'] >= max_steps
                              for r in out['iterations']):
@@ -4115,6 +4187,227 @@ def sph_octree_phase(dv, et, card, n_photons, n_iterations, max_steps,
           % (ratio, total, SPH_OCT['luminosity_lsun'],
              total / SPH_OCT['luminosity_lsun'], card))
     return launches, out
+
+
+@contextlib.contextmanager
+def octree_calls(first, last):
+    """Record the octree locate's calls (``OctreeLocate.find_cell`` and
+    ``find_wall``, with what they returned) made in steps ``first`` to
+    ``last`` (from 0) of a Lucy step that ``rec['wrap']`` wraps (the eager
+    loop of :func:`graph_witness`); yields {'calls': [(locator, cell or
+    None, lanes, outputs)], 'wrap': the step wrapper}, cloned."""
+    from hyperion_tpu_torch.transport.octree_locate import OctreeLocate
+
+    state = dict(on=False)
+    cls = OctreeLocate
+    inner = (cls.find_cell, cls.find_wall)
+
+    def keep(self, cell, lanes, outs):
+        if state['on']:
+            rec['calls'].append(
+                (self, None if cell is None else cell.clone(),
+                 [a.clone() for a in lanes], [o.clone() for o in outs]))
+
+    def find_cell(self, *lanes):
+        out = inner[0](self, *lanes)
+        keep(self, None, lanes, [out])
+        return out
+
+    def find_wall(self, cell, *lanes):
+        out = inner[1](self, cell, *lanes)
+        keep(self, cell, lanes, out)
+        return out
+
+    def wrap(step):
+        n = [0]
+
+        @functools.wraps(step)
+        def counted(carry, generator):
+            state['on'] = first <= n[0] < last
+            n[0] += 1
+            try:
+                step(carry, generator)
+            finally:
+                state['on'] = False
+        return counted
+
+    rec = dict(calls=[], wrap=wrap)
+    cls.find_cell, cls.find_wall = find_cell, find_wall
+    try:
+        yield rec
+    finally:
+        cls.find_cell, cls.find_wall = inner
+
+
+def differing_bits(got, want):
+    """The elements of ``got`` whose bits differ from ``want``'s (all of
+    them where the dtypes or shapes differ; a float's sign of zero
+    counts)."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return max(got.numel(), want.numel())
+    if got.dtype.is_floating_point:
+        view = torch.int32 if got.dtype == torch.float32 else torch.int64
+        got, want = got.view(view), want.view(view)
+    return int((got != want).sum())
+
+
+def max_abs_diff(got, want):
+    """The largest |got - want| over the elements, in float64 (0.0 where
+    the bits are equal everywhere; inf where the dtypes or shapes differ)."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return float('inf')
+    if got.numel() == 0:
+        return 0.0
+    diff = (got.double() - want.double()).abs()
+    if got.dtype.is_floating_point:
+        view = torch.int32 if got.dtype == torch.float32 else torch.int64
+        diff = torch.where(got.view(view) == want.view(view), 0.0, diff)
+    return float(diff.max())
+
+
+def octree_descend_reads(geo, x, y, z, kx, ky, kz):
+    """The root descends of points by the plain rule: (the refined nodes
+    read, unique, the levels read, summed over the lanes inside the root
+    box)."""
+    import torch
+    from hyperion_tpu_torch.transport.gtable_octree import upper
+
+    node = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    active = geo._inside(x, y, z, kx, ky, kz)
+    seen, levels = [], 0
+    for _ in range(geo.max_depth):
+        active = active & geo.refined[node]
+        seen.append(node[active])
+        levels += int(active.sum())
+        c = geo.centers[node]
+        octant = (upper(x, c[:, 0], kx).long() +
+                  2 * upper(y, c[:, 1], ky).long() +
+                  4 * upper(z, c[:, 2], kz).long())
+        node = torch.where(active, geo.children[node, octant], node)
+    return int(torch.unique(torch.cat(seen)).numel()), levels
+
+
+def check_octree_locate(what, calls, card):
+    """The octree locate kernel on recorded calls of the main path: the
+    run's own outputs and a relaunch's equal to the plain versions'
+    (find_cell_reference, find_wall_reference) bit for bit on every lane
+    and output; then for the first find_cell and the first find_wall call:
+    device us a call (CUDA events over a CUDA graph of 10 calls), host us a
+    call (eager calls before the synchronise), the plain version's ms
+    (CUDA events around eager calls), and the bound: the lanes read and
+    the outputs written once, the records that the root descends read
+    (OCTREE_NODE_BYTES a refined node and OCTREE_WALL_BYTES the root's and
+    each leaf's walls, once), over HBM_BYTES_PER_S, against the operations
+    (OCTREE_*_OPS) over the lanes' type's rate."""
+    import torch
+    from hyperion_tpu_torch.transport import octree_locate as ol
+
+    if not calls:
+        raise AssertionError('octree_locate %s: no call recorded' % what)
+    mismatched, max_err = 0, 0.0
+    first = {}
+    for loc, cell, lanes, outs in calls:
+        geo = loc.geo
+        if cell is None:
+            ref = [ol.find_cell_reference(geo, *lanes)]
+            again = [loc.find_cell(*lanes)]
+        else:
+            ref = list(ol.find_wall_reference(geo, cell, *lanes))
+            again = list(loc.find_wall(cell, *lanes))
+        mismatched += sum(differing_bits(g, w) for got in (outs, again)
+                          for g, w in zip(got, ref))
+        max_err = max([max_err] + [max_abs_diff(g, w) for got in
+                                   (outs, again) for g, w in zip(got, ref)])
+        first.setdefault('find_cell' if cell is None else 'find_wall',
+                         (loc, cell, lanes, ref))
+    torch.cuda.synchronize()
+    out = dict(run=what, calls=len(calls), mismatched=mismatched,
+               max_abs_err=max_err,
+               find_cell_calls=sum(c[1] is None for c in calls),
+               find_wall_calls=sum(c[1] is not None for c in calls))
+    for kind, (loc, cell, lanes, ref) in sorted(first.items()):
+        geo = loc.geo
+        B, elem = lanes[0].shape[0], lanes[0].element_size()
+        rate = FP64_FLOPS if elem == 8 else FP32_FLOPS
+        if cell is None:
+            def call(loc=loc, lanes=lanes):
+                loc.find_cell(*lanes)
+
+            def plain(geo=geo, lanes=lanes):
+                ol.find_cell_reference(geo, *lanes)
+            points = lanes
+            nbytes = B * (6 * elem + 8)
+            ops = B * OCTREE_OPS_PER_LANE
+        else:
+            def call(loc=loc, cell=cell, lanes=lanes):
+                loc.find_wall(cell, *lanes)
+
+            def plain(geo=geo, cell=cell, lanes=lanes):
+                ol.find_wall_reference(geo, cell, *lanes)
+            t, _, ax, wall = ref
+            points = list(geo.snap(*(p + t * k for p, k in
+                                     zip(lanes[:3], lanes[3:])), ax, wall,
+                                   torch.ones_like(cell, dtype=torch.bool)))
+            points += lanes[3:]
+            # the cell and six lanes in; t, the next cell, the axis and the
+            # wall out; each leaf's walls once
+            nbytes = B * (8 + 6 * elem + 2 * elem + 16) + \
+                int(torch.unique(cell).numel()) * OCTREE_WALL_BYTES
+            ops = B * (OCTREE_OPS_PER_LANE + OCTREE_WALL_OPS)
+        nodes, levels = octree_descend_reads(geo, *points)
+        nbytes += nodes * OCTREE_NODE_BYTES + OCTREE_WALL_BYTES
+        ops += levels * OCTREE_OPS_PER_LEVEL
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+        t_ops = ops / rate * 1e6
+        out[kind] = dict(
+            B=B, dtype=str(lanes[0].dtype), device_us=graph_us(call, 10),
+            host_us=host_us(call, 200), plain_ms=event_ms(plain, 10),
+            bound_us=max(t_bytes, t_ops),
+            bound_by='bytes' if t_bytes >= t_ops else 'operations',
+            bytes=nbytes, ops=ops, records_read=nodes,
+            levels_per_lane=levels / B, depth=geo.max_depth,
+            nodes=geo.n_nodes)
+        phase('octree_locate %s %s (B=%d %s, %d nodes of depth %d): device '
+              '%.2f us, host %.2f us a call, plain %.4f ms, bound %.3f us '
+              '(%s: %d bytes, %d operations; %d refined nodes read, %.3f '
+              'levels a lane) [%s]'
+              % (what, kind, B, out[kind]['dtype'], geo.n_nodes,
+                 geo.max_depth, out[kind]['device_us'], out[kind]['host_us'],
+                 out[kind]['plain_ms'], out[kind]['bound_us'],
+                 out[kind]['bound_by'], nbytes, ops, nodes,
+                 levels / B, card))
+    phase('octree_locate %s: %d calls (%d find_cell, %d find_wall), %d '
+          'outputs whose bits differ from the plain versions\' (the run\'s '
+          'and a relaunch\'s), max abs difference %r [%s]'
+          % (what, len(calls), out['find_cell_calls'],
+             out['find_wall_calls'], mismatched, max_err, card))
+    if mismatched or 'find_cell' not in out or 'find_wall' not in out:
+        raise AssertionError('octree_locate %s: the kernel against its '
+                             'plain versions: %s' % (what, out))
+    return out
+
+
+def octree_locate_kernel(oct_, n_launches):
+    """The kernels line's octree_locate entry: phase 16's find_cell calls
+    as the headline, its find_wall calls beside them; 'mismatched' counts
+    the outputs whose bits differ from the plain versions'."""
+    rec = oct_['octree_locate']
+    c = rec['find_cell']
+    keys = ('B', 'device_us', 'host_us', 'plain_ms', 'bound_us', 'bound_by',
+            'levels_per_lane')
+    return dict(
+        name='octree_locate', route='cuda', source=OCTREE_LOCATE_SOURCE,
+        replaces=OCTREE_LOCATE_REPLACES, launches=n_launches,
+        max_abs_err=rec['max_abs_err'], mismatched=rec['mismatched'],
+        ms=c['device_us'] / 1e3,
+        plain_ms=c['plain_ms'], bound_ms=c['bound_us'] / 1e3,
+        bound_by=c['bound_by'], library_ms=None, device_us=c['device_us'],
+        host_us=c['host_us'], bound_us=c['bound_us'],
+        launches_by_stage=oct_['launches_by_stage']['octree_locate'],
+        calls={kind: {k: rec[kind][k] for k in keys}
+               for kind in ('find_cell', 'find_wall')})
 
 
 def orion_amr_phase(dv, et, card, n_photons, n_iterations, max_steps,
@@ -4192,7 +4485,8 @@ def hierarchical_kernels(records, launches):
              f64_max_rel_err=max(r['columns']['f64_max_rel_err']
                                  for r in records),
              calls=[{k: r['columns'][k] for k in col_keys}
-                    for r in records])]
+                    for r in records]),
+        octree_locate_kernel(oct_, sum(launches['octree_locate'].values()))]
 
 
 # ------------------- phase 18: config 4's cloud on a Voronoi mesh (voronoi) --
@@ -5017,7 +5311,7 @@ def main():
     # 2. build the libraries, one nvcc each, all at once
     t0 = time.time()
     libs = _build.build('deposit_visit', 'escape_tau', 'voronoi_locate',
-                        'cond_node')
+                        'octree_locate', 'cond_node')
     phase('built %s in %.2f s' % (', '.join(lib.name for lib in libs),
                                   time.time() - t0))
 
@@ -5035,7 +5329,7 @@ def main():
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda)
     launches = dict(deposit_visit={}, escape_tau={}, escape_column={},
-                    voronoi_locate={})
+                    voronoi_locate={}, octree_locate={})
 
     def run_phase(n, fn, *a, **kw):
         t0 = time.time()
@@ -5167,7 +5461,8 @@ def main():
         vor = voronoi_phase()
         (OUT / 'voronoi.json').write_text(json.dumps(record, indent=1))
         kernels = voronoi_kernels(vor, {k: v['voronoi_cloud']
-                                        for k, v in launches.items()})
+                                        for k, v in launches.items()
+                                        if 'voronoi_cloud' in v})
         print(json.dumps({'kernels': kernels}), flush=True)
         print(result_line, flush=True)
         return 0
@@ -5327,7 +5622,9 @@ def main():
                         'bound_us', 'bound_by', 'longest_walk')}
                         for w in walks]),
                column_kernel(cols),
-               locate_kernel(vor, sum(launches['voronoi_locate'].values()))]
+               locate_kernel(vor, sum(launches['voronoi_locate'].values())),
+               octree_locate_kernel(boxes[0],
+                                    sum(launches['octree_locate'].values()))]
     record['kernels'] = kernels
     (OUT / 'results.json').write_text(json.dumps(record, indent=1,
                                                  default=_jsonable))

@@ -19,12 +19,13 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
-# flags of one source on top of NVCC_FLAGS: escape_tau and voronoi_locate
-# keep a*b + c as two roundings, as PyTorch's element-wise kernels do (see
-# their source notes); ptxas reports each kernel's registers and spills
-# (ptxas_log)
+# flags of one source on top of NVCC_FLAGS: escape_tau, voronoi_locate and
+# octree_locate keep a*b + c as two roundings, as PyTorch's element-wise
+# kernels do (see their source notes); ptxas reports each kernel's
+# registers and spills (ptxas_log)
 EXTRA_FLAGS = {'escape_tau': ['-fmad=false', '-Xptxas', '-v'],
-               'voronoi_locate': ['-fmad=false', '-Xptxas', '-v']}
+               'voronoi_locate': ['-fmad=false', '-Xptxas', '-v'],
+               'octree_locate': ['-fmad=false', '-Xptxas', '-v']}
 
 _loaded = {}
 

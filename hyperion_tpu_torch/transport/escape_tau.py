@@ -46,6 +46,7 @@ from .gtable_cylindrical import CylindricalGeometry
 from .gtable_octree import OctreeGeometry
 from .gtable_spherical import SphericalGeometry
 from .gtable_voronoi import ROW_PAD, VoronoiGeometry
+from .octree_locate import find_wall_reference as octree_find_wall
 
 # kernel launches since the last reset, of the tau walk and of the column
 # mode; chip_smoke.py reads them to show that the main path ran the kernel
@@ -102,6 +103,12 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
                       dtype=x.dtype, device=x.device)
     n_cross = torch.zeros_like(cell)
     remaining = t_max
+    find_wall = geometry.find_wall
+    if isinstance(geometry, OctreeGeometry):
+        # the octree's find_wall launches octree_locate on the card: the
+        # plain walk keeps the plain PyTorch version there too
+        def find_wall(*lanes):
+            return octree_find_wall(geometry, *lanes)
     i = 0
     while i < max_steps and bool(active.any()):
         n_cross += active
@@ -111,7 +118,7 @@ def _walk(geometry, rho_t, chi_rows, x, y, z, kx, ky, kz, cell, active,
         if facing is not None:
             facing += (geometry.facing_neighbours(cell_safe, kx, ky, kz) *
                        active).sum()
-        t_wall, next_cell, ax, wall_coord = geometry.find_wall(
+        t_wall, next_cell, ax, wall_coord = find_wall(
             cell_safe, x, y, z, kx, ky, kz)
         rho_rows = rho_t[cell_safe]
         seg = t_wall

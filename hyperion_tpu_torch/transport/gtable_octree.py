@@ -21,13 +21,20 @@ a leaf's walls are the very values that the descend compares against: each
 node's ``lo`` and ``hi`` are built on the host from its parent's centre and
 bounds in the tables' type, never as ``c +- h`` on the device.
 
+On CUDA tensors :meth:`OctreeGeometry.find_cell` and
+:meth:`OctreeGeometry.find_wall` run in the hand-written kernel of
+``csrc/octree_locate.cu`` (:mod:`.octree_locate`), which descends from the
+root over the node records (:attr:`OctreeGeometry.node_records`); on CPU
+tensors their plain versions :func:`.octree_locate.find_cell_reference`
+and :func:`.octree_locate.find_wall_reference`, the descend of
+:meth:`OctreeGeometry._descend`.
+
 The walk kernel (``csrc/escape_tau.cu``) finds the same leaf another way:
 it walks up from the leaf it leaves to the first ancestor that holds the
 landing point under the descend's own side rule (:meth:`OctreeGeometry.
-holds`), and descends from there, reading one node record a level
-(:attr:`OctreeGeometry.node_records`). :meth:`OctreeGeometry.locate_from`
-is the host copy of that walk, for the tests; the plain walk keeps the
-descend from the root."""
+holds`), and descends from there, reading one node record a level.
+:meth:`OctreeGeometry.locate_from` is the host copy of that walk, for the
+tests."""
 
 from dataclasses import dataclass
 from functools import cached_property
@@ -35,7 +42,6 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from .gtable import ESCAPED
 
 # A node record of the walk kernel (csrc/escape_tau.cu kRecordWords): 16
 # float64 words, 128 bytes, one L2 line of four 32-byte sectors. Words 0-2:
@@ -196,13 +202,21 @@ class OctreeGeometry:
 
         return axis(x, kx, 0) & axis(y, ky, 1) & axis(z, kz, 2)
 
+    @cached_property
+    def locator(self):
+        """The locate of these tables (:class:`.octree_locate.OctreeLocate`),
+        made at the first locate: tables that never locate, such as the
+        float64 copy a walk kernel binds, load no kernel."""
+        from .octree_locate import OctreeLocate
+        return OctreeLocate(self)
+
     def find_cell(self, x, y, z, kx, ky, kz):
         """The leaf of each point (ESCAPED outside the root box); a point on
         a wall belongs to the side its direction moves towards (ref
-        adjust_wall)."""
-        leaf = self._descend(x, y, z, kx, ky, kz)
-        return torch.where(self._inside(x, y, z, kx, ky, kz), leaf,
-                           torch.full_like(leaf, ESCAPED))
+        adjust_wall). The octree_locate kernel on CUDA tensors, its plain
+        version :func:`.octree_locate.find_cell_reference` on CPU ones."""
+        return self.locator.find_cell(*(a.contiguous() for a in
+                                        (x, y, z, kx, ky, kz)))
 
     def find_wall(self, cell, x, y, z, kx, ky, kz):
         """The exit from the leaf's box and the leaf beyond it (ref
@@ -210,29 +224,12 @@ class OctreeGeometry:
 
         Returns (t, next_cell, axis, wall_coord): the distance, the leaf
         that holds the exit point snapped onto the crossed wall (found from
-        the root by :meth:`find_cell`, ESCAPED outside the grid), the
-        crossing axis (0/1/2) and the wall coordinate to snap onto."""
-        big = torch.finfo(x.dtype).max / 8
-        lo = self.lo[cell]
-        hi = self.hi[cell]
-
-        def axis(p, k, a):
-            wall = torch.where(k > 0, hi[:, a], lo[:, a])
-            # a point a hair past the wall it moves to (rounding after a
-            # diagonal move) crosses it at once
-            t = torch.where(k != 0.0, ((wall - p) / k).clamp_min(0.0), big)
-            return t, wall
-
-        t1, w1 = axis(x, kx, 0)
-        t2, w2 = axis(y, ky, 1)
-        t3, w3 = axis(z, kz, 2)
-        t = torch.minimum(torch.minimum(t1, t2), t3)
-        ax = torch.where(t == t1, 0, torch.where(t == t2, 1, 2))
-        wall_coord = torch.where(ax == 0, w1, torch.where(ax == 1, w2, w3))
-        xe, ye, ze = self.snap(x + t * kx, y + t * ky, z + t * kz, ax,
-                               wall_coord, torch.ones_like(cell, dtype=bool))
-        next_cell = self.find_cell(xe, ye, ze, kx, ky, kz)
-        return t, next_cell, ax, wall_coord
+        the root as :meth:`find_cell` finds it, ESCAPED outside the grid),
+        the crossing axis (0/1/2) and the wall coordinate to snap onto. The
+        octree_locate kernel on CUDA tensors, its plain version
+        :func:`.octree_locate.find_wall_reference` on CPU ones."""
+        return self.locator.find_wall(*(a.contiguous() for a in
+                                        (cell, x, y, z, kx, ky, kz)))
 
     def closest_wall_distance(self, cell, x, y, z):
         """Perpendicular distance to the nearest wall of the leaf (the MRW

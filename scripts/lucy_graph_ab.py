@@ -8,7 +8,9 @@ phases 4, 5, 8, 9 and 12.
                                                   class2,yso_thick,
                                                   tutorial_imaging,
                                                   class2_imaging,
-                                                  quickstart_mono]
+                                                  quickstart_mono,
+                                                  sph_octree,
+                                                  sph_octree_imaging]
 
 DIR holds another commit's ``hyperion_tpu_torch/`` (``git archive <rev>
 hyperion_tpu_torch | tar -x -C DIR``); "new" is this checkout's, and
@@ -32,7 +34,12 @@ this checkout's chip_smoke.py) and runs, on the card in float32:
   50,000, capped at 1,000 steps), the same way;
 - quickstart_mono: phase 12 (a)'s monochromatic iteration (500,000 source
   and 500,000 dust photons at each of 5 wavelengths), the grid given a
-  uniform 30 K specific energy.
+  uniform 30 K specific energy;
+- sph_octree: phase 16's 5 Lucy iterations of 1,000,000 photons (config 4's
+  octree, B = 131,072) through run_lucy_model, its imaging and raytracing
+  left out (not in the default list);
+- sph_octree_imaging: phase 16's imaging iteration (1,000,000 photons),
+  with no Lucy iteration and no raytracing (not in the default list).
 
 A turn builds its package's kernels first, untimed. Each iteration's
 wall (host clock, the card synchronised; an imaging
@@ -58,6 +65,7 @@ WORKLOADS = ('tutorial', 'quickstart', 'class2', 'yso_thick',
 # each imaging workload's step counts in the engine module
 IMAGING_COUNTS = dict(tutorial_imaging='imaging_step_counts',
                       class2_imaging='imaging_step_counts',
+                      sph_octree_imaging='imaging_step_counts',
                       quickstart_mono='mono_step_counts')
 
 
@@ -160,6 +168,28 @@ def quickstart_mono():
         run_lucy_model(mono_model(se, False), device='cuda'))
 
 
+def sph_octree():
+    from chip_smoke import SPH_OCT_CUT, sph_octree_model
+    from hyperion_tpu_torch.model import run_lucy_model
+    cut = SPH_OCT_CUT
+    m, _ = sph_octree_model(cut['n_photons'], cut['n_iterations'], 0,
+                            raytracing=None)
+    m.peeled_output = []
+    m.binned_output = None
+    return cut['n_photons'], rows_of(run_lucy_model(
+        m, device='cuda', max_steps=cut['max_steps']))
+
+
+def sph_octree_imaging():
+    from chip_smoke import SPH_OCT_CUT, sph_octree_model
+    from hyperion_tpu_torch.model import run_lucy_model
+    cut = SPH_OCT_CUT
+    m, _ = sph_octree_model(cut['n_photons'], 0, cut['n_imaging'],
+                            raytracing=None)
+    return cut['n_imaging'], imaging_rows(run_lucy_model(
+        m, device='cuda', imaging_max_steps=cut['imaging_max_steps']))
+
+
 def run_turn(workloads):
     """One turn in this process: each workload's iterations."""
     import torch
@@ -173,7 +203,8 @@ def run_turn(workloads):
     # first turn builds them, which no iteration should be timed with)
     t0 = time.time()
     _build.build(*(name for name in ('deposit_visit', 'escape_tau',
-                                     'voronoi_locate', 'cond_node')
+                                     'voronoi_locate', 'octree_locate',
+                                     'cond_node')
                    if (_build.CSRC / (name + '.cu')).exists()))
     out['build_s'] = time.time() - t0
     for name in workloads:

@@ -7,6 +7,7 @@
                                     [--warmup 20] [--steps 48]
                                     [--package DIR] [--graph-steps K]
                                     [--sink-ab]
+    python3 scripts/profile_step.py --loops B
 
 Lucy models: the tutorial (examples/quickstart.py: 32^3 cells, 500,000
 photons, B = 125,000) built with the port's front end; bench.py's yso_thick
@@ -41,8 +42,9 @@ CUDA graph of GRAPH_STEPS refills masked off (a step in
 which no lane is refilled still runs its refill's emission pass) is timed
 with CUDA events and profiled, its device time split into the
 ``index_add_`` kernels (the peel cubes' and the visits' sums), the
-escape_tau kernel and the rest; and the geometry's ``find_cell`` on the
-carry's lanes (kernels a call, device us a call in a graph of 10 calls).
+escape_tau kernel and the rest; and the geometry's ``find_cell`` and
+``find_wall`` on the carry's lanes (kernels a call, device us a call in a
+graph of 10 calls).
 With ``--sink-ab`` (imaging and monochromatic models) the step's graph
 and the masked refill's graph are captured twice, the peel cubes'
 ``_deposit`` sending masked lanes to one slot of the cube (as a sink slot
@@ -52,8 +54,14 @@ carry state, timed with CUDA events. Prints one JSON object: device kernels and 
 launches per step, the host's launch calls per step (kernels, graphs,
 copies and sets), device busy time per step and its share of the profiled
 span, the deposit_visit and escape_tau kernels' device time and launches
-per step, host milliseconds per step, the ten kernels with the most device
-time, and the graph, refill, find_cell and sink figures.
+per step, the octree locate kernels' device time and launches per step
+(each launch one descend from the root a lane), host milliseconds per step,
+the ten kernels with the most device time, and the graph, refill,
+find_cell, find_wall and sink figures.
+
+``--loops B`` profiles, instead of a step, the JAX package's device loops
+that the port still runs as chains of PyTorch ops, one call each on B
+float32 lanes (:func:`loop_figures`): kernels and device us a call.
 
 ``--package DIR`` imports hyperion_tpu_torch from DIR (another commit's
 copy, e.g. ``git archive <rev> hyperion_tpu_torch | tar -x -C DIR``); a
@@ -75,6 +83,9 @@ LUCY = ('tutorial', 'yso_thick', 'quickstart', 'class2', 'sph_octree')
 MODELS = LUCY + ('quickstart_imaging', 'class2_imaging', 'quickstart_mono')
 # escape_tau.cu's kernel (both modes), by its name in a trace
 ESCAPE_TAU = 'walk_kernel'
+# octree_locate.cu's two kernels, by their names in a trace: each is one
+# descend from the root a lane
+OCTREE_LOCATE = ('find_cell_kernel', 'find_wall_kernel')
 # the index_add_ kernels (the peel cubes' and spectrum bins' sums)
 INDEX_ADD = re.compile(r'index(Func|_add)', re.I)
 # the host's calls that put work on the device
@@ -243,6 +254,8 @@ def profiled(run, n_steps):
     busy_us = sum(us for us, _ in by_name.values())
     dv = [v for k, v in by_name.items() if 'deposit_visit' in k]
     et = [v for k, v in by_name.items() if ESCAPE_TAU in k]
+    octree = {name: [v for k, v in by_name.items() if name in k]
+              for name in OCTREE_LOCATE}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     n = n_steps
     return dict(
@@ -255,6 +268,10 @@ def profiled(run, n_steps):
         deposit_visit_launches_per_step=sum(c for _, c in dv) / n,
         escape_tau_us_per_step=sum(us for us, _ in et) / n,
         escape_tau_launches_per_step=sum(c for _, c in et) / n,
+        octree_locate_us_per_step=sum(us for v in octree.values()
+                                      for us, _ in v) / n,
+        **{'octree_%s_launches_per_step' % name.replace('_kernel', ''):
+           sum(c for _, c in v) / n for name, v in octree.items()},
         host_ms_per_step_unprofiled=wall / n * 1e3,
         top_kernels=[dict(name=k[:80], us_per_step=us / n,
                           launches_per_step=c / n)
@@ -339,15 +356,10 @@ def refill_figures(carry, step, gen, k):
     return out
 
 
-def find_cell_figures(carry, geo):
-    """The geometry's find_cell on the carry's lanes: kernels and device us
-    a call (a profile of 10 eager calls; a graph of 10, CUDA events)."""
+def call_figures(call):
+    """Kernels and device us a call of ``call()``: a profile of 10 eager
+    calls, and a CUDA graph of 10 calls timed with CUDA events."""
     import torch
-    p = carry.packets
-
-    def call():
-        geo.find_cell(p.x, p.y, p.z, p.kx, p.ky, p.kz)
-
     call()
     torch.cuda.synchronize()
 
@@ -357,9 +369,72 @@ def find_cell_figures(carry, geo):
 
     split = kernel_split(torch, run, 10)
     graph = capture(torch, 10, call)
-    return dict(find_cell_launches=split['launches'],
-                find_cell_profiled_us=split['device_us'],
-                find_cell_us=event_us(torch, graph, per=10))
+    return dict(launches=split['launches'], profiled_us=split['device_us'],
+                us=event_us(torch, graph, per=10))
+
+
+def find_cell_figures(carry, geo):
+    """The geometry's find_cell and find_wall on the carry's lanes: kernels
+    and device us a call (:func:`call_figures`)."""
+    p = carry.packets
+    lanes = (p.x, p.y, p.z, p.kx, p.ky, p.kz)
+    cell = p.cell.clamp_min(0)
+    out = {}
+    for name, call in (
+            ('find_cell', lambda: geo.find_cell(*lanes)),
+            ('find_wall', lambda: geo.find_wall(cell, *lanes))):
+        out.update({name + '_' + key: v
+                    for key, v in call_figures(call).items()})
+    return out
+
+
+def loop_figures(B):
+    """The JAX package's device loops that the port still runs as chains of
+    PyTorch ops, one call each on ``B`` float32 lanes of seeded inputs
+    (:func:`call_figures`): the polarized scattering angle
+    (``stokes.sample_scatter_stokes``, a bisection of ceil(log2 n_mu) + 1
+    steps over the scattering cumulatives, on class2's dust tables), the
+    limb-darkened emission angle (``stable._sample_limb_mu``, 4 Newton
+    steps) and the Baes16 forced first interaction
+    (``ffi.forced_interaction_baes16``, 60 bisection steps)."""
+    import math
+
+    import torch
+    from chip_smoke import CLASS2_CUT, class2_model
+    from hyperion_tpu_torch.transport import ffi, stable, stokes
+    from hyperion_tpu_torch.transport.dtable import build_dust_tables
+
+    dev, f32 = torch.device('cuda'), torch.float32
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=f32)
+
+    model = class2_model(CLASS2_CUT['n_photons'], 1, CLASS2_CUT['n_imaging'])
+    dt = build_dust_tables(model._dust_objects(), dev, f32)
+    n_mu = dt.mu.shape[1]
+    k = torch.nn.functional.normalize(uniform(3, B) * 2 - 1, dim=0)
+    kx, ky, kz = (a.contiguous() for a in k)
+    dust_id = torch.zeros(B, dtype=torch.int64, device=dev)
+    nu = dt.nu[0, 0] + uniform(B) * (dt.nu[0, -1] - dt.nu[0, 0])
+    rows = stokes.phase_rows(dt, dust_id, nu)
+    q, u, v = (uniform(B) * 0.2 - 0.1 for _ in range(3))
+    u_phi, u_mu, u_limb, u_ffi = (uniform(B) for _ in range(4))
+    tau_escape = uniform(B) * 5.0
+    return dict(
+        lanes=B,
+        stokes_scatter=dict(
+            call_figures(lambda: stokes.sample_scatter_stokes(
+                dt, dust_id, nu, u_phi, u_mu, kx, ky, kz, q, u, v,
+                rows=rows)),
+            n_mu=n_mu,
+            bisection_steps=math.ceil(math.log2(max(n_mu, 2))) + 1),
+        limb_mu=dict(call_figures(lambda: stable._sample_limb_mu(u_limb)),
+                     newton_steps=4),
+        ffi_baes16=dict(
+            call_figures(lambda: ffi.forced_interaction_baes16(
+                u_ffi, tau_escape, 0.5)),
+            bisection_steps=60))
 
 
 def graph_figures(name, warmup, n_steps):
@@ -559,6 +634,9 @@ def main():
                     help='steps a graph holds (engine.GRAPH_STEPS)')
     ap.add_argument('--sink-ab', action='store_true',
                     help='time the peel cubes\' two masked-lane layouts')
+    ap.add_argument('--loops', type=int, default=None, metavar='B',
+                    help='instead of a step: the op-chain loops, one call '
+                    'each on B lanes')
     args = ap.parse_args()
     if args.package:
         sys.path.insert(0, str(Path(args.package).resolve()))
@@ -569,6 +647,10 @@ def main():
     if not torch.cuda.is_available():
         print('profile_step: needs an NVIDIA card', file=sys.stderr)
         return 1
+    if args.loops:
+        print(json.dumps(dict(card=card_line(), torch=torch.__version__,
+                              loops=loop_figures(args.loops)), indent=1))
+        return 0
     if args.graph_steps:
         engine.GRAPH_STEPS = args.graph_steps
     carry, step, gen, geo = build(args.model, args.warmup)

@@ -375,12 +375,12 @@ def test_node_records(source):
 _HOST_TREES = {}
 
 
-def _host_tree(which):
-    if which not in _HOST_TREES:
-        _HOST_TREES[which] = build_octree_geometry(
+def _host_tree(which, dtype=F64):
+    if (which, dtype) not in _HOST_TREES:
+        _HOST_TREES[which, dtype] = build_octree_geometry(
             clumped_tree() if which == 'clumped' else sph_tree('port'), CPU,
-            F64)
-    return _HOST_TREES[which]
+            dtype)
+    return _HOST_TREES[which, dtype]
 
 
 def _crossing_starts(pg, style, seed, n=64):
@@ -457,11 +457,12 @@ def _first_holder(pg, leaf, x, y, z, kx, ky, kz):
     return node
 
 
-@settings(max_examples=300, deadline=None, database=None)
+@pytest.mark.parametrize('dtype', [F64, torch.float32], ids=['f64', 'f32'])
+@settings(max_examples=150, deadline=None, database=None)
 @given(which=st.sampled_from(['sph', 'clumped']),
        style=st.sampled_from(['rays', 'tie', 'along', 'off']),
        seed=st.integers(0, 2 ** 32 - 1))
-def test_walk_up_finds_the_root_descends_leaf(which, style, seed):
+def test_walk_up_finds_the_root_descends_leaf(dtype, which, style, seed):
     """The host copy of the kernel's locate (locate_from: up from the leaf
     to the first ancestor that holds the landing point under the descend's
     side rule, told by the centres it reads, then down) gives, at the
@@ -470,10 +471,13 @@ def test_walk_up_finds_the_root_descends_leaf(which, style, seed):
     the leaf it left. The ancestor it climbs to is the first that holds
     the point by its walls (``holds``) where the point lies on the leaf's
     box, and lies the levels it reports above both leaves, so it descends
-    no more levels than the root descend."""
-    pg = _host_tree(which)
+    no more levels than the root descend. In float64 (the walk kernel's
+    type) and with float32 tables and lanes (the steps' type, in which
+    find_wall computes its landing point)."""
+    pg = _host_tree(which, dtype)
     pos, k, start = _crossing_starts(pg, style, seed)
-    t = [torch.as_tensor(a) for a in (*pos, *k)]
+    t = [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+         for a in (*pos, *k)]
     cell = pg.find_cell(*t) if start is None else torch.as_tensor(start)
     keep = cell >= 0
     t = [a[keep] for a in t]
